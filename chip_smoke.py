@@ -1,0 +1,365 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port (src/repro_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
+``build/``), then at a realistic size (A: 32768 x 32768 float32, symmetric
+PSD, made on the card from a seed; r = 512, l = 1025):
+
+  1. draws      — the gen-Omega kernel against the plain torch Philox on the
+                  card, bitwise, for every dense kind, at the wrap of the
+                  uint32 row counter, and at the Psi shape the path uses;
+  2. kernels    — sketch_fwd / sketch_t against their plain versions at
+                  ragged shapes: float32 and bfloat16, with and without
+                  ``acc``, nonzero offsets, ``scale``;
+  3. one-shot   — ``ops.nystrom_fused(A, seed=7, r=512)`` against the plain
+                  version, and the Nystrom relative error;
+  4. streaming  — ``StreamingSketch`` ingests A in eight 4096-row slabs: Y
+                  against phase 3's B, W against the plain version, the
+                  one-pass reconstruction and the Nystrom pair;
+  5. launches   — every kernel's launch count over phases 3-4 (reset just
+                  before them) must be > 0; then each kernel is timed at the
+                  main path's shape beside its plain version, the PyTorch
+                  library call computing the same function, and its bound.
+
+It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
+and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
+and the exit code is non-zero; without a CUDA card it exits 1 and prints no
+result.
+"""
+import json
+import math
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
+N, R, SLAB, SEED = 32768, 512, 4096, 7
+PEAK_F32 = 67e12        # H100 SXM float32 FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
+EPS32 = 2.0 ** -24
+NYSTROM_RCOND = 1e-4
+KERNEL_SOURCE = "src/repro_torch/kernels/csrc/sketch_kernels.cu"
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise SmokeFailure(msg)
+
+
+def f32_tol(K: int) -> float:
+    """Relative Frobenius tolerance of an f32 sum of K terms taken in two
+    orders (the kernel's fixed k loop vs the library GEMM's blocking)."""
+    return 16 * math.sqrt(K) * EPS32
+
+
+# Both sides round an f32 sum to bfloat16, so an element differs by one bf16
+# ulp only where the two sums straddle a rounding boundary: rare, and well
+# under 2**-12 relative Frobenius.  Rounding Omega itself to bfloat16 would
+# give about 2**-9 / sqrt(3) ~ 1e-3, which this limit refuses.
+BF16_TOL = 2.0 ** -12
+
+
+def rel_fro(got: torch.Tensor, ref: torch.Tensor) -> float:
+    got, ref = got.float(), ref.float()
+    return float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+
+
+def max_abs(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got.float() - ref.float()).abs().max())
+
+
+def time_ms(fn, reps: int = 5) -> float:
+    """Median of ``reps`` CUDA-event timings after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def make_matrix(dev) -> torch.Tensor:
+    """Symmetric PSD A = G·G^T (rank 64) + 1e-4 symmetric noise, from a
+    seeded generator on the card."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    G = torch.randn(N, 64, generator=g, device=dev)
+    A = G @ G.T
+    E = torch.randn(N, N, generator=g, device=dev)
+    A.add_(E, alpha=0.5e-4).add_(E.T, alpha=0.5e-4)
+    del E
+    return A
+
+
+def phase_draws(dev, gen_omega_cuda, kinds, plain_tile, L):
+    k0, k1 = SEED & 0xFFFFFFFF, SEED >> 32
+    cases = [(kind, 0, 0, N, R, 0) for kind in kinds]
+    cases += [("normal", 2 ** 32 - 1000, 7, SLAB, R, 0),     # row wrap
+              ("uniform", 2 ** 32 - 3, 2 ** 32 - 5, 64, 64, 5),
+              ("normal", 0, 0, N, L, 1)]                      # the Psi tile
+    worst = 0.0
+    for kind, row0, col0, rows, cols, salt in cases:
+        got = gen_omega_cuda(k0, k1, row0, col0, rows, cols, kind, salt,
+                             device=dev)
+        ref = plain_tile(k0, k1, row0, col0, rows, cols, kind, salt, None,
+                         None, dev)
+        same = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        print(f"[draws] {kind:10s} ({rows}x{cols}) at ({row0}, {col0}) "
+              f"salt {salt}: bitwise={same}")
+        check(same, f"gen_omega differs from the plain Philox ({kind})")
+        worst = max(worst, max_abs(got, ref))
+    return worst
+
+
+def phase_kernels(dev, local):
+    g = torch.Generator(device=dev).manual_seed(1)
+    cases = [  # (kind, dtype, use_acc, scale, row0, col0)
+        ("normal", torch.float32, False, None, 0, 0),
+        ("uniform", torch.float32, True, 0.5, 123457, 17),
+        ("rademacher", torch.bfloat16, False, -2.0, 2 ** 32 - 300, 5),
+        ("normal", torch.bfloat16, True, None, 99, 2 ** 31),
+    ]
+    m, K, cols = 1000, 777, 333                       # ragged vs the tiles
+    for fn, plain in ((local.sketch_block, local._sketch_block_torch),
+                      (local.sketch_t_block, local._sketch_t_block_torch)):
+        for kind, dt, use_acc, scale, row0, col0 in cases:
+            X = torch.randn(m, K, generator=g, device=dev).to(dt)
+            shape = (m, cols) if fn is local.sketch_block else (cols, K)
+            acc = (torch.randn(*shape, generator=g, device=dev).to(dt)
+                   if use_acc else None)
+            kw = dict(row0=row0, col0=col0, kind=kind, salt=3, scale=scale)
+            ref = plain(X, SEED, cols, acc=acc, **kw)
+            got = fn(X, SEED, cols,
+                     acc=None if acc is None else acc.clone(), **kw)
+            torch.cuda.synchronize()
+            contraction = K if fn is local.sketch_block else m
+            tol = f32_tol(contraction) if dt == torch.float32 else BF16_TOL
+            err = rel_fro(got, ref)
+            print(f"[kernels] {fn.__name__:14s} {kind:10s} {str(dt):14s} "
+                  f"acc={use_acc!s:5s} scale={scale}: rel_fro={err:.3e} "
+                  f"(tol {tol:.1e})")
+            check(got.dtype == dt and tuple(got.shape) == shape,
+                  f"{fn.__name__}: wrong output {got.dtype} {got.shape}")
+            check(err <= tol, f"{fn.__name__} disagrees with its plain "
+                              f"version: {err:.3e} > {tol:.1e}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.core.nystrom import relative_error
+        from repro_torch.core.sketch import _omega_tile_torch
+        from repro_torch.kernels import _build, local, ops
+        from repro_torch.kernels.sketch_matmul import (
+            KIND_CODES, LAUNCHES, gen_omega_cuda, reset_launches)
+        from repro_torch.stream import (StreamConfig, StreamingSketch,
+                                        reconstruction_error)
+    except ImportError as e:
+        print(f"chip_smoke: the repro_torch package is missing ({e})",
+              file=sys.stderr)
+        return 1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"[build] nvcc + load: {time.perf_counter() - t0:.2f} s "
+          f"({_build.build().name})")
+
+    A = make_matrix(dev)
+    cfg = StreamConfig(N, N, r=R, seed=SEED)
+    L = cfg.sketch_l
+    torch.cuda.synchronize()
+
+    # -- 1. draws, 2. kernels vs plain ---------------------------------------
+    gen_err = phase_draws(dev, gen_omega_cuda, KIND_CODES,
+                          _omega_tile_torch, L)
+    phase_kernels(dev, local)
+
+    # -- 3. one-shot main path -----------------------------------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    B, C = ops.nystrom_fused(A, seed=SEED, r=R)
+    torch.cuda.synchronize()
+    t_oneshot = time.perf_counter() - t0
+    om = _omega_tile_torch(SEED, 0, 0, 0, N, R, "normal", 0, None, None, dev)
+    B_ref = A @ om
+    C_ref = om.T @ B
+    err_B, err_C = rel_fro(B, B_ref), rel_fro(C, C_ref)
+    print(f"[one-shot] nystrom_fused {t_oneshot * 1e3:.1f} ms; "
+          f"B rel_fro={err_B:.3e}, C rel_fro={err_C:.3e} "
+          f"(tol {f32_tol(N):.1e})")
+    check(tuple(B.shape) == (N, R) and tuple(C.shape) == (R, R),
+          "nystrom_fused: wrong shapes")
+    check(err_B <= f32_tol(N) and err_C <= f32_tol(N),
+          "nystrom_fused disagrees with the plain version")
+    # C's top 64 eigenvalues carry A's rank-64 part; its other 448 sit about
+    # 1e-6 below them, at the level of C's own f32 rounding, so the default
+    # f32 cutoff (1e-6) inverts rounding noise.  1e-4 drops them.
+    nys_err = float(relative_error(A, B, C, rcond=NYSTROM_RCOND))
+    nys_default = float(relative_error(A, B, C))
+    nys_plain = float(relative_error(A, B_ref, C_ref))
+    print(f"[one-shot] Nystrom relative error ||A - B C+ B^T||/||A|| = "
+          f"{nys_err:.3e} at rcond {NYSTROM_RCOND:g}; at the default f32 "
+          f"rcond 1e-6: {nys_default:.3e} (plain pair {nys_plain:.3e})")
+    check(math.isfinite(nys_err) and nys_err < 1e-2,
+          f"Nystrom error {nys_err}")
+    fwd_err = max_abs(B, B_ref)
+    del om, B_ref, C_ref
+
+    # -- 4. streaming main path ----------------------------------------------
+    t0 = time.perf_counter()
+    st = StreamingSketch(cfg)
+    for r0 in range(0, N, SLAB):
+        st.update_rows(r0, A[r0:r0 + SLAB])
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    low = st.reconstruct(rank=64)
+    Yn, Cn = st.nystrom()
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+
+    y_bitwise = torch.equal(st.Y, B)
+    err_Y = rel_fro(st.Y, B)
+    W_ref = torch.zeros_like(st.W)
+    for r0 in range(0, N, SLAB):
+        W_ref = local._sketch_t_block_torch(A[r0:r0 + SLAB], SEED, L,
+                                            row0=r0, salt=cfg.psi_salt,
+                                            acc=W_ref)
+    err_W = rel_fro(st.W, W_ref)
+    t_err = max_abs(st.W, W_ref)
+    rec_err = float(reconstruction_error(A, low))
+    err_Cn = rel_fro(Cn, C)
+    print(f"[stream] 8 slabs of {SLAB} rows in {t_stream * 1e3:.1f} ms; "
+          f"Y == one-shot B bitwise: {y_bitwise} (rel_fro {err_Y:.3e}); "
+          f"W rel_fro={err_W:.3e} (tol {f32_tol(SLAB):.1e})")
+    print(f"[stream] reconstruct(rank=64) error {rec_err:.3e}; nystrom() C "
+          f"vs one-shot C rel_fro {err_Cn:.3e}")
+    check(err_Y <= f32_tol(N), "streamed Y disagrees with the one-shot B")
+    check(err_W <= f32_tol(SLAB), "W disagrees with the plain version")
+    check(math.isfinite(rec_err) and rec_err < 1e-2,
+          f"reconstruction error {rec_err}")
+    check(err_Cn <= f32_tol(N), "stream nystrom() C disagrees")
+    del low, Yn, Cn, W_ref
+
+    # -- 5. launches and timings ----------------------------------------------
+    print(f"[launches] main path (phases 3-4): {counts}")
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} never launched on the main path")
+
+    k0, k1 = SEED, 0
+    rows = []
+    # gen_omega at the Psi tile of reconstruct(): (N, l), output only
+    gen_ms = time_ms(lambda: gen_omega_cuda(k0, k1, 0, 0, N, L, "normal", 1,
+                                            device=dev))
+    gen_plain = time_ms(lambda: _omega_tile_torch(k0, k1, 0, 0, N, L,
+                                                  "normal", 1, None, None,
+                                                  dev))
+    rows.append(("gen_omega",
+                 "src/repro/kernels/sketch_matmul.py:161 gen_omega_pallas "
+                 "(K8; generator K1: kernels/local.py:173 _om_block)",
+                 counts["gen_omega"], gen_err, gen_ms, gen_plain,
+                 bound_ms(0.0, 4.0 * N * L), None))
+    # sketch_fwd at nystrom_fused's shape: A (N, N) -> B (N, r)
+    om = _omega_tile_torch(k0, k1, 0, 0, N, R, "normal", 0, None, None, dev)
+    fwd_ms = time_ms(lambda: local.sketch_block(A, SEED, R))
+    fwd_plain = time_ms(lambda: local._sketch_block_torch(A, SEED, R))
+    fwd_lib = time_ms(lambda: torch.matmul(A, om))
+    rows.append(("sketch_fwd",
+                 "src/repro/kernels/local.py:286 _sketch_block_pallas (K2; "
+                 "K6: kernels/sketch_matmul.py:76 sketch_matmul_pallas)",
+                 counts["sketch_fwd"], fwd_err, fwd_ms, fwd_plain,
+                 bound_ms(2.0 * N * N * R, 4.0 * (N * N + N * R)), fwd_lib))
+    del om
+    # sketch_t at the streaming W update's shape: W (l, N) += Psi_k^T H_k
+    H = A[:SLAB]
+    W = torch.zeros(L, N, device=dev)
+    psi = _omega_tile_torch(k0, k1, 0, 0, SLAB, L, "normal", 1, None, None,
+                            dev)
+    t_ms = time_ms(lambda: local.sketch_t_block(H, SEED, L, salt=1, acc=W))
+    t_plain = time_ms(lambda: local._sketch_t_block_torch(H, SEED, L,
+                                                          salt=1, acc=W))
+    t_lib = time_ms(lambda: torch.addmm(W, psi.T, H))
+    rows.append(("sketch_t",
+                 "src/repro/kernels/local.py:326 _sketch_t_block_pallas (K3; "
+                 "K7: kernels/sketch_matmul.py:125 sketch_t_matmul_pallas)",
+                 counts["sketch_t"], t_err, t_ms, t_plain,
+                 bound_ms(2.0 * SLAB * N * L, 4.0 * (SLAB * N + 2 * L * N)),
+                 t_lib))
+    # sketch_t at the Nystrom C shape (B (N, r) -> C (r, r)), printed only
+    om = _omega_tile_torch(k0, k1, 0, 0, N, R, "normal", 0, None, None, dev)
+    c_ms = time_ms(lambda: local.sketch_t_block(B, SEED, R))
+    c_plain = time_ms(lambda: local._sketch_t_block_torch(B, SEED, R))
+    c_lib = time_ms(lambda: torch.matmul(om.T, B))
+    c_bound = bound_ms(2.0 * N * R * R, 4.0 * (N * R + R * R))
+    print(f"[timing] sketch_t at the Nystrom C shape ({N}x{R} -> {R}x{R}): "
+          f"{c_ms:.3f} ms (plain {c_plain:.3f}, library {c_lib:.3f}, bound "
+          f"{c_bound[0]:.3f} ms by {c_bound[1]})")
+    del om
+
+    # What bounds sketch_fwd: gen_omega gives the card's rate of normal
+    # draws (3 Philox calls each); the kernel draws its Omega tile once per
+    # 128-row tile of A.  uniform/rademacher need 1 call per entry.
+    draws = (N + 127) // 128 * N * R
+    draw_rate = N * L / (gen_ms * 1e-3)
+    for kind in ("uniform", "rademacher"):
+        ms = time_ms(lambda: local.sketch_block(A, SEED, R, kind=kind))
+        print(f"[diagnosis] sketch_fwd kind={kind}: {ms:.3f} ms")
+    print(f"[diagnosis] sketch_fwd draws {draws:.3e} normal entries; at "
+          f"gen_omega's rate ({draw_rate:.3e}/s) they alone take "
+          f"{draws / draw_rate * 1e3:.3f} ms of its {fwd_ms:.3f} ms")
+
+    kernels = []
+    for name, rep, n, err, ms, plain_ms, (bms, by), lib in rows:
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": rep, "launches": n, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib, "card": card})
+        print(f"[timing] {name}: {ms:.3f} ms (plain {plain_ms:.3f}, library "
+              f"{'none' if lib is None else f'{lib:.3f}'}, bound {bms:.3f} "
+              f"ms by {by}) launches={n}")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

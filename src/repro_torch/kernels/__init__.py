@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels of the sketch GEMMs (``csrc/``), their
+ctypes launchers with launch counters, and their plain torch versions."""
+from .ops import (  # noqa: F401
+    gen_omega, nystrom_fused, sketch_matmul, sketch_t_matmul,
+)
+from .sketch_matmul import (  # noqa: F401
+    LAUNCHES, gen_omega_cuda, reset_launches, sketch_fwd_cuda, sketch_t_cuda,
+)
+from .local import (  # noqa: F401
+    BACKENDS, resolve_backend, sketch_block, sketch_t_block,
+)
+from . import local, ref  # noqa: F401

@@ -1,0 +1,196 @@
+"""repro_torch's sketch GEMMs against the JAX reference, on the CPU.
+
+On the CPU the port's wrappers run their plain torch versions (the CUDA
+kernels are held to those on the card, tests/test_torch_cuda.py and
+chip_smoke.py).  References: ``repro.kernels.local`` with
+``backend="jnp"``, and ``repro.kernels.ops`` in Pallas interpret mode at
+tiny shapes.
+
+Tolerances: Omega draws are bitwise.  float32 GEMM results are held to
+``rtol=1e-5``, ``atol=1e-5·max|ref|``: the two sides sum the contraction in
+different orders.  bfloat16 outputs to one bfloat16 ulp: both round an f32
+sum that may differ in its last bits, which can land on either side of a
+bfloat16 rounding boundary.
+"""
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from repro.kernels import local as jlocal
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core import rng, sketch
+from repro_torch.kernels import local, ops, ref
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+WRAP = 2 ** 32 - 6
+DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
+          "bf16": (np.float32, jnp.bfloat16, torch.bfloat16)}
+# (m, k, cols, row0, col0, use_acc, scale): ragged shapes throughout
+CASES = {
+    "plain": (7, 33, 10, 0, 0, False, None),
+    "offset_acc": (13, 40, 9, WRAP, 3, True, None),
+    "scale": (5, 17, 12, 5, 0, False, 0.5),
+    "all": (11, 29, 6, 2 ** 31, 7, True, -1.5),
+}
+
+
+def _close(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * max(np.abs(want).max(), 1e-30))
+
+
+def _within_bf16_ulp(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    mag = np.maximum(np.abs(got), np.abs(want))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
+    assert np.all(np.abs(got - want) <= ulp)
+
+
+def _both(x: np.ndarray, dt: str):
+    """The same values as a JAX array and a torch tensor of ``dt``."""
+    _, jdt, tdt = DTYPES[dt]
+    return jnp.asarray(x).astype(jdt), torch.from_numpy(x.copy()).to(tdt)
+
+
+@pytest.mark.parametrize("fn", ["sketch_block", "sketch_t_block"])
+@pytest.mark.parametrize("kind", ["normal", "uniform", "rademacher"])
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_block_matches_jnp_backend(fn, kind, dt, case):
+    m, k, cols, row0, col0, use_acc, scale = CASES[case]
+    gen = np.random.default_rng(sum(map(ord, fn + kind + dt + case)))
+    x = gen.standard_normal((m, k) if fn == "sketch_block"
+                            else (k, m)).astype(np.float32)
+    jx, tx = _both(x, dt)
+    out_shape = (m, cols) if fn == "sketch_block" else (cols, m)
+    jacc = tacc = None
+    if use_acc:
+        jacc, tacc = _both(gen.standard_normal(out_shape).astype(
+            np.float32), dt)
+    kw = dict(row0=row0, col0=col0, kind=kind, salt=2, scale=scale)
+    seed = 2 ** 35 + 17
+    want = np.asarray(getattr(jlocal, fn)(jx, seed, cols, acc=jacc,
+                                          backend="jnp", **kw), np.float32)
+    got = getattr(local, fn)(tx, seed, cols, acc=tacc, **kw)
+    assert got.dtype == tx.dtype and tuple(got.shape) == out_shape
+    if use_acc:
+        assert got is tacc                     # accumulated in place
+    check = _close if dt == "f32" else _within_bf16_ulp
+    check(got.float().numpy(), want)
+
+
+def test_out_dtype_and_acc_contract():
+    A = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (6, 20)).astype(np.float32))
+    out = local.sketch_block(A.to(torch.bfloat16), 3, 5,
+                             out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    want = jlocal.sketch_block(jnp.asarray(A.numpy()).astype(jnp.bfloat16),
+                               3, 5, out_dtype=jnp.float32, backend="jnp")
+    _close(out.numpy(), want)
+    with pytest.raises(ValueError, match="acc must be"):
+        local.sketch_block(A, 3, 5, acc=torch.zeros(6, 4))
+    with pytest.raises(ValueError, match="acc must be"):
+        local.sketch_block(A, 3, 5, acc=torch.zeros(5, 6).T)
+
+
+def test_backend_knob():
+    A = torch.ones(4, 8)
+    assert local.resolve_backend("auto", "cpu") == "torch"
+    assert local.resolve_backend("auto", "cuda") == "cuda"
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        local.sketch_block(A, 0, 3, backend="cuda")
+    with pytest.raises(ValueError, match="CPU path"):
+        local.resolve_backend("torch", "cuda")
+    with pytest.raises(ValueError, match="unknown backend"):
+        local.sketch_t_block(A, 0, 3, backend="pallas")
+
+
+@pytest.mark.parametrize("kind", ["normal", "uniform", "rademacher"])
+def test_ops_match_pallas_interpret(kind):
+    gen = np.random.default_rng(5)
+    A = gen.standard_normal((20, 36)).astype(np.float32)
+    jB = jops.sketch_matmul(jnp.asarray(A), seed=41, r=12, kind=kind,
+                            interpret=True)
+    tB = ops.sketch_matmul(torch.from_numpy(A), seed=41, r=12, kind=kind)
+    _close(tB.numpy(), jB)
+    jC = jops.sketch_t_matmul(jB, seed=41, r=12, kind=kind,
+                              interpret=True)
+    tC = ops.sketch_t_matmul(tB, seed=41, r=12, kind=kind)
+    _close(tC.numpy(), jC)
+    jB2, jC2 = jops.nystrom_fused(jnp.asarray(A[:, :20] + A[:, :20].T),
+                                  seed=41, r=12, kind=kind, interpret=True)
+    tB2, tC2 = ops.nystrom_fused(torch.from_numpy(A[:, :20] + A[:, :20].T),
+                                 seed=41, r=12, kind=kind)
+    _close(tB2.numpy(), jB2)
+    _close(tC2.numpy(), jC2)
+
+
+@pytest.mark.parametrize("kind", ["normal", "uniform", "rademacher"])
+def test_gen_omega_bitwise_vs_interpret_and_ref(kind):
+    want = np.asarray(jops.gen_omega(seed=2 ** 33 + 1, n2=37, r=13, br=16,
+                                     bc=8, kind=kind, salt=1,
+                                     interpret=True))
+    got = ops.gen_omega(seed=2 ** 33 + 1, n2=37, r=13, kind=kind, salt=1,
+                        device="cpu").numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(
+        ref.omega_ref(2 ** 33 + 1, 37, 13, kind, salt=1,
+                      device="cpu").numpy(),
+        np.asarray(jref.omega_ref(2 ** 33 + 1, 37, 13, kind, salt=1)))
+
+
+def test_ref_oracles_match():
+    gen = np.random.default_rng(6)
+    A = gen.standard_normal((9, 31)).astype(np.float32)
+    _close(ref.sketch_matmul_ref(torch.from_numpy(A), 3, 7).numpy(),
+           jref.sketch_matmul_ref(jnp.asarray(A), 3, 7))
+    _close(ref.sketch_t_matmul_ref(torch.from_numpy(A.T.copy()), 3, 7,
+                                   "rademacher").numpy(),
+           jref.sketch_t_matmul_ref(jnp.asarray(A.T), 3, 7, "rademacher"))
+
+
+@pytest.mark.parametrize("draw", [
+    lambda: ref.omega_ref(1, 8, 4),
+    lambda: ops.gen_omega(seed=1, n2=8, r=4),
+    lambda: rng.philox_omega_full(1, 8, 4),
+    lambda: sketch.omega_tile(1, 0, 0, 8, 4),
+], ids=["omega_ref", "gen_omega", "philox_omega_full", "omega_tile"])
+def test_draws_need_cuda_without_device(monkeypatch, draw):
+    """``device=None`` means the card; without one the draw raises and
+    names the CPU opt-in instead of dropping to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        draw()
+
+
+def test_port_imports_neither_jax_nor_reference():
+    """Every module of the port, and chip_smoke.py, in a fresh process."""
+    mods = sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert len(mods) >= 16
