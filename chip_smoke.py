@@ -23,6 +23,30 @@ PSD, made on the card from a seed; r = 512, l = 1025):
                   main path's shape beside its plain version, the PyTorch
                   library call computing the same function, and its bound.
 
+then the serving path, at the shape of one serving configuration (streams
+of n1 = 16384, n2 = 8192, r = 128, l = 257, float32):
+
+  6. fold       — the K4 kernel (fold_rows) against its plain version on the
+                  card, bitwise: float32 and bfloat16, masked and unmasked,
+                  1 and 64 lanes, c not a multiple of 32, resident -0.0
+                  rows, NaN in d's dead rows, starts outside [0, m + k];
+  7. lanes      — 8 streams: one ``update_ragged`` round (NaN pad rows) on
+                  one service, the same slabs one by one through ``update``
+                  on another; Y and W must be equal bitwise;
+  8. serving    — ``repro_torch.launch.serve.run_sketch`` (the launcher's
+                  entry point): 128 streams, 4 updates each, heights
+                  uniform in [1, 256], window 64, depth 256, pow2 buckets;
+                  launches counted over this run alone must be > 0 for
+                  fold_rows, sketch_fwd and sketch_t, and over its timed
+                  window the queue must have needed no retry and
+                  quarantined nothing, with one fold launch per lane batch
+                  and one sketch_fwd and one sketch_t per update; then
+                  fold_rows is timed at one bucket of it (64 lanes, kb =
+                  256) beside its plain version, the per-lane
+                  ``narrow().add_()`` loop and its bound, and the run is
+                  repeated once under torch.profiler for its device time
+                  by kernel and the card's idle share of the timed window.
+
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and the exit code is non-zero; without a CUDA card it exits 1 and prints no
@@ -36,6 +60,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -45,6 +70,12 @@ PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 EPS32 = 2.0 ** -24
 NYSTROM_RCOND = 1e-4
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/sketch_kernels.cu"
+FOLD_SOURCE = "src/repro_torch/kernels/csrc/fold_kernels.cu"
+# the serving configuration of phases 6-8
+S_N1, S_N2, S_R, S_KMAX = 16384, 8192, 128, 256
+SERVE_ARGS = ["--workload", "sketch", "--streams", "128", "--updates", "4",
+              "--n1", str(S_N1), "--n2", str(S_N2), "--r", str(S_R),
+              "--max-rows", str(S_KMAX), "--window", "64", "--depth", "256"]
 
 
 class SmokeFailure(RuntimeError):
@@ -78,19 +109,40 @@ def max_abs(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float((got.float() - ref.float()).abs().max())
 
 
-def time_ms(fn, reps: int = 5) -> float:
-    """Median of ``reps`` CUDA-event timings after one warm-up call."""
+def time_ms(fn, reps: int = 5, inner: int = 1) -> float:
+    """Median of ``reps`` CUDA-event timings (each of ``inner`` calls,
+    divided by ``inner``) after one warm-up call."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, calls: int = 20):
+    """Device time of one launch of the CUDA kernel whose name contains
+    ``kernel``, from a torch.profiler trace of ``calls`` calls of ``fn``
+    (a host-bound wrapper's CUDA-event time is its host overhead, not its
+    kernel's time); None when the trace holds no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in evs)
+    if not count:
+        return None
+    return sum(e.device_time_total for e in evs) / 1e3 / count
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -171,6 +223,202 @@ def phase_kernels(dev, local):
                               f"version: {err:.3e} > {tol:.1e}")
 
 
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+
+def phase_fold(dev, fold_rows_block, plain_fold, LAUNCHES):
+    """Phase 6: the fold kernel against its plain version, bitwise."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    worst = 0.0
+    cases = [  # (lanes, m, k, c, y dtype, d dtype, masked)
+        (1, S_N1, S_KMAX, S_R, torch.float32, torch.float32, True),
+        (64, S_N1, S_KMAX, S_R, torch.float32, torch.float32, True),
+        (64, S_N1, S_KMAX, S_R, torch.bfloat16, torch.float32, True),
+        (64, 2000, 77, 45, torch.bfloat16, torch.bfloat16, True),
+        (1, 2000, 77, 45, torch.float32, torch.bfloat16, False),
+        (64, 2000, 77, 45, torch.float32, torch.float32, False),
+        (64, 1000, 200, 100, torch.bfloat16, torch.float32, False),
+    ]
+    for lanes, m, k, c, ydt, ddt, masked in cases:
+        y = torch.randn(lanes, m, c, generator=g, device=dev).to(ydt)
+        y[:, ::3] = -0.0                          # resident -0.0 rows
+        d = torch.randn(lanes, k, c, generator=g, device=dev).to(ddt)
+        gen = torch.Generator().manual_seed(lanes * m + c)
+        starts = torch.randint(-k, m + 2 * k, (lanes,), generator=gen)
+        starts[0] = m + k + 999                   # outside [0, m + k]
+        if lanes > 1:
+            starts[1] = -5
+        starts = starts.tolist()
+        nvalid = None
+        if masked:
+            nvalid = torch.randint(0, k + 1, (lanes,), generator=gen).tolist()
+            for i, nv in enumerate(nvalid):
+                d[i, nv:] = float("nan")          # never read
+        want = plain_fold(y, d, starts, nvalid)
+        ys = [y[i].clone() for i in range(lanes)]
+        before = LAUNCHES["fold_rows"]
+        fold_rows_block(ys, d, starts, nvalid)
+        torch.cuda.synchronize()
+        got = torch.stack(ys)
+        same = torch.equal(_bits(got), _bits(want))
+        print(f"[fold] lanes={lanes:2d} y=({m}x{c}) {str(ydt):14s} "
+              f"d=({k}x{c}) {str(ddt):14s} masked={masked!s:5s}: "
+              f"bitwise={same}")
+        check(LAUNCHES["fold_rows"] == before + 1,
+              "fold_rows_block did not launch the kernel exactly once")
+        check(same, "fold_rows differs from its plain version")
+        worst = max(worst, max_abs(got, want))
+    return worst
+
+
+def phase_lanes(dev, SketchService, StreamConfig):
+    """Phase 7: one ragged round == the same slabs applied one by one."""
+    rng = np.random.default_rng(7)
+    cfgs = [StreamConfig(S_N1, S_N2, r=S_R, seed=700 + i) for i in range(8)]
+    svc, solo = SketchService(), SketchService()
+    sids = [svc.open(c) for c in cfgs]
+    rids = [solo.open(c) for c in cfgs]
+    items = []
+    for i in range(8):
+        k = int(rng.integers(1, S_KMAX + 1))
+        items.append((i, rng.standard_normal((k, S_N2), dtype=np.float32),
+                      int(rng.integers(0, S_N1 - k + 1))))
+    svc.update_ragged([(sids[i], H, row0) for i, H, row0 in items],
+                      pad_value=float("nan"))
+    for i, H, row0 in items:
+        solo.update(rids[i], H, row0=row0)
+    torch.cuda.synchronize()
+    for sid, rid in zip(sids, rids):
+        for got, want in ((svc.sketch(sid), solo.sketch(rid)),
+                          (svc.corange(sid), solo.corange(rid))):
+            check(torch.isfinite(got).all().item(), "non-finite lane state")
+            check(torch.equal(_bits(got), _bits(want)),
+                  "a ragged lane differs from its solo update")
+    print(f"[lanes] 8 streams ({S_N1}x{S_N2}, r={S_R}, l={cfgs[0].sketch_l}) "
+          f"heights {[H.shape[0] for _, H, _ in items]}: ragged round == "
+          f"solo updates, Y and W bitwise")
+
+
+def phase_serving(serve, reset_launches, LAUNCHES):
+    """Phase 8: the launcher's entry point on the serving configuration."""
+    args = serve.build_parser().parse_args(SERVE_ARGS)
+    reset_launches()
+    st = serve.run_sketch(args)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    print(f"[serving] {st['updates_per_s']:.1f} updates/s over "
+          f"{st['seconds']:.3f} s; latency p50 "
+          f"{st['latency_p50_s'] * 1e3:.1f} ms p99 "
+          f"{st['latency_p99_s'] * 1e3:.1f} ms; pad waste "
+          f"{st['pad_waste']:.4f}; {st['rounds']} rounds; launches over the "
+          f"run (warm-up included): {counts}")
+    timed = st["launches"]
+    print(f"[serving] timed window: {timed}, {st['lane_batches']} lane "
+          f"batches, {st['retries']} retries, {st['quarantined']} "
+          f"quarantined")
+    check(st["errors"] == 0 and st["applied"] == 512,
+          f"serving: errors {st['errors']}, applied {st['applied']}")
+    # the queue's retry and per-lane paths would hide a failed fold behind
+    # the solo update: the timed window must have taken neither
+    check(st["retries"] == 0 and st["quarantined"] == 0,
+          f"serving: {st['retries']} retries, {st['quarantined']} "
+          f"quarantined lanes")
+    check(timed["fold_rows"] == st["lane_batches"] > 0,
+          f"serving: {timed['fold_rows']} fold launches for "
+          f"{st['lane_batches']} lane batches")
+    check(timed["sketch_fwd"] == timed["sketch_t"] == st["applied"],
+          f"serving: sketch_fwd {timed['sketch_fwd']} and sketch_t "
+          f"{timed['sketch_t']} launches for {st['applied']} updates")
+    for name in ("fold_rows", "sketch_fwd", "sketch_t"):
+        check(counts[name] > 0, f"kernel {name} never launched on the "
+                                f"serving path")
+    return counts, st
+
+
+def fold_timing(dev, fold_rows_block, plain_fold):
+    """fold_rows at one bucket of the serving phase: 64 lanes, kb = 256,
+    heights uniform in (128, 256] (the pow2 bucket of 256)."""
+    rng = np.random.default_rng(8)
+    lanes, kb = 64, S_KMAX
+    ks = rng.integers(kb // 2 + 1, kb + 1, lanes).tolist()
+    row0s = [int(rng.integers(0, S_N1 - k + 1)) for k in ks]
+    ys = [torch.zeros(S_N1, S_R, device=dev) for _ in range(lanes)]
+    d = torch.randn(lanes, kb, S_R, device=dev)
+    starts = [S_N1 - r0 for r0 in row0s]
+    ms = time_ms(lambda: fold_rows_block(ys, d, starts, ks), inner=50)
+    kernel = device_ms(lambda: fold_rows_block(ys, d, starts, ks),
+                       "fold_rows_kernel")
+    ystack = torch.stack(ys)
+    plain = time_ms(lambda: plain_fold(ystack, d, starts, ks), reps=3)
+    del ystack
+
+    def library():
+        for y, r0, k, di in zip(ys, row0s, ks, d):
+            y.narrow(0, r0, k).add_(di[:k])
+    lib = time_ms(library, inner=10)
+    nbytes = 3.0 * 4 * S_R * sum(ks)        # read y + d windows, write y
+    return ms, kernel, plain, lib, bound_ms(0.0, nbytes)
+
+
+def serving_profile(serve):
+    """Phase 8 once more, under torch.profiler: the device time of each
+    kernel and copy over the run (warm-up included), and the card's idle
+    share of the timed window — one minus the union of the device events
+    inside the launcher's ``serve.timed_window`` range over its length,
+    both read from this trace (the profiler slows the host, so this is
+    the profiled run's share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    mark = "serve.timed_window"
+    args = serve.build_parser().parse_args(SERVE_ARGS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st = serve.run_sketch(args)
+    evs = prof.events()
+    dev = [e for e in evs
+           if e.device_type == DeviceType.CUDA and e.name != mark]
+    by_name = {}
+    for e in dev:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() * 1e-6, n + 1)
+    wins = [e.time_range for e in evs
+            if e.name == mark and e.device_type == DeviceType.CPU]
+    idle = "not measured (no timed-window range in the trace)"
+    if wins:
+        w0, w1 = wins[0].start, wins[0].end
+        busy, edge = 0.0, w0
+        for s, t in sorted((max(e.time_range.start, w0),
+                            min(e.time_range.end, w1)) for e in dev):
+            if t > max(s, edge):                 # union of the intervals
+                busy += t - max(s, edge)
+                edge = t
+        idle = (f"{1.0 - busy / (w1 - w0):.3f} of the timed window "
+                f"({busy * 1e-6:.3f} s busy in {(w1 - w0) * 1e-6:.3f} s)")
+    print(f"[profile] phase 8 again under torch.profiler: "
+          f"{st['updates_per_s']:.1f} updates/s, {st['seconds']:.3f} s; "
+          f"device idle share {idle}")
+    for key, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"[profile]   {t:.4f} s in {n} x {key[:90]}")
+
+
+def serving_diagnosis(dev, local):
+    """Per-lane kernel times at the serving shape, to split the serving
+    phase's time: sketch_fwd (k rows, K = n2 -> r), sketch_t (W update)."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    L = 2 * S_R + 1
+    W = torch.zeros(L, S_N2, device=dev)
+    out = {}
+    for k in (1, 128, 256):
+        H = torch.randn(k, S_N2, generator=g, device=dev)
+        dY = torch.empty(k, S_R, device=dev)
+        out[("sketch_fwd", k)] = time_ms(lambda: local.sketch_block(
+            H, SEED, S_R, out=dY), inner=5)
+        out[("sketch_t", k)] = time_ms(lambda: local.sketch_t_block(
+            H, SEED, L, salt=1, acc=W), inner=5)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -182,8 +430,9 @@ def main() -> int:
         from repro_torch.kernels import _build, local, ops
         from repro_torch.kernels.sketch_matmul import (
             KIND_CODES, LAUNCHES, gen_omega_cuda, reset_launches)
-        from repro_torch.stream import (StreamConfig, StreamingSketch,
-                                        reconstruction_error)
+        from repro_torch.stream import (SketchService, StreamConfig,
+                                        StreamingSketch, reconstruction_error)
+        from repro_torch.launch import serve
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})",
               file=sys.stderr)
@@ -251,7 +500,7 @@ def main() -> int:
     low = st.reconstruct(rank=64)
     Yn, Cn = st.nystrom()
     torch.cuda.synchronize()
-    counts = dict(LAUNCHES)
+    counts = {k: LAUNCHES[k] for k in ("gen_omega", "sketch_fwd", "sketch_t")}
 
     y_bitwise = torch.equal(st.Y, B)
     err_Y = rel_fro(st.Y, B)
@@ -343,13 +592,55 @@ def main() -> int:
           f"gen_omega's rate ({draw_rate:.3e}/s) they alone take "
           f"{draws / draw_rate * 1e3:.3f} ms of its {fwd_ms:.3f} ms")
 
+    del A, B, C, st, H, W, psi
+    torch.cuda.empty_cache()
+
+    # -- 6. fold, 7. lanes vs solo, 8. serving -------------------------------
+    fold_err = phase_fold(dev, local.fold_rows_block, local._fold_rows_torch,
+                          LAUNCHES)
+    phase_lanes(dev, SketchService, StreamConfig)
+    serve_counts, serve_st = phase_serving(serve, reset_launches, LAUNCHES)
+    f_ms, f_kernel, f_plain, f_lib, (f_bound, f_by) = fold_timing(
+        dev, local.fold_rows_block, local._fold_rows_torch)
+    rows.append(("fold_rows",
+                 "src/repro/kernels/local.py:503 _fold_rows_pallas (K4; "
+                 "vmapped over lanes by src/repro/stream/state.py:336 "
+                 "local_rowblock_ragged_prog)",
+                 serve_counts["fold_rows"], fold_err, f_ms, f_plain,
+                 (f_bound, f_by), f_lib))
+    print(f"[timing] fold_rows library call: the per-lane "
+          f"Y.narrow(0, row0, k).add_(dY[:k]) loop, 64 lanes")
+    print(f"[timing] fold_rows at one bucket (64 lanes, kb={S_KMAX}): the "
+          f"wrapper {f_ms:.4f} ms a call (host-bound: lane checks and the "
+          f"metadata copy), the kernel itself "
+          + ("not measured (no profiler trace)" if f_kernel is None
+             else f"{f_kernel:.4f} ms on the device (torch.profiler)")
+          + f", bound {f_bound:.4f} ms")
+    diag = serving_diagnosis(dev, local)
+    for (name, k), ms in diag.items():
+        print(f"[diagnosis] serving shape: {name} one lane of k={k} "
+              f"(n2={S_N2}, r={S_R}): {ms:.3f} ms")
+    # phase 8's lanes average about 128 rows: the kernel time of its timed
+    # window, estimated
+    timed = serve_st["launches"]
+    est = {name: timed[name] * diag[(name, 128)] * 1e-3
+           for name in ("sketch_fwd", "sketch_t")}
+    est["fold_rows"] = timed["fold_rows"] * f_ms * 1e-3
+    print(f"[diagnosis] phase 8 kernel time at k=128 per lane: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in est.items())
+          + f"; the run took {serve_st['seconds']:.3f} s")
+    serving_profile(serve)
+
     kernels = []
     for name, rep, n, err, ms, plain_ms, (bms, by), lib in rows:
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "name": name, "route": "cuda",
+            "source": FOLD_SOURCE if name == "fold_rows" else KERNEL_SOURCE,
             "replaces": rep, "launches": n, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib, "card": card})
+        if name == "fold_rows":
+            kernels[-1]["kernel_ms"] = f_kernel
         print(f"[timing] {name}: {ms:.3f} ms (plain {plain_ms:.3f}, library "
               f"{'none' if lib is None else f'{lib:.3f}'}, bound {bms:.3f} "
               f"ms by {by}) launches={n}")

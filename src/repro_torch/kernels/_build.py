@@ -1,13 +1,14 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use, load with ctypes.
 
 The sources are ``kernels/csrc/*.cu`` (with their ``*.cuh`` headers) and
-nothing else.  They compile into one shared library with a plain C
-interface,
+nothing else.  Each source compiles to an object by its own ``nvcc``, all
+started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c
 
-(no ``--use_fast_math``: it flushes denormals), written to
+(no ``--use_fast_math``: it flushes denormals), and the objects link into
+one shared library with a plain C interface, written to
 ``build/repro_torch/lib<hash of the sources>.so`` at the repository root, so
 an edited source builds anew and an unchanged one is reused.  Nothing here
 runs at import: the CPU tests import every module, and a host without
@@ -28,7 +29,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _VP, _U32, _INT, _F32 = (ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int,
                          ctypes.c_float)
@@ -37,6 +38,7 @@ SIGNATURES = {
     "rt_gen_omega": (_VP, _INT, _INT) + _OMEGA,
     "rt_sketch_fwd": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT) + _OMEGA,
     "rt_sketch_t": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT) + _OMEGA,
+    "rt_fold_rows": (_VP, _VP, _VP, _VP) + (_INT,) * 7 + (_VP,),
 }
 
 
@@ -72,24 +74,44 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs) -> None:
+    """Wait for every (command, process) pair; raise on the first that
+    failed, with its output."""
+    failed = None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+
+
 def build() -> pathlib.Path:
     """Compile the library unless this source hash is already built;
-    returns its path.  The output is written under a temporary name and
-    renamed, so concurrent builders never load a half-written file."""
+    returns its path.  One ``nvcc -c`` per source runs in parallel, then
+    one link.  The output is written under a temporary name and renamed,
+    so concurrent builders never load a half-written file."""
     lib = BUILD_DIR / f"lib{source_hash()}.so"
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(s) for s in sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs, procs = [], []
+        for src in sources():
+            obj = str(pathlib.Path(work) / (src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        _run(procs)
+        tmp = str(pathlib.Path(work) / "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True))])
+        os.replace(tmp, lib)
     return lib
 
 

@@ -1,12 +1,16 @@
-"""The two local sketch GEMMs every one-device path runs through.
+"""The local kernels every one-device path runs through.
 
   * ``sketch_block``    —  acc? + A · Omega[row0:, col0:col0+cols]
   * ``sketch_t_block``  —  acc? + Omega[row0:, col0:col0+cols]^T · B
+  * ``fold_rows_block`` —  y + [0_m; d; 0_m][start : start+m], masked to
+                           ``nvalid`` rows, over one lane or many
 
 with the Omega (or Psi) tile drawn at GLOBAL Philox coordinates, so the
 key pair and the offsets select any shard's block.  ``acc`` fuses the
 streaming accumulation ``Y += H·Omega``: the result is written into
-``acc`` IN PLACE (the reference rebinds an immutable array instead).
+``acc`` IN PLACE (the reference rebinds an immutable array instead), or
+into a pre-allocated ``out`` view.  The fold, too, updates ``y`` in
+place.
 
 Backends (one spelling across the port):
 
@@ -24,14 +28,14 @@ both backends with the association ``acc + dot`` and one cast to
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 
 from repro_torch.core.sketch import _omega_tile_torch, seed_keys
 from repro_torch.core.kinds import validate_kind
 
-from .sketch_matmul import sketch_fwd_cuda, sketch_t_cuda
+from .sketch_matmul import fold_rows_cuda, sketch_fwd_cuda, sketch_t_cuda
 
 BACKENDS = ("torch", "cuda", "auto")
 
@@ -96,45 +100,50 @@ def _sketch_t_block_torch(B, seed, cols: int, row0=0, col0=0,
 # public entry points
 # ---------------------------------------------------------------------------
 
-def _check_acc(acc, shape, out_dtype) -> None:
-    """The plain path's copy of the launcher's ``acc`` contract, so both
-    paths refuse the same ``acc``."""
+def _check_acc(acc, shape, out_dtype, what: str = "acc") -> None:
+    """The plain path's copy of the launcher's ``acc``/``out`` contract,
+    so both paths refuse the same tensors."""
     if acc is not None and (tuple(acc.shape) != tuple(shape)
                             or acc.dtype != out_dtype
                             or not acc.is_contiguous()):
-        raise ValueError(f"acc must be a contiguous {out_dtype} tensor of "
-                         f"shape {tuple(shape)}, got {tuple(acc.shape)} "
+        raise ValueError(f"{what} must be a contiguous {out_dtype} tensor "
+                         f"of shape {tuple(shape)}, got {tuple(acc.shape)} "
                          f"{acc.dtype}")
 
 
 def _dispatch(kernel, plain, X, seed, cols, out_shape, row0, col0, kind,
-              salt, scale, acc, out_dtype, backend):
+              salt, scale, acc, out_dtype, backend, out=None):
     validate_kind(kind)
     out_dtype = out_dtype or X.dtype
     if resolve_backend(backend, X.device) == "torch":
         _check_acc(acc, out_shape, out_dtype)
-        out = plain(X, seed, cols, row0, col0, kind, salt, scale, acc,
+        _check_acc(out, out_shape, out_dtype, "out")
+        res = plain(X, seed, cols, row0, col0, kind, salt, scale, acc,
                     out_dtype)
-        return out if acc is None else acc.copy_(out)
+        dst = out if out is not None else acc
+        return res if dst is None else dst.copy_(res)
     key0, key1 = seed_keys(seed)
+    extra = {} if out is None else {"out": out}     # only sketch_fwd has out
     return kernel(X.contiguous(), key0, key1, cols, row0, col0, kind, salt,
-                  scale, acc, out_dtype)
+                  scale, acc, out_dtype, **extra)
 
 
 def sketch_block(A: torch.Tensor, seed, cols: int, *, row0=0, col0=0,
                  kind: str = "normal", salt: int = 0, scale=None,
                  acc: Optional[torch.Tensor] = None, out_dtype=None,
+                 out: Optional[torch.Tensor] = None,
                  backend: str = "auto") -> torch.Tensor:
     """``acc? + A @ Omega[row0:row0+k, col0:col0+cols]`` (k = A.shape[1]).
 
     The local body of Alg. 1 and of the streaming range update.  ``seed``
     is an int or a (2,) key pair.  The result has ``out_dtype`` (default
-    A's dtype); with ``acc`` (contiguous, of that dtype) it is written
-    into ``acc`` in place and ``acc`` is returned.
+    A's dtype); it is written into ``out`` when given, else into ``acc``
+    in place when given (both contiguous, of that dtype), and that tensor
+    is returned.
     """
     return _dispatch(sketch_fwd_cuda, _sketch_block_torch, A, seed, cols,
                      (A.shape[0], cols), row0, col0, kind, salt, scale, acc,
-                     out_dtype, backend)
+                     out_dtype, backend, out=out)
 
 
 def sketch_t_block(B: torch.Tensor, seed, cols: int, *, row0=0, col0=0,
@@ -145,8 +154,87 @@ def sketch_t_block(B: torch.Tensor, seed, cols: int, *, row0=0, col0=0,
 
     The Nystrom second stage (C = Omega^T·B) and the streaming co-range
     update (W += Psi·H under Psi's salt).  Same contract as
-    :func:`sketch_block`.
+    :func:`sketch_block`, without ``out``: the result goes into ``acc`` in
+    place when given, else into a new tensor.
     """
     return _dispatch(sketch_t_cuda, _sketch_t_block_torch, B, seed, cols,
                      (cols, B.shape[1]), row0, col0, kind, salt, scale, acc,
                      out_dtype, backend)
+
+
+def _fold_rows_torch(y: torch.Tensor, d: torch.Tensor, start,
+                     nvalid=None) -> torch.Tensor:
+    """Plain ``y + [0_m; d; 0_m][start : start + m]`` (a new tensor), the
+    reference's ``_fold_rows_jnp`` operation by operation: the zero frame,
+    the clamped slice (``jax.lax.dynamic_slice`` clamps ``start`` into
+    ``[0, m + k]``), the add, and with ``nvalid`` the ``where`` on the
+    UNCLAMPED start, so rows not fed by the first ``nvalid`` rows of ``d``
+    keep y's exact bits.  The sum is rounded once to y's dtype.
+
+    With a leading lane axis (``y`` (n, m, c), ``d`` (n, k, c), ``start``
+    and ``nvalid`` one integer per lane) it folds each lane, as the
+    reference's ``jax.vmap`` does.
+    """
+    if y.dim() == 3:
+        n = y.shape[0]
+        starts = _per_lane(start, n)
+        nvalids = None if nvalid is None else _per_lane(nvalid, n)
+        return torch.stack([
+            _fold_rows_torch(y[i], d[i], starts[i],
+                             None if nvalids is None else nvalids[i])
+            for i in range(n)])
+    m, c = y.shape
+    k = d.shape[0]
+    start = int(start)
+    pad = torch.zeros((m, c), dtype=d.dtype, device=d.device)
+    frame = torch.cat([pad, d, pad])
+    win = frame.narrow(0, min(max(start, 0), m + k), m)
+    out = (y + win).to(y.dtype)
+    if nvalid is None:
+        return out
+    idx = start + torch.arange(m, device=y.device)
+    live = (idx >= m) & (idx < m + int(nvalid))
+    return torch.where(live[:, None], out, y)
+
+
+def _per_lane(v, n: int) -> list:
+    vals = ([int(v)] * n if isinstance(v, int) or getattr(v, "ndim", 1) == 0
+            else [int(x) for x in v])
+    if len(vals) != n:
+        raise ValueError(f"need one value per lane ({n}), got {len(vals)}")
+    return vals
+
+
+def fold_rows_block(y: Union[torch.Tensor, Sequence[torch.Tensor]],
+                    d: torch.Tensor, start, nvalid=None):
+    """``y <- y + [0_m; d; 0_m][start : start + m]`` IN PLACE — the
+    row-slab fold of the streaming update (the reference's
+    ``fold_rows_block``, which returns a new array).
+
+    ``y`` is one (m, c) tensor with ``d`` (k, c) and integer ``start`` /
+    ``nvalid``, or a sequence of lanes' (m, c) tensors (each its own
+    allocation) with ``d`` (lanes, k, c) and one integer per lane.  With
+    ``nvalid`` only y rows fed by the first ``nvalid`` rows of ``d``
+    change; every other row keeps its exact bits (not even +0.0 is added,
+    so a resident -0.0 survives and NaN pad rows of ``d`` are never
+    read).  Without it every row is rewritten as ``y + win``.  When ``d``
+    is on the card all lanes go through ONE launch of the K4 kernel; when
+    it is on the CPU each lane runs :func:`_fold_rows_torch`.  Returns
+    ``y``.
+    """
+    lanes = [y] if isinstance(y, torch.Tensor) else list(y)
+    if isinstance(y, torch.Tensor):
+        d = d.unsqueeze(0)
+        start = [start]
+        nvalid = None if nvalid is None else [nvalid]
+    if not lanes:
+        return y
+    starts = _per_lane(start, len(lanes))
+    nvalids = None if nvalid is None else _per_lane(nvalid, len(lanes))
+    if d.is_cuda:
+        fold_rows_cuda(lanes, d, starts, nvalids)
+        return y
+    for i, yi in enumerate(lanes):
+        yi.copy_(_fold_rows_torch(yi, d[i], starts[i],
+                                  None if nvalids is None else nvalids[i]))
+    return y

@@ -1,27 +1,34 @@
-"""Launchers of the three CUDA sketch kernels, with their launch counters.
+"""Launchers of the port's CUDA kernels, with their launch counters.
 
 The counterpart of the reference's Pallas kernel module: where that one
 defines ``gen_omega_pallas``, ``sketch_matmul_pallas`` and
 ``sketch_t_matmul_pallas``, this one launches the hand-written Hopper
-kernels of ``csrc/sketch_kernels.cu`` that replace them:
+kernels of ``csrc/sketch_kernels.cu`` that replace them, and the row-slab
+fold of ``csrc/fold_kernels.cu``:
 
   * ``gen_omega_cuda``  — a materialized Omega tile (the K1 generator's
                           oracle, K8);
   * ``sketch_fwd_cuda`` — ``acc? + A · Omega[row0:, col0:col0+cols]``
                           (K2, and K6 at offset 0);
   * ``sketch_t_cuda``   — ``acc? + Omega[row0:, col0:col0+cols]^T · B``
-                          (K3, and K7 at offset 0).
+                          (K3, and K7 at offset 0);
+  * ``fold_rows_cuda``  — ``y_i + [0; d_i; 0][start_i : start_i + m]``
+                          for many lanes in one launch, masked to
+                          ``nvalid_i`` rows (K4, the reference's
+                          ``_fold_rows_pallas`` vmapped over lanes).
 
 Keys, offsets, salt, kind and scale are runtime arguments, so one build
 serves every seed and shard offset.  Each launcher checks device, dtype,
 shape and contiguity, launches on the current stream without
-synchronizing, raises if the launch was refused, and adds one to
-``LAUNCHES[name]`` where (and only where) it launches.
+synchronizing, raises :class:`KernelLaunchError` if the launch was
+refused, and adds one to ``LAUNCHES[name]`` once the launch is accepted
+(and nowhere else).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import _build
@@ -32,7 +39,8 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2 ** 31 - 1
 
 # Launches of each kernel since the last ``reset_launches()``.
-LAUNCHES = {"gen_omega": 0, "sketch_fwd": 0, "sketch_t": 0}
+LAUNCHES = {"gen_omega": 0, "sketch_fwd": 0, "sketch_t": 0,
+            "fold_rows": 0}
 
 
 def reset_launches() -> None:
@@ -57,11 +65,18 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _raise_on(rc: int, name: str) -> None:
+class KernelLaunchError(RuntimeError):
+    """The card refused a kernel launch.  Not transient: callers that
+    retry failed work (the ingest queue) re-raise it."""
+
+
+def _launched(rc: int, name: str) -> None:
+    """Raise if the launch was refused, else count it."""
     if rc != 0:
         msg = _build.library().rt_error_string(rc).decode()
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"error {rc} ({msg})")
+        raise KernelLaunchError(f"CUDA kernel {name} failed to launch: "
+                                f"error {rc} ({msg})")
+    LAUNCHES[name] += 1
 
 
 def _check_operand(X: torch.Tensor, name: str) -> None:
@@ -75,21 +90,30 @@ def _check_operand(X: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: operand must be contiguous")
 
 
-def _output(acc: Optional[torch.Tensor], shape, out_dtype, device,
-            name: str) -> torch.Tensor:
-    """``acc`` itself (the kernel accumulates into it in place) or a new
-    tensor."""
+def _check_like(X: torch.Tensor, shape, dtype, device, what: str,
+                name: str) -> None:
+    if (X.device != device or tuple(X.shape) != tuple(shape)
+            or X.dtype != dtype or not X.is_contiguous()):
+        raise ValueError(f"{name}: {what} must be a contiguous {dtype} "
+                         f"tensor of shape {tuple(shape)} on {device}, got "
+                         f"{tuple(X.shape)} {X.dtype} on {X.device}")
+
+
+def _output(acc: Optional[torch.Tensor], out: Optional[torch.Tensor], shape,
+            out_dtype, device, name: str) -> torch.Tensor:
+    """The tensor the kernel writes: ``out`` when given (a pre-allocated
+    view), else ``acc`` itself (accumulated in place), else a new one."""
     if out_dtype not in KERNEL_DTYPES:
         raise ValueError(f"{name}: out_dtype must be float32 or bfloat16, "
                          f"got {out_dtype}")
-    if acc is None:
-        return torch.empty(shape, dtype=out_dtype, device=device)
-    if (acc.device != device or tuple(acc.shape) != tuple(shape)
-            or acc.dtype != out_dtype or not acc.is_contiguous()):
-        raise ValueError(f"{name}: acc must be a contiguous {out_dtype} "
-                         f"tensor of shape {tuple(shape)} on {device}, got "
-                         f"{tuple(acc.shape)} {acc.dtype} on {acc.device}")
-    return acc
+    for what, X in (("acc", acc), ("out", out)):
+        if X is not None:
+            _check_like(X, shape, out_dtype, device, what, name)
+    if out is not None:
+        return out
+    if acc is not None:
+        return acc
+    return torch.empty(shape, dtype=out_dtype, device=device)
 
 
 def gen_omega_cuda(key0: int, key1: int, row0: int, col0: int, rows: int,
@@ -109,18 +133,17 @@ def gen_omega_cuda(key0: int, key1: int, row0: int, col0: int, rows: int,
     with torch.cuda.device(device):
         rc = lib.rt_gen_omega(out.data_ptr(), rows, cols, *args,
                               _stream(device))
-        LAUNCHES["gen_omega"] += 1
-    _raise_on(rc, "gen_omega")
+    _launched(rc, "gen_omega")
     return out
 
 
 def _gemm(name: str, X: torch.Tensor, out_shape, m: int, n: int, K: int,
-          key0, key1, row0, col0, kind, salt, scale, acc, out_dtype):
+          key0, key1, row0, col0, kind, salt, scale, acc, out, out_dtype):
     _check_operand(X, name)
     args = _omega_args(key0, key1, row0, col0, salt, kind, scale)
     if max(m, n, K) > _INT_MAX:
         raise ValueError(f"{name}: dims ({m}, {n}, {K}) exceed int32")
-    out = _output(acc, out_shape, out_dtype, X.device, name)
+    out = _output(acc, out, out_shape, out_dtype, X.device, name)
     if m == 0 or n == 0:
         return out
     lib = _build.library()
@@ -131,8 +154,7 @@ def _gemm(name: str, X: torch.Tensor, out_shape, m: int, n: int, K: int,
                                   else (K, n, m)),
                 int(X.dtype == torch.bfloat16),
                 int(out_dtype == torch.bfloat16), *args, _stream(X.device))
-        LAUNCHES[name] += 1
-    _raise_on(rc, name)
+    _launched(rc, name)
     return out
 
 
@@ -140,16 +162,19 @@ def sketch_fwd_cuda(A: torch.Tensor, key0: int, key1: int, cols: int,
                     row0: int = 0, col0: int = 0, kind: str = "normal",
                     salt: int = 0, scale=None,
                     acc: Optional[torch.Tensor] = None,
-                    out_dtype=None) -> torch.Tensor:
+                    out_dtype=None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``acc? + A @ Omega[row0:row0+k, col0:col0+cols]`` on the card.
 
     ``A`` (m, k) float32/bfloat16, contiguous; Omega is generated inside
-    the kernel.  With ``acc`` the result is written into ``acc`` in place.
+    the kernel.  The result is written into ``out`` when given (a
+    contiguous view of ``out_dtype``), else into ``acc`` in place, else
+    into a new tensor.
     """
     m, K = A.shape
     out_dtype = out_dtype or A.dtype
     return _gemm("sketch_fwd", A, (m, cols), m, cols, K, key0, key1, row0,
-                 col0, kind, salt, scale, acc, out_dtype)
+                 col0, kind, salt, scale, acc, out, out_dtype)
 
 
 def sketch_t_cuda(B: torch.Tensor, key0: int, key1: int, cols: int,
@@ -159,9 +184,74 @@ def sketch_t_cuda(B: torch.Tensor, key0: int, key1: int, cols: int,
                   out_dtype=None) -> torch.Tensor:
     """``acc? + Omega[row0:row0+k, col0:col0+cols]^T @ B`` on the card.
 
-    ``B`` (k, r2) float32/bfloat16, contiguous; the result is (cols, r2).
+    ``B`` (k, r2) float32/bfloat16, contiguous; the result is (cols, r2),
+    written into ``acc`` in place when given, else into a new tensor.
     """
     K, r2 = B.shape
     out_dtype = out_dtype or B.dtype
     return _gemm("sketch_t", B, (cols, r2), cols, r2, K, key0, key1, row0,
-                 col0, kind, salt, scale, acc, out_dtype)
+                 col0, kind, salt, scale, acc, None, out_dtype)
+
+
+def fold_rows_cuda(ys: Sequence[torch.Tensor], d: torch.Tensor,
+                   start: Sequence[int],
+                   nvalid: Optional[Sequence[int]] = None) -> None:
+    """``ys[i] <- ys[i] + [0_m; d[i]; 0_m][start[i] : start[i] + m]`` for
+    every lane i, in place, in ONE launch.
+
+    ``ys``: the lanes' y, each a contiguous (m, c) float32/bfloat16
+    tensor, all of one shape and dtype on one card (separate allocations:
+    nothing is stacked).  ``d``: a contiguous (lanes, k, c)
+    float32/bfloat16 tensor.  ``start`` and ``nvalid`` are host integers,
+    one per lane; with ``nvalid`` the fold is masked (rows not fed by the
+    first ``nvalid[i]`` rows of ``d[i]`` keep their exact bits).  They
+    travel to the card with the lane pointers in one host-to-device copy
+    from pinned memory; nothing is read back.  The sum is taken in f32 and
+    rounded once to y's dtype.
+    """
+    name = "fold_rows"
+    n = len(ys)
+    if d.dim() != 3 or d.shape[0] != n:
+        raise ValueError(f"{name}: d must be (lanes={n}, k, c), got "
+                         f"{tuple(d.shape)}")
+    _, k, c = d.shape
+    if not d.is_cuda or d.dtype not in KERNEL_DTYPES or not d.is_contiguous():
+        raise ValueError(f"{name}: d must be a contiguous float32/bfloat16 "
+                         f"CUDA tensor, got {d.dtype} on {d.device}")
+    if n == 0:
+        return
+    m = ys[0].shape[0]
+    for y in ys:
+        _check_like(y, (m, c), ys[0].dtype, d.device, "every y", name)
+    if ys[0].dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: y must be float32 or bfloat16, got "
+                         f"{ys[0].dtype}")
+    starts = [int(s) for s in start]
+    nvalids = None if nvalid is None else [int(v) for v in nvalid]
+    if len(starts) != n or (nvalids is not None and len(nvalids) != n):
+        raise ValueError(f"{name}: need {n} start/nvalid entries")
+    if max(m, k, c, n) > _INT_MAX or n > 65535 or any(
+            not -2 ** 31 <= v <= _INT_MAX for v in starts + (nvalids or [])):
+        raise ValueError(f"{name}: sizes or offsets exceed int32 (or more "
+                         f"than 65535 lanes)")
+    span = m if nvalids is None else max(nvalids)
+    if span <= 0:
+        return
+    # one pinned buffer: n lane pointers (int64), then 2n int32 words
+    meta = np.zeros(2 * n, np.int64)
+    meta[:n] = [y.data_ptr() for y in ys]
+    words = meta[n:].view(np.int32)
+    words[:n] = starts
+    if nvalids is not None:
+        words[n:] = nvalids
+    meta_d = torch.from_numpy(meta).pin_memory().to(d.device,
+                                                    non_blocking=True)
+    base = meta_d.data_ptr()
+    lib = _build.library()
+    with torch.cuda.device(d.device):
+        rc = lib.rt_fold_rows(
+            base, d.data_ptr(), base + 8 * n,
+            None if nvalids is None else base + 12 * n, n, m, k, c, span,
+            int(ys[0].dtype == torch.bfloat16),
+            int(d.dtype == torch.bfloat16), _stream(d.device))
+    _launched(rc, name)

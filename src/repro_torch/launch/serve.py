@@ -1,0 +1,150 @@
+"""Serving driver of the port: multi-tenant sketch ingest (shape-bucketed
+ragged batching behind the bounded async queue) on one card.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload sketch \
+      --streams 64 --updates 4 --n1 1024 --n2 512 --r 32
+
+``--device`` defaults to the card (and fails without one); ``--device cpu``
+runs the plain torch path.  ``--metrics`` dumps the Prometheus text of the
+metrics registry after the run, ``--trace-out FILE`` writes a
+Chrome/Perfetto trace of it.
+
+The reference's LM workload and its chaos scenarios are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+
+
+def run_sketch(args):
+    """Drive ``args.streams`` concurrent sketch streams through the async
+    ingest queue and report sustained throughput and tail latency.
+
+    Payloads are drawn (numpy, seed 0) before the clock starts, and the
+    clock stops after the queue has flushed and the card is idle, so
+    updates/s is the serving stack's rate, not numpy's.  One warm-up round
+    on throwaway streams, one lane per bucket height the traffic can
+    produce, builds the kernels and warms the allocators first.  The timed
+    window is marked ``serve.timed_window`` for torch.profiler.  Returns
+    the queue's ``stats()`` plus ``seconds``, ``updates_per_s``, and over
+    the timed window the kernels' ``launches`` and the service's
+    ``lane_batches`` (one fold launch each).
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.sketch_matmul import LAUNCHES
+    from repro_torch.serve.engine import make_ingest_queue, make_sketch_service
+    from repro_torch.stream.state import StreamConfig, snap_bucket
+
+    rng = np.random.default_rng(0)
+    svc = make_sketch_service(max_resident=args.max_resident or None,
+                              device=args.device)
+    shape = dict(n1=args.n1, n2=args.n2, r=args.r)
+    sids = [svc.open(StreamConfig(seed=s, **shape))
+            for s in range(args.streams)]
+    ks = [int(rng.integers(1, args.max_rows + 1))
+          for _ in range(args.streams * args.updates)]
+    q = make_ingest_queue(svc, depth=args.depth, window=args.window)
+    tops = sorted({snap_bucket(k, q.bucket_edges) for k in ks})
+    tmp = [svc.open(StreamConfig(seed=1_000_000 + i, **shape))
+           for i in range(len(tops))]
+    svc.update_ragged([(t, np.zeros((kb, args.n2), np.float32), 0)
+                       for t, kb in zip(tmp, tops)])
+    svc.sync()
+    for t in tmp:
+        svc.close(t)
+    print(f"[serve:sketch] {svc.device}: warmed one lane per bucket "
+          f"{tops}")
+    it = iter(ks)
+    rounds = []
+    for _ in range(args.updates):
+        rnd = []
+        for sid in sids:
+            k = next(it)
+            rnd.append((sid, rng.standard_normal((k, args.n2),
+                                                 dtype=np.float32),
+                        int(rng.integers(0, args.n1 - k + 1))))
+        rounds.append(rnd)
+    before = dict(LAUNCHES)
+    batches0 = svc.stats()["lane_batches"]
+    with torch.profiler.record_function("serve.timed_window"):
+        t0 = time.perf_counter()
+        for u, rnd in enumerate(rounds):
+            # submit under a round span: the queue worker's apply spans
+            # stitch under it cross-thread in the exported trace
+            with obs_trace.span("client.update_round", cat="client",
+                                round=u):
+                for sid, H, row0 in rnd:
+                    q.submit(sid, H, row0)
+        q.flush(raise_errors=True)
+        svc.sync()
+        dt = time.perf_counter() - t0
+    st = q.stats()
+    launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    batches = svc.stats()["lane_batches"] - batches0
+    n = args.streams * args.updates
+    print(f"[serve:sketch] {n} updates over {args.streams} streams in "
+          f"{dt:.2f}s — {n / dt:.1f} updates/s, p50 "
+          f"{st['latency_p50_s'] * 1e3:.1f} ms, p99 "
+          f"{st['latency_p99_s'] * 1e3:.1f} ms, pad waste "
+          f"{st['pad_waste']:.1%}, {st['rounds']} fused rounds")
+    print(f"[serve:sketch] kernel launches: {launches}; {batches} lane "
+          f"batches")
+    q.shutdown()
+    st.update(seconds=dt, updates_per_s=n / dt, launches=launches,
+              lane_batches=batches)
+    return st
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.serve",
+        description="Serve many concurrent sketch streams on one card.")
+    ap.add_argument("--workload", choices=("sketch",), default="sketch")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    ap.add_argument("--streams", type=int, default=64)
+    ap.add_argument("--updates", type=int, default=4,
+                    help="updates per stream")
+    ap.add_argument("--n1", type=int, default=1024)
+    ap.add_argument("--n2", type=int, default=512)
+    ap.add_argument("--r", type=int, default=32)
+    ap.add_argument("--max-rows", type=int, default=64,
+                    help="lane heights drawn from [1, max-rows]")
+    ap.add_argument("--depth", type=int, default=256)
+    ap.add_argument("--window", type=int, default=64)
+    ap.add_argument("--max-resident", type=int, default=0,
+                    help="admission budget (0 = unlimited)")
+    ap.add_argument("--metrics", action="store_true",
+                    help="dump the Prometheus text exposition of the "
+                         "process metrics registry after the run")
+    ap.add_argument("--trace-out", metavar="FILE", default=None,
+                    help="write a Chrome/Perfetto trace (trace_event JSON) "
+                         "of the run to FILE")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    tracer = (obs_trace.install_tracer() if args.trace_out is not None
+              else None)
+    try:
+        out = run_sketch(args)
+    finally:
+        if tracer is not None:
+            tracer.export_chrome(args.trace_out)
+            print(f"[serve] trace written to {args.trace_out} "
+                  f"({len(tracer.spans)} spans)")
+            obs_trace.uninstall_tracer()
+        if args.metrics:
+            print(obs_metrics.get_metrics().prometheus_text(), end="")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,46 @@
+"""The sketch-serving entry points (the sketch half of the reference's
+``serve/engine.py``): a one-card :class:`SketchService` and the bounded
+async :class:`IngestQueue` in front of it."""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from repro_torch.stream.ingest import IngestQueue
+from repro_torch.stream.service import SketchService
+
+
+def make_sketch_service(grid=None, plan=None,
+                        max_resident: Optional[int] = None,
+                        spill_dir: Optional[str] = None,
+                        device=None) -> SketchService:
+    """The streaming-sketch serving entry point: many streams on one card
+    (``device=None``; pass ``device="cpu"`` for the plain path).
+
+    ``grid`` / ``plan`` place a distributed service (Alg. 1), which the
+    port has not reached: anything but ``None`` raises
+    ``NotImplementedError``, as does ``spill_dir``.  ``max_resident`` is
+    the admission budget: colder non-pinned streams move to host memory
+    and are restored bitwise on next touch.
+    """
+    if grid is not None or plan is not None:
+        raise NotImplementedError(
+            "a distributed sketch service (grid/plan: Alg. 1) is not ported "
+            "to repro_torch yet (ROADMAP Queue 1 item 4)")
+    return SketchService(max_resident=max_resident, spill_dir=spill_dir,
+                         device=device)
+
+
+def make_ingest_queue(service: SketchService, depth: int = 256,
+                      window: int = 64,
+                      bucket_edges: Optional[Sequence[int]] = None,
+                      **cfg) -> IngestQueue:
+    """Front a service with the bounded async queue.  ``bucket_edges=None``
+    snaps lanes to pow2 buckets; ``"auto"`` (the reference's
+    planner-priced edges) waits for the planner port and raises.  Any
+    remaining kwargs go to :class:`IngestQueue`."""
+    if bucket_edges == "auto":
+        raise NotImplementedError(
+            'bucket_edges="auto" needs the planner\'s choose_bucket_edges, '
+            "not ported to repro_torch yet (ROADMAP Queue 1 item 7)")
+    return IngestQueue(service, depth=depth, window=window,
+                       bucket_edges=bucket_edges, **cfg)

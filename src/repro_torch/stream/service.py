@@ -1,0 +1,449 @@
+"""Batched sketch service: many concurrent streams on one card (the port of
+the reference's ``stream/service.py``, local mode).
+
+Each client stream owns its own (Y, W) accumulators on the device plus a
+Philox key pair; opening stream number 1000 costs two allocations, not a
+compile.  Every update writes into the stream's own ``Y`` and ``W`` IN
+PLACE, which is the torch counterpart of the reference's JAX donation: the
+reference's stacked cohorts, lane-count snapping and dummy lanes existed
+only to bound XLA compiles, and have no counterpart here.
+
+Multi-tenant ingest:
+
+  * ``update``        — one stream's row slab (``stream.state.rowblock_update``).
+  * ``update_batch``  — same-shape lanes of many streams, one fold launch.
+  * ``update_ragged`` — heterogeneous row slabs (the hot path).  Lanes are
+    grouped by (shape signature, bucket height), the bucket height being
+    ``snap_bucket(k_i, bucket_edges)`` (pow2 by default).  Per bucket the
+    lanes are staged into ONE pinned host buffer padded with
+    ``pad_value`` and copied to the card in one transfer; then
+    ``stream.state.local_rowblock_ragged`` runs a ``sketch_fwd`` per lane
+    into an f32 ``dY`` buffer, ONE lane-batched K4 fold into the lanes'
+    own ``Y`` (device arrays of lane pointers, offsets and valid-row
+    counts; no host sync, no stacking copy) and a ``sketch_t`` per lane
+    into ``W``.  Lane i is bitwise the result of updating stream i alone
+    through ``update``, whatever the pad rows hold (NaN included), for
+    float32 and bfloat16 streams.
+
+Admission/eviction: streams carry a QoS class (``pinned`` > ``standard`` >
+``best_effort``).  With ``max_resident`` set, opening or touching a stream
+beyond the budget evicts the coldest non-pinned resident — its (Y, W) is
+copied to host memory and restored bitwise on next touch.
+
+Not in this slice (each raises ``NotImplementedError``): a ``mesh`` (Alg. 1
+on ``torch.distributed``, ROADMAP Queue 1 item 4), ``spill_dir`` (needs
+``checkpoint/ckpt.py``, item 9), ``reshard`` (``stream/elastic.py``, item
+9) and the sparse-payload updates (``SparseRows``, item 6).
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.sketch import resolve_device, seed_keys
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+
+from .state import (StreamConfig, _local_sig, local_rowblock_ragged,
+                    nystrom_local, rowblock_update, snap_bucket,
+                    validate_row_block)
+
+#: QoS classes, strongest first.  ``pinned`` streams are never auto-evicted;
+#: among evictable residents the lowest class goes first, LRU within class.
+QOS_CLASSES = ("pinned", "standard", "best_effort")
+_EVICT_RANK = {"best_effort": 0, "standard": 1}
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 {item})")
+
+
+@dataclasses.dataclass
+class _Stream:
+    cfg: StreamConfig
+    keys: Tuple[int, int]    # Philox key pair
+    Y: torch.Tensor
+    W: Optional[torch.Tensor]
+    num_updates: int = 0
+    qos: str = "standard"
+    last_touch: int = 0
+
+
+@dataclasses.dataclass
+class _Evicted:
+    """A stream whose accumulators left the device for host memory:
+    everything needed to rebuild the resident ``_Stream`` bitwise."""
+    cfg: StreamConfig
+    keys: Tuple[int, int]
+    qos: str
+    num_updates: int
+    host: Dict[str, torch.Tensor]
+
+
+def _host_slab(H) -> torch.Tensor:
+    """A request payload (numpy array or tensor) as a tensor; a numpy
+    array is shared, unless it is read-only (a replayed journal record)."""
+    if isinstance(H, torch.Tensor):
+        return H
+    H = np.asarray(H)
+    return torch.from_numpy(H if H.flags.writeable else H.copy())
+
+
+class SketchService:
+    """Many concurrent sketch streams on one device.
+
+    >>> svc = SketchService(max_resident=1000)      # device=None: the card
+    >>> sid = svc.open(StreamConfig(n1=256, n2=512, r=32, seed=7))
+    >>> svc.update(sid, H, row0=0)                   # rows arrive
+    >>> svc.update_ragged([(sid, H2, 64)])           # or fused with others
+    >>> svc.sketch(sid)                              # the live Y = A·Omega
+    >>> svc.reconstruct(sid, rank=16)                # one-pass estimate
+    """
+
+    def __init__(self, mesh=None, max_resident: Optional[int] = None,
+                 spill_dir: Optional[str] = None, device=None):
+        if mesh is not None:
+            raise _not_ported("a distributed (mesh) service, i.e. Alg. 1",
+                              "item 4")
+        if spill_dir is not None:
+            raise _not_ported("spill_dir (checkpoint/ckpt.py)", "item 9")
+        if max_resident is not None and max_resident < 1:
+            raise ValueError("max_resident must be >= 1")
+        self.device = resolve_device(device)
+        self.max_resident = max_resident
+        self._streams: Dict[int, _Stream] = {}
+        self._evicted: Dict[int, _Evicted] = {}
+        self._sid = itertools.count()
+        self._clock = itertools.count(1)    # LRU clock for eviction
+        self._updates_total = 0             # service-lifetime, survives close
+        self._lane_batches = 0              # one per fold launch
+        m = obs_metrics.get_metrics()
+        self._m_updates = m.counter(
+            "sketch_updates_total", "stream updates applied, by ingest path")
+        self._m_evictions = m.counter(
+            "sketch_evictions_total", "streams checkpointed off-device")
+        self._m_restores = m.counter(
+            "sketch_restores_total", "evicted streams restored from their "
+            "checkpoint")
+        self._m_resident = m.gauge(
+            "sketch_resident_streams", "streams currently resident on device")
+        self._m_real_rows = m.counter(
+            "sketch_ragged_real_rows_total",
+            "real rows folded by update_ragged")
+        self._m_padded_rows = m.counter(
+            "sketch_ragged_padded_rows_total",
+            "pad rows staged by update_ragged (n·kb − real per bucket)")
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def open(self, cfg: StreamConfig, qos: str = "standard") -> int:
+        if qos not in QOS_CLASSES:
+            raise ValueError(f"qos {qos!r} not in {QOS_CLASSES}")
+        cfg.validate()
+        self._admit(need=1)
+        Y = torch.zeros((cfg.n1, cfg.r), dtype=cfg.dtype, device=self.device)
+        W = (torch.zeros((cfg.sketch_l, cfg.n2), dtype=cfg.dtype,
+                         device=self.device)
+             if cfg.corange else None)
+        sid = next(self._sid)
+        self._streams[sid] = _Stream(cfg, seed_keys(cfg.seed), Y, W, qos=qos,
+                                     last_touch=next(self._clock))
+        self._m_resident.set(len(self._streams))
+        return sid
+
+    def close(self, sid: int):
+        """Finalize: returns the stream's final (Y, W) — W is None for
+        corange=False streams — and frees the slot (an evicted stream is
+        restored first, so the returned state is on the device)."""
+        ev = self._evicted.pop(sid, None)
+        if ev is not None:
+            st = self._restore(ev)
+            return st.Y, st.W
+        st = self._streams.pop(sid, None)
+        if st is None:
+            raise ValueError(f"unknown stream id {sid} (never opened, or "
+                             f"already closed)")
+        self._m_resident.set(len(self._streams))
+        return st.Y, st.W
+
+    # -- admission / eviction ----------------------------------------------
+
+    def _touch(self, sid: int, protect=frozenset()) -> _Stream:
+        """Resolve ``sid`` to its resident stream, restoring it from host
+        memory if it was evicted, and bump its LRU clock.  Raises a clear
+        ValueError for unknown (never-opened/closed) sids."""
+        st = self._streams.get(sid)
+        if st is None:
+            ev = self._evicted.pop(sid, None)
+            if ev is None:
+                raise ValueError(f"unknown stream id {sid} (never opened, "
+                                 f"or already closed)")
+            try:
+                self._admit(need=1, protect=protect)
+            except RuntimeError:
+                self._evicted[sid] = ev     # leave the stream restorable
+                raise
+            st = self._streams[sid] = self._restore(ev)
+            self._m_resident.set(len(self._streams))
+        st.last_touch = next(self._clock)
+        return st
+
+    def _admit(self, need: int, protect=frozenset()) -> None:
+        """Evict coldest non-pinned residents (LRU within QoS class, lowest
+        class first) until ``need`` more streams fit under ``max_resident``.
+        Raises RuntimeError when the budget cannot be met (everything
+        resident is pinned or belongs to the in-flight batch)."""
+        if self.max_resident is None:
+            return
+        while len(self._streams) + need > self.max_resident:
+            victims = [(sid, st) for sid, st in self._streams.items()
+                       if st.qos != "pinned" and sid not in protect]
+            if not victims:
+                raise RuntimeError(
+                    f"admission refused: all {len(self._streams)} resident "
+                    f"streams are pinned or in-flight and max_resident="
+                    f"{self.max_resident}")
+            sid, _ = min(victims, key=lambda kv: (_EVICT_RANK[kv[1].qos],
+                                                  kv[1].last_touch))
+            self.evict(sid)
+
+    def evict(self, sid: int) -> None:
+        """Copy a resident stream's (Y, W) to host memory and free its
+        device slot.  The next touch restores it bitwise."""
+        st = self._streams.get(sid)
+        if st is None:
+            if sid in self._evicted:
+                return                      # idempotent
+            raise ValueError(f"unknown stream id {sid} (never opened, or "
+                             f"already closed)")
+        with obs_trace.span("service.evict", cat="service", sid=sid):
+            del self._streams[sid]
+            host = {"Y": st.Y.cpu()}
+            if st.W is not None:
+                host["W"] = st.W.cpu()
+            self._evicted[sid] = _Evicted(st.cfg, st.keys, st.qos,
+                                          st.num_updates, host)
+        self._m_evictions.inc()
+        self._m_resident.set(len(self._streams))
+
+    def _restore(self, ev: _Evicted) -> _Stream:
+        self._m_restores.inc()
+        tree = {k: v.to(self.device) for k, v in ev.host.items()}
+        return _Stream(ev.cfg, ev.keys, tree["Y"], tree.get("W"),
+                       num_updates=ev.num_updates, qos=ev.qos)
+
+    # -- ingest ------------------------------------------------------------
+
+    def update(self, sid: int, H, row0: Optional[int] = None):
+        """Apply one update to stream ``sid``: ``row0`` selects a row-block
+        update (H is (k, n2)); ``row0=None`` means a full-shape additive
+        delta."""
+        st = self._touch(sid)
+        cfg = st.cfg
+        H = _host_slab(H).to(device=self.device, dtype=cfg.dtype)
+        if row0 is None:
+            if tuple(H.shape) != (cfg.n1, cfg.n2):
+                raise ValueError(f"{tuple(H.shape)} != ({cfg.n1}, "
+                                 f"{cfg.n2})")
+            row0 = 0
+        row0 = int(row0)
+        validate_row_block(cfg, row0, tuple(H.shape))
+        with obs_trace.span("service.update", cat="service", mode="local"):
+            rowblock_update(cfg, st.keys, st.Y, st.W, row0, H)
+        self._m_updates.inc(path="single")
+        st.num_updates += 1
+        self._updates_total += 1
+        return self
+
+    def update_sparse(self, *args, **kwargs):
+        raise _not_ported("update_sparse (SparseRows)", "item 6")
+
+    def update_sparse_batch(self, *args, **kwargs):
+        raise _not_ported("update_sparse_batch (SparseRows)", "item 6")
+
+    def _lanes(self, sids) -> list:
+        """Touch every lane of a batch (none may evict a sibling)."""
+        sids = list(sids)
+        if len(set(sids)) != len(sids):
+            raise ValueError("batch sids must be distinct (duplicate lanes "
+                             "would overwrite each other's update)")
+        if not sids:
+            raise ValueError("a batch update needs at least one stream")
+        protect = frozenset(sids)
+        return [self._touch(s, protect) for s in sids]
+
+    def _apply_lanes(self, group, Hb: torch.Tensor, path: str) -> None:
+        """Run one staged bucket: ``group`` is [(stream, row0, k)]."""
+        local_rowblock_ragged(
+            [(st.cfg, st.keys, st.Y, st.W, row0, k) for st, row0, k in group],
+            Hb)
+        n = len(group)
+        self._m_updates.inc(n, path=path)
+        for st, _, _ in group:
+            st.num_updates += 1
+        self._updates_total += n
+        self._lane_batches += 1
+
+    def update_batch(self, sids, H, row0=0):
+        """Fused multi-stream ingest: the same-shape row-block update
+        applied to every stream in ``sids``.
+
+        H    : (N, k, n2) — lane i is the update for stream ``sids[i]``.
+        row0 : int applied to all lanes, or a length-N sequence of
+               per-lane offsets.
+
+        Lane i's result is bitwise the result of updating stream i alone;
+        all lanes share one fold launch.  For heterogeneous lane shapes
+        use :meth:`update_ragged`.
+        """
+        sts = self._lanes(sids)
+        cfg0 = sts[0].cfg
+        sig = _local_sig(cfg0)
+        for st in sts[1:]:
+            if _local_sig(st.cfg) != sig:
+                raise ValueError(f"streams must share one shape signature; "
+                                 f"{_local_sig(st.cfg)} != {sig}")
+        n = len(sts)
+        H = _host_slab(H)
+        if H.dim() != 3 or H.shape[0] != n:
+            raise ValueError(f"H must be (N={n}, k, n2); got "
+                             f"{tuple(H.shape)}")
+        row0s = ([int(row0)] * n if np.ndim(row0) == 0
+                 else [int(x) for x in row0])
+        if len(row0s) != n:
+            raise ValueError(f"row0 needs {n} entries, got {len(row0s)}")
+        for r0 in row0s:
+            validate_row_block(cfg0, r0, tuple(H.shape[1:]))
+        k = H.shape[1]
+        Hb = H.to(device=self.device, dtype=cfg0.dtype).contiguous()
+        with obs_trace.span("service.update_batch", cat="service", lanes=n):
+            self._apply_lanes([(st, r0, k) for st, r0 in zip(sts, row0s)],
+                              Hb, "batch")
+        return self
+
+    def _stage(self, group, kb: int, cfg: StreamConfig,
+               pad_value: float) -> torch.Tensor:
+        """Lanes' slabs in one (n, kb, n2) buffer padded with
+        ``pad_value``: pinned host memory and ONE host-to-device copy when
+        the service is on the card."""
+        pin = self.device.type == "cuda"
+        Hb = torch.empty((len(group), kb, cfg.n2), dtype=cfg.dtype,
+                         pin_memory=pin)
+        for i, (_, H, _, k) in enumerate(group):
+            Hb[i, :k].copy_(H)
+            if k < kb:
+                Hb[i, k:].fill_(pad_value)
+        return Hb.to(self.device, non_blocking=True)
+
+    def update_ragged(self, items: Sequence[Tuple[int, Any, int]], *,
+                      bucket_edges: Optional[Sequence[int]] = None,
+                      pad_value: float = 0.0):
+        """Fused HETEROGENEOUS multi-stream ingest (the multi-tenant hot
+        path): each item is ``(sid, H, row0)`` with its own row-slab shape
+        ``(k_i, n2)`` and offset.
+
+        Lanes are grouped by (shape signature, bucket height), the bucket
+        height being ``snap_bucket(k_i, bucket_edges)`` (pow2 by default);
+        each bucket is staged once and runs
+        ``stream.state.local_rowblock_ragged`` (one fold launch).  Every
+        lane is validated before any stream is mutated.
+
+        Pad rows are never read: lane i's result is bitwise the result of
+        updating stream i alone via :meth:`update`, whatever ``pad_value``
+        holds (NaN included — that is how the contract is tested), for
+        float32 and bfloat16 streams.  The ``sketch_ragged_padded_rows_total``
+        counter adds ``n·kb − real`` per bucket (the staged pad rows).
+        """
+        items = list(items)
+        sts = self._lanes(it[0] for it in items)
+        edges = None if bucket_edges is None else sorted(
+            int(e) for e in bucket_edges)
+        buckets: Dict[Tuple, list] = {}
+        for st, (_, H, row0) in zip(sts, items):
+            cfg = st.cfg
+            H = _host_slab(H)
+            row0 = int(row0)
+            validate_row_block(cfg, row0, tuple(H.shape))
+            k = H.shape[0]
+            kb = snap_bucket(k, edges)
+            if kb > cfg.n1:
+                kb = k      # never stage a frame taller than the stream
+            buckets.setdefault((_local_sig(cfg), kb), []).append(
+                (st, H, row0, k))
+        for (_, kb), group in buckets.items():
+            n = len(group)
+            with obs_trace.span("service.update_ragged", cat="service",
+                                lanes=n, bucket=kb):
+                Hb = self._stage(group, kb, group[0][0].cfg, pad_value)
+                self._apply_lanes([(st, row0, k) for st, _, row0, k in group],
+                                  Hb, "ragged")
+            real = sum(g[3] for g in group)
+            self._m_real_rows.inc(real)
+            self._m_padded_rows.inc(n * kb - real)
+        return self
+
+    def sync(self):
+        """Block until every in-flight device update has landed (the
+        serving loop's barrier)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def reshard(self, *args, **kwargs):
+        raise _not_ported("reshard (stream/elastic.py)", "item 9")
+
+    # -- queries -----------------------------------------------------------
+
+    def sketch(self, sid: int) -> torch.Tensor:
+        return self._touch(sid).Y
+
+    def corange(self, sid: int) -> Optional[torch.Tensor]:
+        return self._touch(sid).W
+
+    def reconstruct(self, sid: int, rank: Optional[int] = None, rcond=None):
+        from .reconstruct import one_pass_reconstruct
+        st = self._touch(sid)
+        if st.W is None:
+            raise ValueError("reconstruction needs corange=True")
+        return one_pass_reconstruct(st.Y, st.W, st.cfg, rank=rank,
+                                    rcond=rcond)
+
+    def nystrom(self, sid: int):
+        """(B, C) of a symmetric stream, C = Omega^T·Y from the sketch."""
+        st = self._touch(sid)
+        if st.cfg.n1 != st.cfg.n2:
+            raise ValueError("Nyström needs a square stream")
+        return nystrom_local(st.Y, st.cfg)
+
+    # -- introspection -----------------------------------------------------
+
+    @property
+    def num_streams(self) -> int:
+        """Open streams — resident plus evicted-but-restorable."""
+        return len(self._streams) + len(self._evicted)
+
+    @property
+    def num_resident(self) -> int:
+        return len(self._streams)
+
+    @property
+    def num_evicted(self) -> int:
+        return len(self._evicted)
+
+    def stats(self) -> Dict[str, int]:
+        """Residency, the service-lifetime update count (closing a stream
+        does not take its updates away) and ``lane_batches``, the lifetime
+        count of lane-batched updates (one per ``update_batch`` call and
+        one per bucket of ``update_ragged``; each runs one fold).  The
+        reference's ``compiled_updates`` has no counterpart: nothing is
+        compiled."""
+        return {"streams": self.num_streams,
+                "resident": self.num_resident,
+                "evicted": self.num_evicted,
+                "updates": self._updates_total,
+                "lane_batches": self._lane_batches}

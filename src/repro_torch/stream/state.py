@@ -19,18 +19,27 @@ here write into ``Y`` and ``W`` IN PLACE.
 Each Y row is produced by one full-contraction kernel call whose per-
 element summation order does not depend on the slab height, so a
 row-partitioned stream reproduces the one-shot sketch of the same kernel.
+
+The many-streams service (``service.py``) runs two plain functions of
+this module: :func:`rowblock_update`, one stream's row-slab update (what
+``StreamingSketch.update_rows`` runs), and :func:`local_rowblock_ragged`,
+the lane-batched update of many streams whose slabs were staged into one
+padded buffer: per-lane ``dY`` products, ONE masked fold of every lane's
+``dY`` into its own ``Y`` (the K4 kernel on the card), per-lane ``W``
+updates.  Lane i of it is bitwise ``rowblock_update`` of stream i alone,
+for float32 and bfloat16 streams.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.kinds import SPARSE_KINDS, validate_kind
 from repro_torch.core.sketch import omega_tile, resolve_device, seed_keys
-from repro_torch.kernels.local import (resolve_backend, sketch_block,
-                                       sketch_t_block)
+from repro_torch.kernels.local import (fold_rows_block, resolve_backend,
+                                       sketch_block, sketch_t_block)
 
 OMEGA_SALT = 0   # salt stream for Omega (range sketch)
 PSI_SALT = 1     # salt stream for Psi (co-range sketch); must differ
@@ -130,6 +139,104 @@ def nystrom_local(Y: torch.Tensor, cfg: StreamConfig):
                              salt=cfg.omega_salt)
 
 
+def _local_sig(cfg: StreamConfig) -> Tuple:
+    """What lanes of one batched update must share (NOT the seed): the
+    shapes, kind, dtype and salts."""
+    return (cfg.n1, cfg.n2, cfg.r, cfg.sketch_l if cfg.corange else None,
+            cfg.kind, _DTYPE_NAMES[cfg.dtype], cfg.corange, cfg.omega_salt,
+            cfg.psi_salt)
+
+
+def pow2_bucket(k: int) -> int:
+    """Smallest power of two >= k — the default ragged bucket snap."""
+    if k <= 1:
+        return 1
+    return 1 << (k - 1).bit_length()
+
+
+def snap_bucket(k: int, edges=None) -> int:
+    """Bucket height for a k-row lane: the smallest edge >= k when
+    ``edges`` (ascending bucket tops) is given — a lane taller than every
+    edge falls back to the pow2 snap — else the pow2 snap.  Height-1
+    lanes are never padded into a taller bucket.  (The reference's rule,
+    kept so that both systems bucket, and count pad rows, alike.)"""
+    if k <= 1:
+        return 1
+    if edges is None:
+        return pow2_bucket(k)
+    for e in edges:
+        if e >= k:
+            return int(e)
+    return pow2_bucket(k)
+
+
+def _slab_W(cfg: StreamConfig, keys, W: torch.Tensor, row0: int,
+            H: torch.Tensor, backend: str = "auto") -> None:
+    """W += Psi[:, row0:row0+k]·H in place."""
+    if cfg.kind in SPARSE_KINDS:
+        W += psi_cols(cfg, row0, H.shape[0], device=H.device).T @ H
+    else:
+        sketch_t_block(H, keys, cfg.sketch_l, row0=row0, acc=W,
+                       kind=cfg.kind, salt=cfg.psi_salt, backend=backend)
+
+
+def rowblock_update(cfg: StreamConfig, keys, Y: torch.Tensor,
+                    W: Optional[torch.Tensor], row0: int, H: torch.Tensor,
+                    backend: str = "auto") -> None:
+    """One stream's row-slab update, in place: Y[row0:row0+k] += H·Omega
+    (rounded once: ``acc + dot``) and W += Psi[:, row0:row0+k]·H.  ``H``
+    is a (k, n2) tensor of the stream's dtype on Y's device; the caller
+    has validated the block."""
+    k = H.shape[0]
+    Yk = Y[row0:row0 + k]                    # a contiguous row view
+    if cfg.kind in SPARSE_KINDS:
+        Yk += H @ omega_matrix(cfg, device=H.device)
+    else:
+        sketch_block(H, keys, cfg.r, acc=Yk, kind=cfg.kind,
+                     salt=cfg.omega_salt, backend=backend)
+    if W is not None:
+        _slab_W(cfg, keys, W, row0, H, backend)
+
+
+def local_rowblock_ragged(lanes: Sequence[Tuple], Hb: torch.Tensor) -> None:
+    """The lane-batched row-slab update (ragged or same-height), in place.
+
+    ``lanes[i] = (cfg, keys, Y, W, row0, k)`` — every lane shares one
+    :func:`_local_sig` and owns its ``Y`` and ``W``; ``Hb`` is the
+    (lanes, kb, n2) staged buffer on Y's device, lane i's slab in
+    ``Hb[i, :k]`` (rows ``k:kb`` are padding and are never read).
+
+      1. per lane, ``dY_i = H_i·Omega_i`` into an f32 ``dYb[i, :k]``
+         (``sketch_fwd``, written into the view);
+      2. ONE masked fold of every ``dYb[i, :k]`` into its own ``Y`` at
+         ``row0`` (``fold_rows_block`` with ``start = n1 - row0``,
+         ``nvalid = k``: the K4 kernel on the card), adding in f32 and
+         rounding once into Y's dtype;
+      3. per lane, ``W_i += Psi_i·H_i`` (``sketch_t`` with ``acc=W_i``).
+
+    Step 2 is the solo update's ``acc + dot`` with one rounding, so lane i
+    is bitwise :func:`rowblock_update` of stream i alone, for float32 and
+    bfloat16 streams.  (The sparse kinds form ``dY`` by a product with
+    their materialized Omega, as their solo update does.)
+    """
+    cfg0 = lanes[0][0]
+    n, kb, _ = Hb.shape
+    dYb = torch.empty((n, kb, cfg0.r), dtype=torch.float32, device=Hb.device)
+    for i, (cfg, keys, _, _, _, k) in enumerate(lanes):
+        if cfg.kind in SPARSE_KINDS:
+            dYb[i, :k].copy_(Hb[i, :k] @ omega_matrix(cfg, device=Hb.device))
+        else:
+            sketch_block(Hb[i, :k], keys, cfg.r, kind=cfg.kind,
+                         salt=cfg.omega_salt, out_dtype=torch.float32,
+                         out=dYb[i, :k])
+    fold_rows_block([ln[2] for ln in lanes], dYb,
+                    start=[cfg0.n1 - ln[4] for ln in lanes],
+                    nvalid=[ln[5] for ln in lanes])
+    for i, (cfg, keys, _, W, row0, k) in enumerate(lanes):
+        if W is not None:
+            _slab_W(cfg, keys, W, row0, Hb[i, :k])
+
+
 class StreamingSketch:
     """One-device streaming accumulator for (Y, W).
 
@@ -165,21 +272,9 @@ class StreamingSketch:
     def update_rows(self, row0: int, H):
         """Rows [row0, row0+k) arrive (additively): Y[row0:row0+k] += H·Omega
         and W += Psi[:, row0:row0+k]·H, both in place."""
-        cfg = self.cfg
-        validate_row_block(cfg, row0, tuple(H.shape))
-        H = self._as_slab(H)
-        k = H.shape[0]
-        Yk = self.Y[row0:row0 + k]            # a contiguous row view
-        if cfg.kind in SPARSE_KINDS:
-            Yk += H @ omega_matrix(cfg, device=self.device)
-            if self.W is not None:
-                self.W += psi_cols(cfg, row0, k, device=self.device).T @ H
-        else:
-            sketch_block(H, self.keys, cfg.r, acc=Yk,
-                         **self._kw(cfg.omega_salt))
-            if self.W is not None:
-                sketch_t_block(H, self.keys, cfg.sketch_l, row0=row0,
-                               acc=self.W, **self._kw(cfg.psi_salt))
+        validate_row_block(self.cfg, row0, tuple(H.shape))
+        rowblock_update(self.cfg, self.keys, self.Y, self.W, row0,
+                        self._as_slab(H), self.backend)
         self.num_updates += 1
         return self
 

@@ -10,18 +10,20 @@ Tolerances: Omega draws are bitwise.  GEMM results are held to
 ``rtol=1e-5`` and ``atol=1e-5·max|ref|`` in float32 (the kernel and
 ``torch.matmul`` sum in different orders); bfloat16 outputs to one
 bfloat16 ulp (both round the same f32 value, which may sit on either side
-of a rounding boundary).
+of a rounding boundary).  The row-slab fold is one add per element and is
+held bitwise, and so is each lane of the service's ragged update against
+the solo update of its stream.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.sketch import _omega_tile_torch, omega_tile
-from repro_torch.kernels import (LAUNCHES, reset_launches, sketch_block,
-                                 sketch_t_block)
-from repro_torch.kernels.local import (_sketch_block_torch,
+from repro_torch.kernels import (LAUNCHES, fold_rows_block, reset_launches,
+                                 sketch_block, sketch_t_block)
+from repro_torch.kernels.local import (_fold_rows_torch, _sketch_block_torch,
                                        _sketch_t_block_torch)
-from repro_torch.stream import StreamConfig, StreamingSketch
+from repro_torch.stream import SketchService, StreamConfig, StreamingSketch
 
 pytestmark = pytest.mark.cuda
 
@@ -91,3 +93,59 @@ def test_stream_launches_kernels_and_rows_are_bitwise(dev):
     one_shot = sketch_block(A, 9, 24)
     assert torch.equal(st.Y, one_shot)
     _close(st.W, _sketch_t_block_torch(A, 9, cfg.sketch_l, salt=1))
+
+
+def _bits(x):
+    return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("ydt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ddt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("lanes", [1, 9])
+def test_fold_rows_kernel_bitwise_vs_plain(dev, ydt, ddt, masked, lanes):
+    g = torch.Generator(device=dev).manual_seed(3)
+    m, k, c = 70, 13, 45                  # c not a multiple of 32
+    y = torch.randn(lanes, m, c, generator=g, device=dev).to(ydt)
+    y[:, ::3] = -0.0                      # resident -0.0 rows
+    d = torch.randn(lanes, k, c, generator=g, device=dev).to(ddt)
+    starts = [(m - 5 + 17 * i) % (m + k + 9) - 4 for i in range(lanes)]
+    starts[0] = m + k + 50                # outside [0, m + k]: clamped
+    nvalid = None
+    if masked:
+        nvalid = [(5 + 3 * i) % (k + 1) for i in range(lanes)]
+        for i, nv in enumerate(nvalid):
+            d[i, nv:] = float("nan")      # dead rows are never read
+    want = _fold_rows_torch(y, d, starts, nvalid)
+    ys = [y[i].clone() for i in range(lanes)]
+    reset_launches()
+    fold_rows_block(ys, d, starts, nvalid)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fold_rows"] == 1
+    assert torch.equal(_bits(torch.stack(ys)), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_service_ragged_lanes_bitwise_equal_solo_on_card(dev, dtype):
+    rng = np.random.default_rng(4)
+    cfgs = [StreamConfig(n1=300, n2=96, r=20, seed=50 + i, dtype=dtype)
+            for i in range(6)]
+    svc, ref = SketchService(), SketchService()
+    sids = [svc.open(c) for c in cfgs]
+    rids = [ref.open(c) for c in cfgs]
+    items = []
+    for i, c in enumerate(cfgs):
+        k = int(rng.integers(1, 70))
+        items.append((i, rng.standard_normal((k, 96)).astype(np.float32),
+                      int(rng.integers(0, c.n1 - k + 1))))
+    for i, H, row0 in items:
+        ref.update(rids[i], H, row0=row0)
+    reset_launches()
+    svc.update_ragged([(sids[i], H, row0) for i, H, row0 in items],
+                      pad_value=float("nan"))
+    svc.sync()
+    assert LAUNCHES["fold_rows"] >= 1
+    assert LAUNCHES["sketch_fwd"] == 6 and LAUNCHES["sketch_t"] == 6
+    for s, r in zip(sids, rids):
+        assert torch.equal(_bits(svc.sketch(s)), _bits(ref.sketch(r)))
+        assert torch.equal(_bits(svc.corange(s)), _bits(ref.corange(r)))
