@@ -47,6 +47,36 @@ of n1 = 16384, n2 = 8192, r = 128, l = 257, float32):
                   repeated once under torch.profiler for its device time
                   by kernel and the card's idle share of the timed window.
 
+then the training path, at gemma2-2b's published size (m = 256000,
+n = 2304 is its largest leaf, ``embed``; r = 8):
+
+  9. gemm       — the K5 kernel (gemm_block) against its plain version at
+                  the three calls of the gradient exchange on the embed
+                  leaf — (a) P̂ᵀ·M, split over K; (b) P̂·Qᵀ; (c) M − P̂·Qᵀ
+                  in place into M (alpha -1) — and at two ragged shapes
+                  with alpha 0.5, within min(16·sqrt(K)·2**-24, 1e-5);
+                  each call timed beside its plain version,
+                  ``torch.matmul`` / ``addmm`` and its bound; sketch_fwd
+                  timed at the embed shape too;
+ 10. exchange   — ``compress_and_allreduce`` on an embed-shaped gradient
+                  with a nonzero error buffer, kernels against the same
+                  exchange written with the plain versions, both on the
+                  card: g_hat and e' within min(16·sqrt(m)·2**-24, 1e-5);
+ 11. training   — ``make_dp_compressed_step`` driven by ``train_loop`` on
+                  gemma2-2b at its published size (26 layers, bf16,
+                  2.61e9 parameters, random weights from seed 0), the
+                  plan priced for 8 workers (12 compressed leaves; at one
+                  worker nothing compresses), the port's pipeline, batch
+                  4 x seq 1024, 6 steps (the first a warm-up): every loss
+                  finite, 36 gemm and 12 sketch_fwd launches each step
+                  (counts reset just before the loop), error buffers
+                  nonzero after step 1; prints the losses, the median step
+                  time, tokens/s, the exchange's share of the step (CUDA
+                  events around ``compress_and_allreduce``) and
+                  ``torch.cuda.max_memory_allocated``; then one more
+                  step under torch.profiler for the device time by kernel
+                  and the card's idle share of the step.
+
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and the exit code is non-zero; without a CUDA card it exits 1 and prints no
@@ -71,6 +101,10 @@ EPS32 = 2.0 ** -24
 NYSTROM_RCOND = 1e-4
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/sketch_kernels.cu"
 FOLD_SOURCE = "src/repro_torch/kernels/csrc/fold_kernels.cu"
+GEMM_SOURCE = "src/repro_torch/kernels/csrc/gemm_kernels.cu"
+# the training path of phases 9-11: gemma2-2b's embed leaf, rank 8
+T_M, T_N, T_R = 256000, 2304, 8
+T_BATCH, T_SEQ, T_STEPS, T_PLAN_WORKERS = 4, 1024, 6, 8
 # the serving configuration of phases 6-8
 S_N1, S_N2, S_R, S_KMAX = 16384, 8192, 128, 256
 SERVE_ARGS = ["--workload", "sketch", "--streams", "128", "--updates", "4",
@@ -91,6 +125,19 @@ def f32_tol(K: int) -> float:
     """Relative Frobenius tolerance of an f32 sum of K terms taken in two
     orders (the kernel's fixed k loop vs the library GEMM's blocking)."""
     return 16 * math.sqrt(K) * EPS32
+
+
+# The K5 calls and the exchange of phases 9-10 are held to no more than
+# 1e-5 relative Frobenius whatever K: their readings on an H100 were
+# 1.3e-6 (call (a), K = 256000), 1.1e-6 (K = 100003) and 2.8e-7 (the
+# exchange's g_hat), while a product with TF32 inputs (10-bit mantissas,
+# about 2**-11 relative rounding each) misses by about 3e-4, which
+# f32_tol(256000) = 4.8e-4 would let through.
+GEMM_TOL_CAP = 1e-5
+
+
+def gemm_tol(K: int) -> float:
+    return min(f32_tol(K), GEMM_TOL_CAP)
 
 
 # Both sides round an f32 sum to bfloat16, so an element differs by one bf16
@@ -361,6 +408,18 @@ def fold_timing(dev, fold_rows_block, plain_fold):
     return ms, kernel, plain, lib, bound_ms(0.0, nbytes)
 
 
+def device_busy_us(dev_events, w0, w1) -> float:
+    """Microseconds of [w0, w1] covered by at least one device event (the
+    union of their intervals)."""
+    busy, edge = 0.0, w0
+    for s, t in sorted((max(e.time_range.start, w0),
+                        min(e.time_range.end, w1)) for e in dev_events):
+        if t > max(s, edge):
+            busy += t - max(s, edge)
+            edge = t
+    return busy
+
+
 def serving_profile(serve):
     """Phase 8 once more, under torch.profiler: the device time of each
     kernel and copy over the run (warm-up included), and the card's idle
@@ -387,12 +446,7 @@ def serving_profile(serve):
     idle = "not measured (no timed-window range in the trace)"
     if wins:
         w0, w1 = wins[0].start, wins[0].end
-        busy, edge = 0.0, w0
-        for s, t in sorted((max(e.time_range.start, w0),
-                            min(e.time_range.end, w1)) for e in dev):
-            if t > max(s, edge):                 # union of the intervals
-                busy += t - max(s, edge)
-                edge = t
+        busy = device_busy_us(dev, w0, w1)
         idle = (f"{1.0 - busy / (w1 - w0):.3f} of the timed window "
                 f"({busy * 1e-6:.3f} s busy in {(w1 - w0) * 1e-6:.3f} s)")
     print(f"[profile] phase 8 again under torch.profiler: "
@@ -419,6 +473,250 @@ def serving_diagnosis(dev, local):
     return out
 
 
+def phase_gemm(dev, local):
+    """Phase 9: K5 against its plain version at the exchange's three calls
+    on the embed leaf and at two ragged shapes; each embed call timed.
+    Returns (worst max-abs error, {call: (ms, plain, library, bound)})."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    M = torch.randn(T_M, T_N, generator=g, device=dev)
+    P_hat = torch.linalg.qr(torch.randn(T_M, T_R, generator=g,
+                                        device=dev)).Q
+    Qt = torch.randn(T_R, T_N, generator=g, device=dev)
+    worst, times = 0.0, {}
+
+    def held(name, got, ref, K):
+        nonlocal worst
+        err = rel_fro(got, ref)
+        print(f"[gemm] {name}: rel_fro={err:.3e} (tol {gemm_tol(K):.1e})")
+        check(got.dtype == ref.dtype and got.shape == ref.shape,
+              f"gemm {name}: wrong output {got.dtype} {tuple(got.shape)}")
+        check(err <= gemm_tol(K), f"gemm {name} disagrees with its plain "
+                                 f"version: {err:.3e}")
+        worst = max(worst, max_abs(got, ref))
+
+    # (a) Q^T_loc = P^T M: K = m, an r x n output
+    held(f"(a) P^T.M ({T_R}x{T_M})({T_M}x{T_N})",
+         local.gemm_block(P_hat.T, M), local._gemm_block_torch(P_hat.T, M),
+         T_M)
+    times["a"] = (time_ms(lambda: local.gemm_block(P_hat.T, M)),
+                  time_ms(lambda: local._gemm_block_torch(P_hat.T, M)),
+                  time_ms(lambda: torch.matmul(P_hat.T, M)),
+                  bound_ms(2.0 * T_R * T_M * T_N,
+                           4.0 * (T_M * T_N + T_M * T_R + T_R * T_N)))
+    # (b) g_hat = P Q^T: K = r
+    held(f"(b) P.Q^T ({T_M}x{T_R})({T_R}x{T_N})",
+         local.gemm_block(P_hat, Qt), local._gemm_block_torch(P_hat, Qt),
+         T_R)
+    times["b"] = (time_ms(lambda: local.gemm_block(P_hat, Qt)),
+                  time_ms(lambda: local._gemm_block_torch(P_hat, Qt)),
+                  time_ms(lambda: torch.matmul(P_hat, Qt)),
+                  bound_ms(2.0 * T_R * T_M * T_N,
+                           4.0 * (T_M * T_N + T_M * T_R + T_R * T_N)))
+    # (c) e' = M - P Q^T_loc in place, checked on a copy of M
+    ref = local._gemm_block_torch(P_hat, Qt, -1.0, M)
+    Mc = M.clone()
+    got = local.gemm_block(P_hat, Qt, acc=Mc, alpha=-1.0)
+    check(got.data_ptr() == Mc.data_ptr(), "gemm (c) did not write in place")
+    held("(c) M - P.Q^T in place", got, ref, T_R)
+    del ref, got
+    times["c"] = (time_ms(lambda: local.gemm_block(P_hat, Qt, acc=Mc,
+                                                   alpha=-1.0)),
+                  time_ms(lambda: local._gemm_block_torch(P_hat, Qt, -1.0,
+                                                          Mc)),
+                  time_ms(lambda: Mc.addmm_(P_hat, Qt, alpha=-1.0)),
+                  bound_ms(2.0 * T_R * T_M * T_N,
+                           4.0 * (2 * T_M * T_N + T_M * T_R + T_R * T_N)))
+    # K2 at the exchange's shape: P = M Omega, K = n, r columns
+    om = local._omega_f32(5, 0, 0, 0, T_N, T_R, "normal", 0, None, dev)
+    times["sketch_fwd"] = (
+        time_ms(lambda: local.sketch_block(M, (5, 0), T_R)),
+        time_ms(lambda: local._sketch_block_torch(M, (5, 0), T_R)),
+        time_ms(lambda: torch.matmul(M, om)),
+        bound_ms(2.0 * T_M * T_N * T_R, 4.0 * (T_M * T_N + T_M * T_R)))
+    del M, Mc, P_hat, Qt, om
+    # ragged against every tile, alpha 0.5, with acc
+    for m, K, n in ((5, 100003, 1001), (1001, 7, 2305)):
+        A = torch.randn(K, m, generator=g, device=dev).T
+        B = torch.randn(K, n, generator=g, device=dev)
+        acc = torch.randn(m, n, generator=g, device=dev)
+        held(f"ragged ({m}x{K})({K}x{n}) alpha 0.5",
+             local.gemm_block(A, B, alpha=0.5, acc=acc.clone()),
+             local._gemm_block_torch(A, B, 0.5, acc), K)
+    torch.cuda.synchronize()
+    for call, (ms, plain, lib, (bms, by)) in times.items():
+        name = "sketch_fwd" if call == "sketch_fwd" else f"gemm ({call})"
+        print(f"[timing] {name} at the embed leaf ({T_M}x{T_N}, r={T_R}): "
+              f"{ms:.3f} ms (plain {plain:.3f}, library {lib:.3f}, bound "
+              f"{bms:.3f} ms by {by})")
+    return worst, times
+
+
+def _plain_exchange(local, g, e, seed, r):
+    """The exchange of one leaf written with the plain versions (new
+    tensors, nothing in place): (g_hat, e')."""
+    m, n = g.shape
+    M = g.float() + e
+    P = local._sketch_block_torch(M, seed, r)
+    P_hat = torch.linalg.qr(P).Q
+    Qt = local._gemm_block_torch(P_hat.T, M)
+    return (local._gemm_block_torch(P_hat, Qt, out_dtype=g.dtype),
+            local._gemm_block_torch(P_hat, Qt, -1.0, M))
+
+
+def phase_exchange(dev, local, grad_compress):
+    """Phase 10: the exchange at full size, kernels against plain."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    grad = torch.randn(T_M, T_N, generator=g, device=dev)
+    fb = 0.1 * torch.randn(T_M, T_N, generator=g, device=dev)
+    seed = grad_compress.leaf_seed(0, 3)
+    want_g, want_e = _plain_exchange(local, grad, fb, seed, T_R)
+    grads, fbs = {"embed": grad.clone()}, {"embed": fb.clone()}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    grad_compress.compress_and_allreduce(grads, fbs, step=3, rank=T_R,
+                                         decisions={"embed": True})
+    end.record()
+    end.synchronize()
+    err_g = rel_fro(grads["embed"], want_g)
+    err_e = rel_fro(fbs["embed"], want_e)
+    print(f"[exchange] embed-shaped gradient ({T_M}x{T_N}, r={T_R}): "
+          f"{start.elapsed_time(end):.3f} ms with the kernels; g_hat "
+          f"rel_fro={err_g:.3e}, e' rel_fro={err_e:.3e} (tol "
+          f"{gemm_tol(T_M):.1e})")
+    check(err_g <= gemm_tol(T_M) and err_e <= gemm_tol(T_M),
+          "the exchange disagrees with its plain version")
+    check(float(fbs["embed"].abs().max()) > 0, "zero error feedback")
+    plain = time_ms(lambda: _plain_exchange(local, grad, fb, seed, T_R),
+                    reps=3)
+    print(f"[exchange] the same exchange with the plain versions: "
+          f"{plain:.3f} ms")
+
+
+def phase_training(dev, LAUNCHES, reset_launches):
+    """Phase 11: gemma2-2b at its published size, through train_loop."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import get_api, param_leaves
+    from repro_torch.plan import plan_train_compression
+    from repro_torch.train import (init_state, make_dp_compressed_step,
+                                   train_loop)
+    cfg = get_config("gemma2-2b")
+    api = get_api(cfg)
+    run = RunConfig(steps=T_STEPS, learning_rate=1e-4, warmup_steps=2,
+                    checkpoint_every=0, grad_compress_rank=T_R)
+    plan = plan_train_compression(api.init(0, cfg, "meta"), rank=T_R,
+                                  P=T_PLAN_WORKERS)
+    check(plan.n_compressed == 12, f"plan compresses {plan.n_compressed} "
+                                   f"leaves, not 12")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(api, cfg, run, 0, dev, decisions=plan.decision_tree())
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in param_leaves(state.params))
+    print(f"[train] {cfg.name}: {n_params} parameters ({cfg.n_layers} "
+          f"layers, {cfg.dtype}), state on the card in "
+          f"{time.perf_counter() - t0:.1f} s; plan at P={T_PLAN_WORKERS}: "
+          f"{plan.n_compressed}/{len(plan.decisions)} leaves compressed, "
+          f"{plan.exchange_words:.0f} words vs {plan.raw_words:.0f} raw")
+    step = make_dp_compressed_step(api, cfg, run, plan=plan)
+    per_step, exchange_ms, fb_nonzero = [], [], []
+    last = dict(LAUNCHES)
+
+    def on_step(i, metrics):
+        now = dict(LAUNCHES)
+        per_step.append({k: now[k] - last[k] for k in now})
+        last.update(now)
+        start, end = step.exchange
+        end.synchronize()
+        exchange_ms.append(start.elapsed_time(end))
+        if i == 0:
+            fb_nonzero.append(all(
+                float(e.abs().max()) > 0
+                for (_, e), d in zip(param_leaves(state.error_fb),
+                                     plan.decisions) if d.compress))
+
+    reset_launches()
+    last.update(LAUNCHES)
+    res = train_loop(step, state, DataConfig(cfg.vocab, T_SEQ, T_BATCH,
+                                             seed=0),
+                     run, device=dev, on_step=on_step)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] losses: {[round(x, 4) for x in res.losses]}")
+    print(f"[train] launches a step: {per_step}")
+    check(len(res.losses) == T_STEPS and all(
+        math.isfinite(x) for x in res.losses), f"losses {res.losses}")
+    for c in per_step:
+        check(c["gemm"] == 3 * plan.n_compressed and
+              c["sketch_fwd"] == plan.n_compressed,
+              f"a step launched gemm {c['gemm']} and sketch_fwd "
+              f"{c['sketch_fwd']} times")
+    check(fb_nonzero == [True], "error buffers zero after step 1")
+    steady = res.step_seconds[1:]
+    step_s = statistics.median(steady)
+    ex_s = statistics.median(exchange_ms[1:]) * 1e-3
+    print(f"[train] step times (s, host clock, each ending in a device "
+          f"synchronize): {[round(t, 4) for t in res.step_seconds]}")
+    print(f"[train] median step {step_s:.4f} s over {len(steady)} steps "
+          f"after the warm-up: {T_BATCH * T_SEQ / step_s:.1f} tokens/s; the "
+          f"exchange {ex_s * 1e3:.3f} ms, {ex_s / step_s:.4f} of the step; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    profile_step(step, state, make_batch(DataConfig(cfg.vocab, T_SEQ,
+                                                    T_BATCH, seed=0),
+                                         T_STEPS, dev))
+    del state, res, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_step(step, state, batch):
+    """One more training step under torch.profiler: device time by kernel
+    and the card's idle share inside the step's ``train.profiled_step``
+    range (the profiler's own host cost included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    mark = "train.profiled_step"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(mark):
+            step(state, batch)
+            torch.cuda.synchronize()
+    evs = prof.events()
+    dev = [e for e in evs
+           if e.device_type == DeviceType.CUDA and e.name != mark]
+    wins = [e.time_range for e in evs
+            if e.name == mark and e.device_type == DeviceType.CPU]
+    check(bool(dev) and bool(wins), "the profiled step has no device events")
+    w0, w1 = wins[0].start, wins[0].end
+    busy = device_busy_us(dev, w0, w1)
+    by_name = {}
+    for e in dev:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() * 1e-3, n + 1)
+    total = sum(t for t, _ in by_name.values())
+    print(f"[profile] one step under torch.profiler: {(w1 - w0) * 1e-3:.1f} "
+          f"ms, device busy {busy * 1e-3:.1f} ms, idle share "
+          f"{1.0 - busy / (w1 - w0):.3f}; device time {total:.1f} ms in "
+          f"{sum(n for _, n in by_name.values())} events")
+    groups = {}
+    for key, (t, n) in by_name.items():
+        group = ("the port's kernels" if "repro_torch" in key
+                 else "copies" if key.startswith("Memcpy")
+                 else "library GEMMs" if any(w in key.lower() for w in (
+                     "nvjet", "gemm", "cutlass", "xmma"))
+                 else "other torch kernels (elementwise, reductions)")
+        groups[group] = groups.get(group, 0.0) + t
+    for group, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {t:9.3f} ms ({t / total:.3f}) {group}")
+    for key, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"[profile]   {t:9.3f} ms ({t / total:.3f}) in {n:5d} x "
+              f"{key[:100]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -433,6 +731,7 @@ def main() -> int:
         from repro_torch.stream import (SketchService, StreamConfig,
                                         StreamingSketch, reconstruction_error)
         from repro_torch.launch import serve
+        from repro_torch.parallel import grad_compress
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})",
               file=sys.stderr)
@@ -444,7 +743,7 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.library()
     print(f"[build] nvcc + load: {time.perf_counter() - t0:.2f} s "
           f"({_build.build().name})")
@@ -630,17 +929,47 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3f} s" for k, v in est.items())
           + f"; the run took {serve_st['seconds']:.3f} s")
     serving_profile(serve)
+    del diag
+    torch.cuda.empty_cache()
+    print(f"[phases] 1-8 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 9. gemm, 10. exchange, 11. training ---------------------------------
+    gemm_err, gemm_times = phase_gemm(dev, local)
+    torch.cuda.empty_cache()
+    phase_exchange(dev, local, grad_compress)
+    torch.cuda.empty_cache()
+    print(f"[phases] 9-10 done at {time.perf_counter() - t_start:.1f} s")
+    train_counts = phase_training(dev, LAUNCHES, reset_launches)
+    print(f"[phases] 11 done at {time.perf_counter() - t_start:.1f} s")
+    check(train_counts["gemm"] > 0 and train_counts["sketch_fwd"] > 0,
+          "gemm or sketch_fwd never launched on the training path")
+    total = [sum(gemm_times[c][i] for c in "abc") for i in range(3)]
+    bound3 = sum(gemm_times[c][3][0] for c in "abc")
+    rows.append(("gemm",
+                 "src/repro/kernels/local.py:429 _gemm_pallas (K5; bodies "
+                 ":386 _gemm_body, :406 _gemm_acc_body; via :617 "
+                 "gemm_block)",
+                 train_counts["gemm"], gemm_err, total[0], total[1],
+                 (bound3, "bytes"), total[2]))
 
     kernels = []
     for name, rep, n, err, ms, plain_ms, (bms, by), lib in rows:
         kernels.append({
             "name": name, "route": "cuda",
-            "source": FOLD_SOURCE if name == "fold_rows" else KERNEL_SOURCE,
+            "source": {"fold_rows": FOLD_SOURCE, "gemm": GEMM_SOURCE}.get(
+                name, KERNEL_SOURCE),
             "replaces": rep, "launches": n, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib, "card": card})
         if name == "fold_rows":
             kernels[-1]["kernel_ms"] = f_kernel
+        if name == "gemm":
+            # ms, plain_ms, library_ms and bound_ms sum the three calls of
+            # one embed-leaf exchange; each call on its own:
+            kernels[-1]["calls"] = {
+                c: {"ms": t[0], "plain_ms": t[1], "library_ms": t[2],
+                    "bound_ms": t[3][0], "bound_by": t[3][1]}
+                for c, t in gemm_times.items() if c in "abc"}
         print(f"[timing] {name}: {ms:.3f} ms (plain {plain_ms:.3f}, library "
               f"{'none' if lib is None else f'{lib:.3f}'}, bound {bms:.3f} "
               f"ms by {by}) launches={n}")

@@ -1,0 +1,37 @@
+"""Architecture registry of the port: ``get_config("<arch-id>")``.
+
+Only the dense family is ported (the training slice); the reference's
+other architectures raise ``NotImplementedError`` naming the roadmap item
+that ports them.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+from .base import FULL_WINDOW, ModelConfig, RunConfig  # noqa: F401
+from . import gemma2_2b, h2o_danube3_4b, internlm2_20b, llama3_8b
+
+_REGISTRY: Dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG
+    for m in (h2o_danube3_4b, internlm2_20b, gemma2_2b, llama3_8b)
+}
+
+# the reference's architectures of other families, not ported yet
+_NOT_PORTED = {
+    "internvl2-26b": "vlm", "granite-moe-1b-a400m": "moe",
+    "dbrx-132b": "moe", "zamba2-1.2b": "hybrid", "falcon-mamba-7b": "ssm",
+    "whisper-tiny": "encdec",
+}
+
+ARCH_IDS: Tuple[str, ...] = tuple(_REGISTRY)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{arch!r} is of the {_NOT_PORTED[arch]} family, which the port "
+            f"does not have yet (ROADMAP.md Queue 1, item 11: the LM "
+            f"substrate); ported: {sorted(_REGISTRY)}")
+    if arch not in _REGISTRY:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[arch]

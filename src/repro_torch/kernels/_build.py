@@ -31,14 +31,15 @@ BUILD_DIR = ROOT / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_VP, _U32, _INT, _F32 = (ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int,
-                         ctypes.c_float)
+_VP, _U32, _INT, _LL, _F32 = (ctypes.c_void_p, ctypes.c_uint32,
+                              ctypes.c_int, ctypes.c_longlong, ctypes.c_float)
 _OMEGA = (_U32, _U32, _U32, _U32, _U32, _INT, _F32, _VP)
 SIGNATURES = {
     "rt_gen_omega": (_VP, _INT, _INT) + _OMEGA,
     "rt_sketch_fwd": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT) + _OMEGA,
     "rt_sketch_t": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT) + _OMEGA,
     "rt_fold_rows": (_VP, _VP, _VP, _VP) + (_INT,) * 7 + (_VP,),
+    "rt_gemm": (_VP,) * 5 + (_INT,) * 3 + (_LL, _LL, _INT, _F32, _INT, _VP),
 }
 
 

@@ -4,6 +4,8 @@
   * ``sketch_t_block``  —  acc? + Omega[row0:, col0:col0+cols]^T · B
   * ``fold_rows_block`` —  y + [0_m; d; 0_m][start : start+m], masked to
                            ``nvalid`` rows, over one lane or many
+  * ``gemm_block``      —  acc? + (A · B)·alpha, both operands data (the
+                           gradient exchange's factors and error feedback)
 
 with the Omega (or Psi) tile drawn at GLOBAL Philox coordinates, so the
 key pair and the offsets select any shard's block.  ``acc`` fuses the
@@ -35,7 +37,8 @@ import torch
 from repro_torch.core.sketch import _omega_tile_torch, seed_keys
 from repro_torch.core.kinds import validate_kind
 
-from .sketch_matmul import fold_rows_cuda, sketch_fwd_cuda, sketch_t_cuda
+from .sketch_matmul import (fold_rows_cuda, gemm_cuda, sketch_fwd_cuda,
+                            sketch_t_cuda)
 
 BACKENDS = ("torch", "cuda", "auto")
 
@@ -238,3 +241,43 @@ def fold_rows_block(y: Union[torch.Tensor, Sequence[torch.Tensor]],
         yi.copy_(_fold_rows_torch(yi, d[i], starts[i],
                                   None if nvalids is None else nvalids[i]))
     return y
+
+
+def _gemm_block_torch(A: torch.Tensor, B: torch.Tensor, alpha: float = 1.0,
+                      acc: Optional[torch.Tensor] = None,
+                      out_dtype=None) -> torch.Tensor:
+    """Plain ``acc? + (A @ B)·alpha`` (a new tensor): the reference's
+    ``_gemm_jnp`` operation by operation — an f32 product, scaled by alpha
+    unless it is 1, then the accumulator added, then one cast."""
+    out = A.to(torch.float32) @ B.to(torch.float32)
+    if alpha != 1.0:
+        out = out * torch.tensor(alpha, dtype=torch.float32, device=A.device)
+    if acc is not None:
+        out = acc.to(torch.float32) + out
+    return out.to(out_dtype or A.dtype)
+
+
+def gemm_block(A: torch.Tensor, B: torch.Tensor, *, alpha: float = 1.0,
+               acc: Optional[torch.Tensor] = None, out_dtype=None,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``acc? + alpha · (A @ B)`` — the dense GEMM of the gradient exchange
+    (the reference's ``gemm_block``): ``P̂ᵀ·M``, ``P̂·Qᵀ`` and the error
+    feedback ``E' = gemm_block(P̂, Q_locᵀ, acc=M, alpha=-1)``.
+
+    Summed in f32 with the association ``acc + (dot · alpha)`` and cast
+    once to ``out_dtype`` (default A's dtype).  The result goes into ``out``
+    when given, else into ``acc`` IN PLACE when given (the reference
+    aliases the accumulator to the output), else into a new tensor.  On the
+    card the K5 kernel runs (``A`` may be a transposed view, ``B``
+    contiguous, both float32); on the CPU the plain version.
+    """
+    out_dtype = out_dtype or A.dtype
+    alpha = float(alpha)
+    if A.is_cuda:
+        return gemm_cuda(A, B.contiguous(), alpha, acc, out_dtype, out)
+    shape = (A.shape[0], B.shape[1])
+    _check_acc(acc, shape, out_dtype)
+    _check_acc(out, shape, out_dtype, "out")
+    res = _gemm_block_torch(A, B, alpha, acc, out_dtype)
+    dst = out if out is not None else acc
+    return res if dst is None else dst.copy_(res)

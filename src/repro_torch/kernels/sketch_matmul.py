@@ -3,8 +3,9 @@
 The counterpart of the reference's Pallas kernel module: where that one
 defines ``gen_omega_pallas``, ``sketch_matmul_pallas`` and
 ``sketch_t_matmul_pallas``, this one launches the hand-written Hopper
-kernels of ``csrc/sketch_kernels.cu`` that replace them, and the row-slab
-fold of ``csrc/fold_kernels.cu``:
+kernels of ``csrc/sketch_kernels.cu`` that replace them, the row-slab
+fold of ``csrc/fold_kernels.cu`` and the dense GEMM of
+``csrc/gemm_kernels.cu``:
 
   * ``gen_omega_cuda``  — a materialized Omega tile (the K1 generator's
                           oracle, K8);
@@ -15,7 +16,10 @@ fold of ``csrc/fold_kernels.cu``:
   * ``fold_rows_cuda``  — ``y_i + [0; d_i; 0][start_i : start_i + m]``
                           for many lanes in one launch, masked to
                           ``nvalid_i`` rows (K4, the reference's
-                          ``_fold_rows_pallas`` vmapped over lanes).
+                          ``_fold_rows_pallas`` vmapped over lanes);
+  * ``gemm_cuda``       — ``acc? + (A · B)·alpha`` with both operands in
+                          device memory (K5, the reference's
+                          ``_gemm_pallas``), split over K for a skinny A.
 
 Keys, offsets, salt, kind and scale are runtime arguments, so one build
 serves every seed and shard offset.  Each launcher checks device, dtype,
@@ -40,7 +44,7 @@ _INT_MAX = 2 ** 31 - 1
 
 # Launches of each kernel since the last ``reset_launches()``.
 LAUNCHES = {"gen_omega": 0, "sketch_fwd": 0, "sketch_t": 0,
-            "fold_rows": 0}
+            "fold_rows": 0, "gemm": 0}
 
 
 def reset_launches() -> None:
@@ -255,3 +259,73 @@ def fold_rows_cuda(ys: Sequence[torch.Tensor], d: torch.Tensor,
             int(ys[0].dtype == torch.bfloat16),
             int(d.dtype == torch.bfloat16), _stream(d.device))
     _launched(rc, name)
+
+
+# Skinny A (at most this many rows) takes the split-K kernel; the split
+# count aims at this many blocks (8 a streaming multiprocessor of an H100)
+# without giving a split fewer than GEMM_MIN_K_SPLIT rows of B.
+GEMM_SKINNY_M = 32
+GEMM_TARGET_BLOCKS = 132 * 8
+GEMM_MIN_K_SPLIT = 512
+_GEMM_SKINNY_COLS = 128          # kSkinnyCols of csrc/gemm_kernels.cu
+
+
+def gemm_splits(M: int, N: int, K: int) -> int:
+    """How many blocks share the K loop of one output column tile: 1 unless
+    A is skinny (``M <= GEMM_SKINNY_M``) and K long enough to split."""
+    if M > GEMM_SKINNY_M:
+        return 1
+    tiles = -(-N // _GEMM_SKINNY_COLS)
+    return max(1, min(-(-GEMM_TARGET_BLOCKS // tiles), K // GEMM_MIN_K_SPLIT,
+                      65535))
+
+
+def gemm_cuda(A: torch.Tensor, B: torch.Tensor, alpha: float = 1.0,
+              acc: Optional[torch.Tensor] = None, out_dtype=None,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``acc? + (A @ B)·alpha`` on the card, summed in f32 and cast once to
+    ``out_dtype`` (default float32).
+
+    ``A`` (M, K) float32, any strides (a transposed view is read as it
+    is); ``B`` (K, N) float32, contiguous.  The result is written into
+    ``out`` when given, else into ``acc`` in place when given (both
+    contiguous (M, N) of ``out_dtype``; ``out`` may be ``acc``), else into
+    a new tensor.  With a skinny A the K loop is split over blocks and the
+    partial sums are added in a fixed order by a second pass (one more
+    kernel on the stream, counted with the first as one launch): two runs
+    give the same bits.
+    """
+    name = "gemm"
+    for what, X in (("A", A), ("B", B)):
+        if not X.is_cuda or X.dim() != 2 or X.dtype != torch.float32:
+            raise ValueError(f"{name}: {what} must be a 2-D float32 CUDA "
+                             f"tensor, got {tuple(X.shape)} {X.dtype} on "
+                             f"{X.device}")
+    if not B.is_contiguous():
+        raise ValueError(f"{name}: B must be contiguous")
+    if A.device != B.device:
+        raise ValueError(f"{name}: A on {A.device}, B on {B.device}")
+    M, K = A.shape
+    if B.shape[0] != K:
+        raise ValueError(f"{name}: inner dims differ, A {tuple(A.shape)} "
+                         f"B {tuple(B.shape)}")
+    N = B.shape[1]
+    if max(M, N, K) > _INT_MAX:
+        raise ValueError(f"{name}: dims ({M}, {N}, {K}) exceed int32")
+    out_dtype = out_dtype or torch.float32
+    dst = _output(acc, out, (M, N), out_dtype, A.device, name)
+    if M == 0 or N == 0:
+        return dst
+    splits = gemm_splits(M, N, K)
+    work = (torch.empty((splits, M, N), dtype=torch.float32, device=A.device)
+            if splits > 1 else None)
+    lib = _build.library()
+    with torch.cuda.device(A.device):
+        rc = lib.rt_gemm(A.data_ptr(), B.data_ptr(),
+                         None if acc is None else acc.data_ptr(),
+                         dst.data_ptr(),
+                         None if work is None else work.data_ptr(), M, N, K,
+                         A.stride(0), A.stride(1), splits, float(alpha),
+                         int(out_dtype == torch.bfloat16), _stream(A.device))
+    _launched(rc, name)
+    return dst

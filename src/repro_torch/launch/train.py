@@ -1,0 +1,114 @@
+"""Training driver of the port.
+
+Reduced config by default (tiny widths, the synthetic pipeline); ``--full``
+runs the config at its published size.  Config -> state -> fault-tolerant
+loop -> checkpoints, with optional sketched gradient compression:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch gemma2-2b --steps 20 --batch 4 --seq 32 --grad-compress 8
+
+``--device`` defaults to the card (and fails without one); on the card the
+exchange's GEMMs run the hand-written kernels.  With ``--grad-compress``
+the per-leaf raw-vs-sketch decisions are planned at the process group's
+world size (a group is joined when ``WORLD_SIZE`` > 1 is set, with
+``MASTER_ADDR``/``MASTER_PORT``/``RANK`` as torchrun sets them) and their
+word table is printed.  At one process the plan compresses nothing: both
+exchanges move 0 words there.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--full", action="store_true",
+                    help="the published config, not the reduced one")
+    ap.add_argument("--ckpt-dir", default="repro_torch_train_ckpt")
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="checkpoint period in steps (0 = never)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--grad-compress", type=int, default=0, metavar="RANK",
+                    help="sketched gradient compression at this rank "
+                         "(0 = off)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    return ap
+
+
+def main(argv=None):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core.rng import resolve_device
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import get_api, param_leaves
+    from repro_torch.train import (init_state, make_dp_compressed_step,
+                                   make_train_step, train_loop)
+
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    if (int(os.environ.get("WORLD_SIZE", "1")) > 1
+            and not dist.is_initialized()):
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             "0")))
+    cfg = get_config(args.arch)
+    if not args.full:
+        cfg = cfg.reduced()
+    api = get_api(cfg)
+    run = RunConfig(steps=args.steps, learning_rate=args.lr,
+                    checkpoint_every=args.ckpt_every,
+                    checkpoint_dir=args.ckpt_dir, seed=args.seed,
+                    remat=True, grad_compress_rank=args.grad_compress)
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                          global_batch=args.batch, seed=args.seed)
+    print(f"[train] arch={cfg.name} family={cfg.family} steps={run.steps} "
+          f"batch={args.batch} seq={args.seq} device={device}")
+    if args.grad_compress:
+        from repro_torch.parallel.grad_compress import world_size
+        from repro_torch.plan import (explain_train_compression,
+                                      plan_train_compression)
+        world = world_size()
+        if args.batch % world:
+            raise SystemExit(f"--batch {args.batch} must divide over "
+                             f"{world} DP workers")
+        shapes = api.init(run.seed, cfg, "meta")
+        plan = plan_train_compression(shapes, rank=run.grad_compress_rank,
+                                      P=world)
+        print(explain_train_compression(plan))
+        state = init_state(api, cfg, run, run.seed, device,
+                           decisions=plan.decision_tree())
+        step_fn = make_dp_compressed_step(api, cfg, run, plan=plan)
+    else:
+        state = init_state(api, cfg, run, run.seed, device)
+        step_fn = make_train_step(api, cfg, run)
+    n_params = sum(t.numel() for _, t in param_leaves(state.params))
+    print(f"[train] params: {n_params / 1e6:.2f}M")
+
+    t0 = time.time()
+    result = train_loop(step_fn, state, data_cfg, run, device=device)
+    dt = time.time() - t0
+    first = float(np.mean(result.losses[:10]))
+    last = float(np.mean(result.losses[-10:]))
+    print(f"[train] done in {dt:.1f}s; loss {first:.4f} -> {last:.4f} "
+          f"({len(result.losses)} steps, {result.restarts} restarts, "
+          f"{len(result.checkpoints)} checkpoints)")
+    if not last < first:
+        raise SystemExit("loss did not decrease")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -12,16 +12,21 @@ Tolerances: Omega draws are bitwise.  GEMM results are held to
 bfloat16 ulp (both round the same f32 value, which may sit on either side
 of a rounding boundary).  The row-slab fold is one add per element and is
 held bitwise, and so is each lane of the service's ragged update against
-the solo update of its stream.
+the solo update of its stream.  The dense GEMM (K5) is held to
+``16·sqrt(K)·2**-24`` relative Frobenius in float32 (two f32 sums of K
+terms in different orders) and to ``2**-12`` when its output is bfloat16
+(both sides round one f32 value), and its split-K form must give the same
+bits twice.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.sketch import _omega_tile_torch, omega_tile
-from repro_torch.kernels import (LAUNCHES, fold_rows_block, reset_launches,
-                                 sketch_block, sketch_t_block)
-from repro_torch.kernels.local import (_fold_rows_torch, _sketch_block_torch,
+from repro_torch.kernels import (LAUNCHES, fold_rows_block, gemm_block,
+                                 reset_launches, sketch_block, sketch_t_block)
+from repro_torch.kernels.local import (_fold_rows_torch, _gemm_block_torch,
+                                       _sketch_block_torch,
                                        _sketch_t_block_torch)
 from repro_torch.stream import SketchService, StreamConfig, StreamingSketch
 
@@ -149,3 +154,51 @@ def test_service_ragged_lanes_bitwise_equal_solo_on_card(dev, dtype):
     for s, r in zip(sids, rids):
         assert torch.equal(_bits(svc.sketch(s)), _bits(ref.sketch(r)))
         assert torch.equal(_bits(svc.corange(s)), _bits(ref.corange(r)))
+
+
+@pytest.mark.parametrize("M,N,K,trans_a", [
+    (8, 2304, 20000, True),      # call (a): P^T·M, split over K
+    (13, 100, 3000, True),       # skinny, ragged
+    (1000, 77, 8, False),        # calls (b)/(c): K = r
+    (130, 70, 45, False),        # tiled, ragged against 64 x 64 x 16
+])
+@pytest.mark.parametrize("alpha", [1.0, -1.0, 0.5])
+@pytest.mark.parametrize("use_acc", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gemm_kernel_matches_plain(dev, M, N, K, trans_a, alpha, use_acc,
+                                   out_dtype):
+    g = torch.Generator(device=dev).manual_seed(5)
+    A = (torch.randn(K, M, generator=g, device=dev).T if trans_a
+         else torch.randn(M, K, generator=g, device=dev))
+    B = torch.randn(K, N, generator=g, device=dev)
+    acc = (torch.randn(M, N, generator=g, device=dev).to(out_dtype)
+           if use_acc else None)
+    ref = _gemm_block_torch(A, B, alpha, acc, out_dtype)
+    reset_launches()
+    got = gemm_block(A, B, alpha=alpha, out_dtype=out_dtype,
+                     acc=None if acc is None else acc.clone())
+    again = gemm_block(A, B, alpha=alpha, out_dtype=out_dtype,
+                       acc=None if acc is None else acc.clone())
+    torch.cuda.synchronize()
+    assert LAUNCHES["gemm"] == 2
+    assert got.dtype == out_dtype and tuple(got.shape) == (M, N)
+    assert torch.equal(_bits(got), _bits(again))        # deterministic
+    err = float(torch.linalg.norm(got.float() - ref.float())
+                / torch.linalg.norm(ref.float()))
+    tol = 16 * K ** 0.5 * 2.0 ** -24 if out_dtype == torch.float32 \
+        else 2.0 ** -12
+    assert err <= tol, (err, tol)
+
+
+def test_gemm_kernel_in_place_error_feedback(dev):
+    """Call (c): M <- M - P·Q_loc^T with the accumulator as the output."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    P = torch.randn(5000, 8, generator=g, device=dev)
+    Qt = torch.randn(8, 300, generator=g, device=dev)
+    M = torch.randn(5000, 300, generator=g, device=dev)
+    ref = _gemm_block_torch(P, Qt, -1.0, M)
+    out = gemm_block(P, Qt, alpha=-1.0, acc=M)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == M.data_ptr()
+    err = float(torch.linalg.norm(M - ref) / torch.linalg.norm(ref))
+    assert err <= 16 * 8 ** 0.5 * 2.0 ** -24
