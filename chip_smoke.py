@@ -12,7 +12,9 @@ PSD, made on the card from a seed; r = 512, l = 1025):
                   uint32 row counter, and at the Psi shape the path uses;
   2. kernels    — sketch_fwd / sketch_t against their plain versions at
                   ragged shapes: float32 and bfloat16, with and without
-                  ``acc``, nonzero offsets, ``scale``;
+                  ``acc``, nonzero offsets, ``scale``; sketch_t split over
+                  K at the Nystrom C shape, whose two runs must give the
+                  same bits;
   3. one-shot   — ``ops.nystrom_fused(A, seed=7, r=512)`` against the plain
                   version, and the Nystrom relative error;
   4. streaming  — ``StreamingSketch`` ingests A in eight 4096-row slabs: Y
@@ -21,7 +23,10 @@ PSD, made on the card from a seed; r = 512, l = 1025):
   5. launches   — every kernel's launch count over phases 3-4 (reset just
                   before them) must be > 0; then each kernel is timed at the
                   main path's shape beside its plain version, the PyTorch
-                  library call computing the same function, and its bound.
+                  library call computing the same function, and its bound;
+                  sketch_t at both of its shapes (the W update and the
+                  Nystrom C), with the device time of its draw, its GEMM
+                  and its split-K reduce apart.
 
 then the serving path, at the shape of one serving configuration (streams
 of n1 = 16384, n2 = 8192, r = 128, l = 257, float32):
@@ -100,6 +105,7 @@ PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 EPS32 = 2.0 ** -24
 NYSTROM_RCOND = 1e-4
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/sketch_kernels.cu"
+SKETCH_T_SOURCE = "src/repro_torch/kernels/csrc/sketch_t_kernels.cu"
 FOLD_SOURCE = "src/repro_torch/kernels/csrc/fold_kernels.cu"
 GEMM_SOURCE = "src/repro_torch/kernels/csrc/gemm_kernels.cu"
 # the training path of phases 9-11: gemma2-2b's embed leaf, rank 8
@@ -268,10 +274,41 @@ def phase_kernels(dev, local):
                   f"{fn.__name__}: wrong output {got.dtype} {got.shape}")
             check(err <= tol, f"{fn.__name__} disagrees with its plain "
                               f"version: {err:.3e} > {tol:.1e}")
+    # sketch_t at the Nystrom C shape (B (N, R) -> C (R, R)) is split over
+    # K; the partial sums are added in a fixed order, so two runs agree
+    from repro_torch.kernels.sketch_matmul import sketch_t_splits
+    splits = sketch_t_splits(R, R, N)
+    check(splits > 1, f"sketch_t does not split at the C shape ({splits})")
+    for dt, use_acc in ((torch.float32, False), (torch.bfloat16, True)):
+        X = torch.randn(N, R, generator=g, device=dev).to(dt)
+        acc = (torch.randn(R, R, generator=g, device=dev).to(dt)
+               if use_acc else None)
+        kw = dict(row0=2 ** 32 - 300, col0=2 ** 31, kind="normal", salt=4)
+        ref = local._sketch_t_block_torch(X, SEED, R, acc=acc, **kw)
+        runs = [local.sketch_t_block(
+            X, SEED, R, acc=None if acc is None else acc.clone(), **kw)
+            for _ in range(2)]
+        torch.cuda.synchronize()
+        tol = f32_tol(N) if dt == torch.float32 else BF16_TOL
+        err = rel_fro(runs[0], ref)
+        same = torch.equal(_bits(runs[0]), _bits(runs[1]))
+        print(f"[kernels] sketch_t_block  split {splits} x {N // splits} "
+              f"rows ({N}x{R} -> {R}x{R}) {str(dt):14s} acc={use_acc!s:5s}: "
+              f"rel_fro={err:.3e} (tol {tol:.1e}); two runs bitwise={same}")
+        check(err <= tol, f"split sketch_t disagrees with its plain "
+                          f"version: {err:.3e} > {tol:.1e}")
+        check(same, "two runs of the split sketch_t differ")
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+
+def sketch_t_parts(fn) -> dict:
+    """Device time of one sketch_t call's draw, GEMM and split-K reduce
+    kernels (torch.profiler; None where the call has no such kernel)."""
+    return {part: device_ms(fn, f"sketch_t_{part}_kernel")
+            for part in ("draw", "gemm", "reduce")}
 
 
 def phase_fold(dev, fold_rows_block, plain_fold, LAUNCHES):
@@ -862,22 +899,33 @@ def main() -> int:
     t_plain = time_ms(lambda: local._sketch_t_block_torch(H, SEED, L,
                                                           salt=1, acc=W))
     t_lib = time_ms(lambda: torch.addmm(W, psi.T, H))
+    t_bound = bound_ms(2.0 * SLAB * N * L, 4.0 * (SLAB * N + 2 * L * N))
+    t_parts = sketch_t_parts(
+        lambda: local.sketch_t_block(H, SEED, L, salt=1, acc=W))
     rows.append(("sketch_t",
                  "src/repro/kernels/local.py:326 _sketch_t_block_pallas (K3; "
                  "K7: kernels/sketch_matmul.py:125 sketch_t_matmul_pallas)",
-                 counts["sketch_t"], t_err, t_ms, t_plain,
-                 bound_ms(2.0 * SLAB * N * L, 4.0 * (SLAB * N + 2 * L * N)),
-                 t_lib))
-    # sketch_t at the Nystrom C shape (B (N, r) -> C (r, r)), printed only
+                 counts["sketch_t"], t_err, t_ms, t_plain, t_bound, t_lib))
+    # sketch_t at the Nystrom C shape (B (N, r) -> C (r, r)), split over K
     om = _omega_tile_torch(k0, k1, 0, 0, N, R, "normal", 0, None, None, dev)
     c_ms = time_ms(lambda: local.sketch_t_block(B, SEED, R))
     c_plain = time_ms(lambda: local._sketch_t_block_torch(B, SEED, R))
     c_lib = time_ms(lambda: torch.matmul(om.T, B))
     c_bound = bound_ms(2.0 * N * R * R, 4.0 * (N * R + R * R))
-    print(f"[timing] sketch_t at the Nystrom C shape ({N}x{R} -> {R}x{R}): "
-          f"{c_ms:.3f} ms (plain {c_plain:.3f}, library {c_lib:.3f}, bound "
-          f"{c_bound[0]:.3f} ms by {c_bound[1]})")
+    c_parts = sketch_t_parts(lambda: local.sketch_t_block(B, SEED, R))
     del om
+    sketch_t_calls = {
+        "w_update": (t_ms, t_plain, t_lib, t_bound, t_parts),
+        "nystrom_c": (c_ms, c_plain, c_lib, c_bound, c_parts)}
+    for call, shape in (("w_update", f"W update ({SLAB}x{N} -> {L}x{N})"),
+                        ("nystrom_c", f"Nystrom C ({N}x{R} -> {R}x{R})")):
+        ms, plain, lib, (bms, by), parts = sketch_t_calls[call]
+        print(f"[timing] sketch_t at the {shape}: {ms:.3f} ms (plain "
+              f"{plain:.3f}, library {lib:.3f}, bound {bms:.3f} ms by {by}); "
+              f"on the device (torch.profiler): "
+              + ", ".join(f"{part} " + ("none" if t is None
+                                        else f"{t:.4f} ms")
+                          for part, t in parts.items()))
 
     # What bounds sketch_fwd: gen_omega gives the card's rate of normal
     # draws (3 Philox calls each); the kernel draws its Omega tile once per
@@ -956,8 +1004,8 @@ def main() -> int:
     for name, rep, n, err, ms, plain_ms, (bms, by), lib in rows:
         kernels.append({
             "name": name, "route": "cuda",
-            "source": {"fold_rows": FOLD_SOURCE, "gemm": GEMM_SOURCE}.get(
-                name, KERNEL_SOURCE),
+            "source": {"fold_rows": FOLD_SOURCE, "gemm": GEMM_SOURCE,
+                       "sketch_t": SKETCH_T_SOURCE}.get(name, KERNEL_SOURCE),
             "replaces": rep, "launches": n, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib, "card": card})
@@ -970,6 +1018,15 @@ def main() -> int:
                 c: {"ms": t[0], "plain_ms": t[1], "library_ms": t[2],
                     "bound_ms": t[3][0], "bound_by": t[3][1]}
                 for c, t in gemm_times.items() if c in "abc"}
+        if name == "sketch_t":
+            # ms, plain_ms, library_ms and bound_ms are the W update's;
+            # each of the main path's two shapes on its own, with the
+            # device time of the call's draw, GEMM and reduce kernels:
+            kernels[-1]["calls"] = {
+                c: {"ms": t[0], "plain_ms": t[1], "library_ms": t[2],
+                    "bound_ms": t[3][0], "bound_by": t[3][1],
+                    "device_ms": t[4]}
+                for c, t in sketch_t_calls.items()}
         print(f"[timing] {name}: {ms:.3f} ms (plain {plain_ms:.3f}, library "
               f"{'none' if lib is None else f'{lib:.3f}'}, bound {bms:.3f} "
               f"ms by {by}) launches={n}")

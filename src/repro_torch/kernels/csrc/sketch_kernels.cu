@@ -9,13 +9,10 @@
 //                   Replaces src/repro/kernels/local.py `_sketch_block_pallas`
 //                   and src/repro/kernels/sketch_matmul.py
 //                   `sketch_matmul_pallas`.
-//   rt_sketch_t   — K3/K7: out = acc? + Omega[row0:row0+K, col0:col0+m]^T · B.
-//                   Replaces src/repro/kernels/local.py
-//                   `_sketch_t_block_pallas` and
-//                   src/repro/kernels/sketch_matmul.py
-//                   `sketch_t_matmul_pallas`.
 //
-// Design of the two GEMMs (one template): a block owns a BM x BN output
+// K3/K7 (`rt_sketch_t`, Omega^T · B) is in sketch_t_kernels.cu.
+//
+// Design of the forward GEMM: a block owns a BM x BN output
 // tile and walks the contraction in BK steps.  At each step its threads
 // stage the data operand (upcast to f32) and GENERATE the Omega tile into
 // shared memory, so Omega never touches device memory, then each thread
@@ -26,11 +23,11 @@
 // reference's jnp body), rounded once to the output type.  `acc` may alias
 // `out`: each element is read and then written by one thread.
 //
-// What bounds them on this card: the TPU design regenerates the Omega tile
+// What bounds it on this card: the TPU design regenerates the Omega tile
 // for every row tile of the data operand, i.e. (m/BM)·K·n·3 Philox calls of
 // ~100 integer instructions for `normal`, against 2·m·K·n FMA flops; at
 // Hopper's INT32:FP32 issue ratio of 1:2 the Philox work is several times
-// the FMA work, so the kernels are integer-bound, not FMA-bound.  Amortizing
+// the FMA work, so the kernel is integer-bound, not FMA-bound.  Amortizing
 // each Omega tile over many row tiles is the next step, not this one.
 //
 // Numerics: IEEE f32 throughout; no TF32 and no bf16 tensor cores (a bf16
@@ -87,11 +84,8 @@ __global__ void gen_omega_kernel(float* __restrict__ out, int rows, int cols,
   }
 }
 
-// out(m, n) = acc? + L(m, K) · R(K, n), with
-//   kTrans == false:  L = X = A (m, K) row-major,  R = Omega[row0+k, col0+j]
-//   kTrans == true:   L = Omega[row0+k, col0+i]^T, R = X = B (K, n) row-major
-template <bool kTrans, int BM, int BN, int BK, int TM, int TN, typename TI,
-          typename TO>
+// out(m, n) = acc? + X(m, K) · Omega[row0+k, col0+j], X = A row-major
+template <int BM, int BN, int BK, int TM, int TN, typename TI, typename TO>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     sketch_gemm_kernel(const TI* __restrict__ X, const TO* acc, TO* out, int m,
                        int n, int K, OmegaArgs om) {
@@ -115,31 +109,18 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     const int kmax = min(BK, K - kt);
     for (int e = tid; e < BM * BK; e += kThreads) {
       float v = 0.0f;
-      if (!kTrans) {
-        const int row = e / BK, kk = e % BK;
-        if (bm0 + row < m && kk < kmax)
-          v = to_f32(X[static_cast<long long>(bm0 + row) * K + kt + kk]);
-        sL[kk][row] = v;
-      } else {
-        const int kk = e / BM, i = e % BM;
-        if (bm0 + i < m && kk < kmax)
-          v = omega_entry(om.key, om.row0 + static_cast<uint32_t>(kt + kk),
-                          om.col0 + static_cast<uint32_t>(bm0 + i), om.salt,
-                          om.kind, om.scale);
-        sL[kk][i] = v;
-      }
+      const int row = e / BK, kk = e % BK;
+      if (bm0 + row < m && kk < kmax)
+        v = to_f32(X[static_cast<long long>(bm0 + row) * K + kt + kk]);
+      sL[kk][row] = v;
     }
     for (int e = tid; e < BK * BN; e += kThreads) {
       const int kk = e / BN, j = e % BN;
       float v = 0.0f;
-      if (bn0 + j < n && kk < kmax) {
-        if (!kTrans)
-          v = omega_entry(om.key, om.row0 + static_cast<uint32_t>(kt + kk),
-                          om.col0 + static_cast<uint32_t>(bn0 + j), om.salt,
-                          om.kind, om.scale);
-        else
-          v = to_f32(X[static_cast<long long>(kt + kk) * n + bn0 + j]);
-      }
+      if (bn0 + j < n && kk < kmax)
+        v = omega_entry(om.key, om.row0 + static_cast<uint32_t>(kt + kk),
+                        om.col0 + static_cast<uint32_t>(bn0 + j), om.salt,
+                        om.kind, om.scale);
       sR[kk][j] = v;
     }
     __syncthreads();
@@ -173,39 +154,36 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   }
 }
 
-// Tile shapes: 256 threads each.  The forward kernel takes tall row tiles
-// (each generated Omega tile serves BM = 128 rows of A); the transposed one
-// squarer tiles, because its output (r x r2) is small on the Nystrom path.
+// Tile shape: 256 threads, tall row tiles (each generated Omega tile serves
+// BM = 128 rows of A).
 constexpr int kFwdBM = 128, kFwdBN = 64, kFwdBK = 16, kFwdTM = 8, kFwdTN = 4;
-constexpr int kTBM = 64, kTBN = 64, kTBK = 16, kTTM = 4, kTTN = 4;
 
-template <bool kTrans, int BM, int BN, int BK, int TM, int TN, typename TI,
-          typename TO>
+template <int BM, int BN, int BK, int TM, int TN, typename TI, typename TO>
 void launch_gemm(const void* X, const void* acc, void* out, int m, int n,
                  int K, OmegaArgs om, cudaStream_t stream) {
   const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
-  sketch_gemm_kernel<kTrans, BM, BN, BK, TM, TN, TI, TO>
+  sketch_gemm_kernel<BM, BN, BK, TM, TN, TI, TO>
       <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
           static_cast<const TI*>(X), static_cast<const TO*>(acc),
           static_cast<TO*>(out), m, n, K, om);
 }
 
-template <bool kTrans, int BM, int BN, int BK, int TM, int TN>
+template <int BM, int BN, int BK, int TM, int TN>
 int dispatch_gemm(const void* X, const void* acc, void* out, int m, int n,
                   int K, int x_bf16, int out_bf16, OmegaArgs om,
                   cudaStream_t stream) {
   if (m <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   if (!x_bf16 && !out_bf16)
-    launch_gemm<kTrans, BM, BN, BK, TM, TN, float, float>(X, acc, out, m, n, K,
-                                                          om, stream);
+    launch_gemm<BM, BN, BK, TM, TN, float, float>(X, acc, out, m, n, K, om,
+                                                  stream);
   else if (!x_bf16 && out_bf16)
-    launch_gemm<kTrans, BM, BN, BK, TM, TN, float, __nv_bfloat16>(
+    launch_gemm<BM, BN, BK, TM, TN, float, __nv_bfloat16>(
         X, acc, out, m, n, K, om, stream);
   else if (x_bf16 && !out_bf16)
-    launch_gemm<kTrans, BM, BN, BK, TM, TN, __nv_bfloat16, float>(
+    launch_gemm<BM, BN, BK, TM, TN, __nv_bfloat16, float>(
         X, acc, out, m, n, K, om, stream);
   else
-    launch_gemm<kTrans, BM, BN, BK, TM, TN, __nv_bfloat16, __nv_bfloat16>(
+    launch_gemm<BM, BN, BK, TM, TN, __nv_bfloat16, __nv_bfloat16>(
         X, acc, out, m, n, K, om, stream);
   return static_cast<int>(cudaGetLastError());
 }
@@ -244,19 +222,8 @@ int rt_sketch_fwd(const void* A, const void* acc, void* out, int m, int K,
                   uint32_t row0, uint32_t col0, uint32_t salt, int kind,
                   float scale, void* stream) {
   using namespace repro_torch;
-  return dispatch_gemm<false, kFwdBM, kFwdBN, kFwdBK, kFwdTM, kFwdTN>(
+  return dispatch_gemm<kFwdBM, kFwdBN, kFwdBK, kFwdTM, kFwdTN>(
       A, acc, out, m, n, K, a_bf16, out_bf16,
-      make_omega(k0, k1, row0, col0, salt, kind, scale),
-      static_cast<cudaStream_t>(stream));
-}
-
-int rt_sketch_t(const void* B, const void* acc, void* out, int K, int n,
-                int m, int b_bf16, int out_bf16, uint32_t k0, uint32_t k1,
-                uint32_t row0, uint32_t col0, uint32_t salt, int kind,
-                float scale, void* stream) {
-  using namespace repro_torch;
-  return dispatch_gemm<true, kTBM, kTBN, kTBK, kTTM, kTTN>(
-      B, acc, out, m, n, K, b_bf16, out_bf16,
       make_omega(k0, k1, row0, col0, salt, kind, scale),
       static_cast<cudaStream_t>(stream));
 }

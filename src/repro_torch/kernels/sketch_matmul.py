@@ -3,16 +3,18 @@
 The counterpart of the reference's Pallas kernel module: where that one
 defines ``gen_omega_pallas``, ``sketch_matmul_pallas`` and
 ``sketch_t_matmul_pallas``, this one launches the hand-written Hopper
-kernels of ``csrc/sketch_kernels.cu`` that replace them, the row-slab
-fold of ``csrc/fold_kernels.cu`` and the dense GEMM of
-``csrc/gemm_kernels.cu``:
+kernels of ``csrc/sketch_kernels.cu`` and ``csrc/sketch_t_kernels.cu``
+that replace them, the row-slab fold of ``csrc/fold_kernels.cu`` and the
+dense GEMM of ``csrc/gemm_kernels.cu``:
 
   * ``gen_omega_cuda``  — a materialized Omega tile (the K1 generator's
                           oracle, K8);
   * ``sketch_fwd_cuda`` — ``acc? + A · Omega[row0:, col0:col0+cols]``
                           (K2, and K6 at offset 0);
   * ``sketch_t_cuda``   — ``acc? + Omega[row0:, col0:col0+cols]^T · B``
-                          (K3, and K7 at offset 0);
+                          (K3, and K7 at offset 0): Omega drawn once a
+                          call into a scratch, K split where the output
+                          tiles do not fill the card;
   * ``fold_rows_cuda``  — ``y_i + [0; d_i; 0][start_i : start_i + m]``
                           for many lanes in one launch, masked to
                           ``nvalid_i`` rows (K4, the reference's
@@ -141,27 +143,6 @@ def gen_omega_cuda(key0: int, key1: int, row0: int, col0: int, rows: int,
     return out
 
 
-def _gemm(name: str, X: torch.Tensor, out_shape, m: int, n: int, K: int,
-          key0, key1, row0, col0, kind, salt, scale, acc, out, out_dtype):
-    _check_operand(X, name)
-    args = _omega_args(key0, key1, row0, col0, salt, kind, scale)
-    if max(m, n, K) > _INT_MAX:
-        raise ValueError(f"{name}: dims ({m}, {n}, {K}) exceed int32")
-    out = _output(acc, out, out_shape, out_dtype, X.device, name)
-    if m == 0 or n == 0:
-        return out
-    lib = _build.library()
-    fn = lib.rt_sketch_fwd if name == "sketch_fwd" else lib.rt_sketch_t
-    with torch.cuda.device(X.device):
-        rc = fn(X.data_ptr(), None if acc is None else acc.data_ptr(),
-                out.data_ptr(), *((m, K, n) if name == "sketch_fwd"
-                                  else (K, n, m)),
-                int(X.dtype == torch.bfloat16),
-                int(out_dtype == torch.bfloat16), *args, _stream(X.device))
-    _launched(rc, name)
-    return out
-
-
 def sketch_fwd_cuda(A: torch.Tensor, key0: int, key1: int, cols: int,
                     row0: int = 0, col0: int = 0, kind: str = "normal",
                     salt: int = 0, scale=None,
@@ -175,10 +156,59 @@ def sketch_fwd_cuda(A: torch.Tensor, key0: int, key1: int, cols: int,
     contiguous view of ``out_dtype``), else into ``acc`` in place, else
     into a new tensor.
     """
+    name = "sketch_fwd"
+    _check_operand(A, name)
     m, K = A.shape
+    n = cols
     out_dtype = out_dtype or A.dtype
-    return _gemm("sketch_fwd", A, (m, cols), m, cols, K, key0, key1, row0,
-                 col0, kind, salt, scale, acc, out, out_dtype)
+    args = _omega_args(key0, key1, row0, col0, salt, kind, scale)
+    if max(m, n, K) > _INT_MAX:
+        raise ValueError(f"{name}: dims ({m}, {n}, {K}) exceed int32")
+    out = _output(acc, out, (m, n), out_dtype, A.device, name)
+    if m == 0 or n == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(A.device):
+        rc = lib.rt_sketch_fwd(A.data_ptr(),
+                               None if acc is None else acc.data_ptr(),
+                               out.data_ptr(), m, K, n,
+                               int(A.dtype == torch.bfloat16),
+                               int(out_dtype == torch.bfloat16), *args,
+                               _stream(A.device))
+    _launched(rc, name)
+    return out
+
+
+# sketch_t's 128 x 128 output tiles (kBM = kBN of csrc/sketch_t_kernels.cu)
+# run two blocks of 256 threads on each of an H100's 132 SMs.  Where the
+# tiles are fewer than the SMs, the contraction is split so that the grid
+# reaches about two blocks an SM, never into splits of fewer than
+# SKETCH_T_MIN_K_SPLIT rows and never into more than the grid's third
+# dimension holds (kMaxSplits).  The split depends on (m, n, K) alone, so
+# a ragged lane and its solo update, or two runs, give the same bits.
+SKETCH_T_TILE = 128
+SKETCH_T_SMS = 132
+SKETCH_T_TARGET_BLOCKS = 2 * SKETCH_T_SMS
+SKETCH_T_MIN_K_SPLIT = 512
+SKETCH_T_MAX_SPLITS = 64
+_SKETCH_T_MAX_TILES = 65535      # the grid's second dimension (column tiles)
+
+
+def sketch_t_splits(m: int, n: int, K: int) -> int:
+    """How many blocks share the contraction of one (m, n) output tile of
+    ``sketch_t``: 1 unless its tiles leave SMs idle and K is long enough
+    to split."""
+    tiles = -(-m // SKETCH_T_TILE) * -(-n // SKETCH_T_TILE)
+    if tiles >= SKETCH_T_SMS:
+        return 1
+    return max(1, min(SKETCH_T_TARGET_BLOCKS // tiles,
+                      K // SKETCH_T_MIN_K_SPLIT, SKETCH_T_MAX_SPLITS))
+
+
+def sketch_t_scratch_bytes(m: int, K: int) -> int:
+    """Bytes of the f32 scratch that one ``sketch_t`` call draws its Omega
+    slab into: K rows of m columns, padded to a multiple of 4 (16 bytes)."""
+    return K * (-(-m // 4) * 4) * 4
 
 
 def sketch_t_cuda(B: torch.Tensor, key0: int, key1: int, cols: int,
@@ -188,13 +218,47 @@ def sketch_t_cuda(B: torch.Tensor, key0: int, key1: int, cols: int,
                   out_dtype=None) -> torch.Tensor:
     """``acc? + Omega[row0:row0+k, col0:col0+cols]^T @ B`` on the card.
 
-    ``B`` (k, r2) float32/bfloat16, contiguous; the result is (cols, r2),
+    ``B`` (k, r2) float32/bfloat16, contiguous (any start: a view into a
+    larger buffer is read where it lies); the result is (cols, r2),
     written into ``acc`` in place when given, else into a new tensor.
+
+    One call is one ctypes call and two launches on the current stream,
+    three with a split: the Omega slab is drawn once into a scratch of
+    :func:`sketch_t_scratch_bytes`, the product runs over it (split over
+    K by :func:`sketch_t_splits` into an f32 work buffer), and a split's
+    partial sums are added in split order.  Scratch and work are
+    allocated here and released on return; the count in
+    ``LAUNCHES["sketch_t"]`` is one a call.
     """
-    K, r2 = B.shape
+    name = "sketch_t"
+    _check_operand(B, name)
+    K, n = B.shape
+    m = cols
     out_dtype = out_dtype or B.dtype
-    return _gemm("sketch_t", B, (cols, r2), cols, r2, K, key0, key1, row0,
-                 col0, kind, salt, scale, acc, None, out_dtype)
+    args = _omega_args(key0, key1, row0, col0, salt, kind, scale)
+    if (max(m, n, K) > _INT_MAX
+            or -(-n // SKETCH_T_TILE) > _SKETCH_T_MAX_TILES):
+        raise ValueError(f"{name}: dims ({m}, {n}, {K}) exceed int32 or the "
+                         f"grid")
+    out = _output(acc, None, (m, n), out_dtype, B.device, name)
+    if m == 0 or n == 0:
+        return out
+    splits = sketch_t_splits(m, n, K)
+    scratch = torch.empty(sketch_t_scratch_bytes(m, K) // 4,
+                          dtype=torch.float32, device=B.device)
+    work = (torch.empty((splits, m, n), dtype=torch.float32, device=B.device)
+            if splits > 1 else None)
+    lib = _build.library()
+    with torch.cuda.device(B.device):
+        rc = lib.rt_sketch_t(B.data_ptr(),
+                             None if acc is None else acc.data_ptr(),
+                             out.data_ptr(), scratch.data_ptr(),
+                             None if work is None else work.data_ptr(), K, n,
+                             m, int(B.dtype == torch.bfloat16),
+                             int(out_dtype == torch.bfloat16), splits, *args,
+                             _stream(B.device))
+    _launched(rc, name)
+    return out
 
 
 def fold_rows_cuda(ys: Sequence[torch.Tensor], d: torch.Tensor,

@@ -16,7 +16,13 @@ the solo update of its stream.  The dense GEMM (K5) is held to
 ``16·sqrt(K)·2**-24`` relative Frobenius in float32 (two f32 sums of K
 terms in different orders) and to ``2**-12`` when its output is bfloat16
 (both sides round one f32 value), and its split-K form must give the same
-bits twice.
+bits twice.  The redesigned ``sketch_t`` is held to its plain version at
+the float32 tolerance above; where its output is bfloat16 and K is long,
+two f32 sums of K terms differ by more than one bfloat16 ulp of the
+elements near zero, so there the output is held bitwise to the kernel's
+own f32 product plus ``acc`` rounded once (the epilogue's contract), and
+to one ulp of the plain version where K is short.  Its split form must
+give the same bits twice.
 """
 import numpy as np
 import pytest
@@ -28,6 +34,7 @@ from repro_torch.kernels import (LAUNCHES, fold_rows_block, gemm_block,
 from repro_torch.kernels.local import (_fold_rows_torch, _gemm_block_torch,
                                        _sketch_block_torch,
                                        _sketch_t_block_torch)
+from repro_torch.kernels.sketch_matmul import sketch_t_splits
 from repro_torch.stream import SketchService, StreamConfig, StreamingSketch
 
 pytestmark = pytest.mark.cuda
@@ -202,3 +209,67 @@ def test_gemm_kernel_in_place_error_feedback(dev):
     assert out.data_ptr() == M.data_ptr()
     err = float(torch.linalg.norm(M - ref) / torch.linalg.norm(ref))
     assert err <= 16 * 8 ** 0.5 * 2.0 ** -24
+
+
+# (m, n, K) of sketch_t: one split, split 8 and 16 ways (the Nystrom C's
+# 16 tiles), and rows of 70 columns (280 bytes: no 16-byte copies)
+SKETCH_T_SHAPES = {
+    "one_split": ((1025, 1930, 4099), 1),
+    "split_ragged": ((1025, 300, 4099), 8),
+    "split_c": ((512, 512, 16384), 16),
+    "unaligned": ((45, 70, 133), 1),
+}
+
+
+def _sketch_t_input(dev, K, n, dt, offset, seed):
+    """B (K, n) of ``dt`` as a view starting ``offset`` elements into a
+    larger buffer (an odd offset leaves its base off 16 bytes)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.randn(K * n + offset, generator=g, device=dev).to(dt)
+    return buf[offset:].view(K, n)
+
+
+@pytest.mark.parametrize("shape", list(SKETCH_T_SHAPES))
+@pytest.mark.parametrize("dt_in", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt_out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_acc", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_sketch_t_redesign_matches_plain(dev, shape, dt_in, dt_out, use_acc,
+                                         offset):
+    (m, n, K), splits = SKETCH_T_SHAPES[shape]
+    assert sketch_t_splits(m, n, K) == splits
+    B = _sketch_t_input(dev, K, n, dt_in, offset, 12)
+    assert B.is_contiguous() and B.storage_offset() == offset
+    kw = dict(row0=2 ** 32 - 300, col0=2 ** 31, kind="normal", salt=2)
+    g = torch.Generator(device=dev).manual_seed(13)
+    acc = (torch.randn(m, n, generator=g, device=dev).to(dt_out)
+           if use_acc else None)
+    reset_launches()
+    dot = sketch_t_block(B, 77, m, out_dtype=torch.float32, **kw)
+    acc_in = None if acc is None else acc.clone()
+    got = sketch_t_block(B, 77, m, acc=acc_in, out_dtype=dt_out, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sketch_t"] == 2 and LAUNCHES["gen_omega"] == 0
+    assert got.dtype == dt_out and tuple(got.shape) == (m, n)
+    if use_acc:
+        assert got.data_ptr() == acc_in.data_ptr()     # updated in place
+    _close(dot, _sketch_t_block_torch(B, 77, m, out_dtype=torch.float32,
+                                      **kw))
+    want = (dot if acc is None else acc.float() + dot).to(dt_out)
+    assert torch.equal(_bits(got), _bits(want))         # acc + dot, once
+    ref = _sketch_t_block_torch(B, 77, m, acc=acc, out_dtype=dt_out, **kw)
+    if dt_out == torch.float32:
+        _close(got, ref)
+    elif K < 1000:
+        _within_bf16_ulp(got, ref)
+
+
+@pytest.mark.parametrize("dt_in", [torch.float32, torch.bfloat16])
+def test_sketch_t_split_is_deterministic(dev, dt_in):
+    (m, n, K), splits = SKETCH_T_SHAPES["split_c"]
+    assert splits > 1
+    B = _sketch_t_input(dev, K, n, dt_in, 0, 14)
+    runs = [sketch_t_block(B, 5, m, row0=3, salt=1,
+                           out_dtype=torch.float32) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(runs[0]), _bits(runs[1]))

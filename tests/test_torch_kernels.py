@@ -28,6 +28,10 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import rng, sketch
 from repro_torch.kernels import local, ops, ref
+from repro_torch.kernels.sketch_matmul import (
+    SKETCH_T_MAX_SPLITS, SKETCH_T_MIN_K_SPLIT, SKETCH_T_SMS,
+    SKETCH_T_TARGET_BLOCKS, SKETCH_T_TILE, sketch_t_cuda,
+    sketch_t_scratch_bytes, sketch_t_splits)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WRAP = 2 ** 32 - 6
@@ -115,6 +119,67 @@ def test_backend_knob():
         local.resolve_backend("torch", "cuda")
     with pytest.raises(ValueError, match="unknown backend"):
         local.sketch_t_block(A, 0, 3, backend="pallas")
+
+
+@pytest.mark.parametrize("m,n,K,want", [
+    (1025, 32768, 4096, 1),       # the streaming W update: 9 x 256 tiles
+    (257, 8192, 256, 1),          # a serving lane's W update (k <= 256)
+    (257, 8192, 1, 1),
+    (512, 512, 32768, 16),        # the Nystrom C: 16 tiles, 2048-row splits
+    (512, 512, 1023, 1),          # too short to split
+    (512, 512, 1024, 2),
+    (100, 100, 10 ** 6, SKETCH_T_MAX_SPLITS),
+])
+def test_sketch_t_splits_at_the_main_path_shapes(m, n, K, want):
+    assert sketch_t_splits(m, n, K) == want
+
+
+def test_sketch_t_splits_policy():
+    """The split depends on (m, n, K) alone: 1 where the tiles fill the
+    SMs, else about two blocks an SM, never a split of under
+    SKETCH_T_MIN_K_SPLIT rows and never more splits than K allows."""
+    for m in (1, 45, 128, 129, 512, 1025, 2000):
+        for n in (1, 70, 300, 512, 1930, 8192, 32768):
+            tiles = -(-m // SKETCH_T_TILE) * -(-n // SKETCH_T_TILE)
+            for K in (0, 1, 511, 512, 1023, 4099, 16384, 32768, 10 ** 7):
+                s = sketch_t_splits(m, n, K)
+                assert s == sketch_t_splits(m, n, K)
+                assert 1 <= s <= SKETCH_T_MAX_SPLITS
+                assert s <= max(1, K // SKETCH_T_MIN_K_SPLIT)
+                if tiles >= SKETCH_T_SMS:
+                    assert s == 1
+                if s > 1:
+                    assert K // s >= SKETCH_T_MIN_K_SPLIT
+                    assert tiles * s <= SKETCH_T_TARGET_BLOCKS
+
+
+@pytest.mark.parametrize("m,K,want", [
+    (1025, 4096, 4096 * 1028 * 4),        # the W update: 16.8 MB
+    (512, 32768, 64 * 2 ** 20),           # the Nystrom C: 64 MiB
+    (257, 256, 256 * 260 * 4),            # a serving lane at k = 256
+    (45, 133, 133 * 48 * 4),
+    (4, 3, 48), (1, 0, 0), (0, 5, 0),
+])
+def test_sketch_t_scratch_bytes(m, K, want):
+    assert sketch_t_scratch_bytes(m, K) == want
+
+
+def test_sketch_t_on_the_cpu_takes_the_plain_path(monkeypatch):
+    """A CPU tensor never reaches the launcher (so no scratch is sized or
+    allocated), and the launcher refuses one before allocating."""
+    def refuse(*a, **k):
+        raise AssertionError("the CPU path reached the CUDA launcher")
+    monkeypatch.setattr(local, "sketch_t_cuda", refuse)
+    monkeypatch.setattr(sys.modules["repro_torch.kernels.sketch_matmul"],
+                        "sketch_t_scratch_bytes", refuse)
+    gen = np.random.default_rng(7)
+    B = torch.from_numpy(gen.standard_normal((40, 9)).astype(np.float32))
+    acc = torch.from_numpy(gen.standard_normal((6, 9)).astype(np.float32))
+    want = local._sketch_t_block_torch(B, 3, 6, row0=WRAP, acc=acc)
+    got = local.sketch_t_block(B, 3, 6, row0=WRAP, acc=acc)
+    assert got is acc and torch.equal(got, want)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        sketch_t_cuda(B, 3, 0, 6)
 
 
 @pytest.mark.parametrize("kind", ["normal", "uniform", "rademacher"])
