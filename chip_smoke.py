@@ -13,20 +13,24 @@ PSD, made on the card from a seed; r = 512, l = 1025):
   2. kernels    — sketch_fwd / sketch_t against their plain versions at
                   ragged shapes: float32 and bfloat16, with and without
                   ``acc``, nonzero offsets, ``scale``; sketch_t split over
-                  K at the Nystrom C shape, whose two runs must give the
-                  same bits;
+                  K at the Nystrom C shape, sketch_fwd split over K at a
+                  serving lane and on its narrow path (r = 8, K = 9216;
+                  r = 13), A a view at an odd element: two runs must give
+                  the same bits, and 37 rows alone the bits of the same
+                  rows of the whole call;
   3. one-shot   — ``ops.nystrom_fused(A, seed=7, r=512)`` against the plain
                   version, and the Nystrom relative error;
   4. streaming  — ``StreamingSketch`` ingests A in eight 4096-row slabs: Y
-                  against phase 3's B, W against the plain version, the
-                  one-pass reconstruction and the Nystrom pair;
+                  must be phase 3's B bitwise; W against the plain version,
+                  the one-pass reconstruction and the Nystrom pair;
   5. launches   — every kernel's launch count over phases 3-4 (reset just
                   before them) must be > 0; then each kernel is timed at the
                   main path's shape beside its plain version, the PyTorch
                   library call computing the same function, and its bound;
                   sketch_t at both of its shapes (the W update and the
-                  Nystrom C), with the device time of its draw, its GEMM
-                  and its split-K reduce apart.
+                  Nystrom C) and sketch_fwd at the one-shot, with the
+                  device time of each call's Omega draw, its product and
+                  its split-K reduce apart.
 
 then the serving path, at the shape of one serving configuration (streams
 of n1 = 16384, n2 = 8192, r = 128, l = 257, float32):
@@ -48,7 +52,9 @@ of n1 = 16384, n2 = 8192, r = 128, l = 257, float32):
                   and one sketch_fwd and one sketch_t per update; then
                   fold_rows is timed at one bucket of it (64 lanes, kb =
                   256) beside its plain version, the per-lane
-                  ``narrow().add_()`` loop and its bound, and the run is
+                  ``narrow().add_()`` loop and its bound, sketch_fwd at
+                  one lane (k = 1, 128, 256) beside its plain version,
+                  ``torch.matmul(H, Omega)`` and its bound, and the run is
                   repeated once under torch.profiler for its device time
                   by kernel and the card's idle share of the timed window.
 
@@ -62,7 +68,7 @@ n = 2304 is its largest leaf, ``embed``; r = 8):
                   with alpha 0.5, within min(16·sqrt(K)·2**-24, 1e-5);
                   each call timed beside its plain version,
                   ``torch.matmul`` / ``addmm`` and its bound; sketch_fwd
-                  timed at the embed shape too;
+                  (its narrow path) timed at the embed shape too;
  10. exchange   — ``compress_and_allreduce`` on an embed-shaped gradient
                   with a nonzero error buffer, kernels against the same
                   exchange written with the plain versions, both on the
@@ -90,6 +96,7 @@ result.
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -298,17 +305,63 @@ def phase_kernels(dev, local):
         check(err <= tol, f"split sketch_t disagrees with its plain "
                           f"version: {err:.3e} > {tol:.1e}")
         check(same, "two runs of the split sketch_t differ")
+    # sketch_fwd at a serving lane (K split 16 ways, A a view at an odd
+    # element) and on the narrow path (r = 8, K longer than one
+    # shared-memory chunk); two runs agree, and the first rows computed
+    # alone have the bits of the same rows of the whole call
+    from repro_torch.kernels.sketch_matmul import sketch_fwd_plan
+    for m, K, n, dt, use_acc, want in (
+            (S_KMAX, S_N2, S_R, torch.float32, False, ("wide", 16)),
+            (S_KMAX, S_N2, S_R, torch.bfloat16, True, ("wide", 16)),
+            (20000, 9216, T_R, torch.float32, True, ("narrow", 1)),
+            (3001, 5000, 13, torch.bfloat16, False, ("narrow", 1))):
+        plan = sketch_fwd_plan(m, n, K)
+        check((plan["path"], plan["splits"]) == want,
+              f"sketch_fwd plan at ({m}, {K}) -> {n}: {plan}")
+        buf = torch.randn(m * K + 1, generator=g, device=dev).to(dt)
+        X = buf[1:].view(m, K)
+        acc = (torch.randn(m, n, generator=g, device=dev).to(dt)
+               if use_acc else None)
+        kw = dict(row0=2 ** 32 - 300, col0=7, kind="normal", salt=4)
+        ref = local._sketch_block_torch(X, SEED, n, acc=acc, **kw)
+        runs = [local.sketch_block(
+            X, SEED, n, acc=None if acc is None else acc.clone(), **kw)
+            for _ in range(2)]
+        head = local.sketch_block(
+            X[:37], SEED, n, acc=None if acc is None else acc[:37].clone(),
+            **kw)
+        torch.cuda.synchronize()
+        tol = f32_tol(K) if dt == torch.float32 else BF16_TOL
+        err = rel_fro(runs[0], ref)
+        same = torch.equal(_bits(runs[0]), _bits(runs[1]))
+        rows = torch.equal(_bits(head), _bits(runs[0][:37]))
+        print(f"[kernels] sketch_block    {plan['path']} x{plan['splits']} "
+              f"({m}x{K} -> {m}x{n}, A at an odd element) {str(dt):14s} "
+              f"acc={use_acc!s:5s}: rel_fro={err:.3e} (tol {tol:.1e}); two "
+              f"runs bitwise={same}; 37 rows alone bitwise={rows}")
+        check(err <= tol, f"sketch_fwd ({plan['path']}, {plan['splits']} "
+                          f"splits) disagrees with its plain version: "
+                          f"{err:.3e} > {tol:.1e}")
+        check(same, "two runs of sketch_fwd differ")
+        check(rows, "sketch_fwd rows depend on m")
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
 
 
-def sketch_t_parts(fn) -> dict:
-    """Device time of one sketch_t call's draw, GEMM and split-K reduce
-    kernels (torch.profiler; None where the call has no such kernel)."""
-    return {part: device_ms(fn, f"sketch_t_{part}_kernel")
-            for part in ("draw", "gemm", "reduce")}
+def kernel_parts(fn, gemm: str) -> dict:
+    """Device time of one sketch_fwd or sketch_t call's draw, product
+    (``gemm``: the kernel's name) and split-K reduce kernels
+    (torch.profiler; None where the call has no such kernel)."""
+    return {part: device_ms(fn, name) for part, name in (
+        ("draw", "omega_slab_draw_kernel"), ("gemm", gemm),
+        ("reduce", "split_reduce_kernel"))}
+
+
+def parts_text(parts: dict) -> str:
+    return ", ".join(f"{part} " + ("none" if t is None else f"{t:.4f} ms")
+                     for part, t in parts.items())
 
 
 def phase_fold(dev, fold_rows_block, plain_fold, LAUNCHES):
@@ -493,21 +546,35 @@ def serving_profile(serve):
         print(f"[profile]   {t:.4f} s in {n} x {key[:90]}")
 
 
-def serving_diagnosis(dev, local):
-    """Per-lane kernel times at the serving shape, to split the serving
-    phase's time: sketch_fwd (k rows, K = n2 -> r), sketch_t (W update)."""
+def serving_diagnosis(dev, local, omega_tile):
+    """Per-lane times at the serving shape, to split the serving phase's
+    time: sketch_fwd (k rows, K = n2 -> r) and sketch_t (the W update),
+    each a wrapper call's CUDA-event time; for sketch_fwd also the plain
+    version, ``torch.matmul(H, Omega)`` with Omega drawn beforehand, the
+    bound, and at k = 128 the device time of its kernels.  Returns
+    {(name, k): ms} and {k: (ms, plain, library, bound, parts)}."""
     g = torch.Generator(device=dev).manual_seed(9)
     L = 2 * S_R + 1
     W = torch.zeros(L, S_N2, device=dev)
-    out = {}
+    om = omega_tile(SEED, 0, 0, 0, S_N2, S_R, "normal", 0, None, None, dev)
+    out, fwd = {}, {}
     for k in (1, 128, 256):
         H = torch.randn(k, S_N2, generator=g, device=dev)
         dY = torch.empty(k, S_R, device=dev)
-        out[("sketch_fwd", k)] = time_ms(lambda: local.sketch_block(
-            H, SEED, S_R, out=dY), inner=5)
+
+        def kernel():
+            local.sketch_block(H, SEED, S_R, out=dY)
+        out[("sketch_fwd", k)] = time_ms(kernel, inner=5)
         out[("sketch_t", k)] = time_ms(lambda: local.sketch_t_block(
             H, SEED, L, salt=1, acc=W), inner=5)
-    return out
+        fwd[k] = (out[("sketch_fwd", k)],
+                  time_ms(lambda: local._sketch_block_torch(H, SEED, S_R),
+                          inner=5),
+                  time_ms(lambda: torch.matmul(H, om), inner=5),
+                  bound_ms(2.0 * k * S_N2 * S_R, 4.0 * (k * S_N2 + k * S_R)),
+                  kernel_parts(kernel, "sketch_fwd_gemm_kernel")
+                  if k == 128 else None)
+    return out, fwd
 
 
 def phase_gemm(dev, local):
@@ -569,7 +636,9 @@ def phase_gemm(dev, local):
         time_ms(lambda: local.sketch_block(M, (5, 0), T_R)),
         time_ms(lambda: local._sketch_block_torch(M, (5, 0), T_R)),
         time_ms(lambda: torch.matmul(M, om)),
-        bound_ms(2.0 * T_M * T_N * T_R, 4.0 * (T_M * T_N + T_M * T_R)))
+        bound_ms(2.0 * T_M * T_N * T_R, 4.0 * (T_M * T_N + T_M * T_R)),
+        kernel_parts(lambda: local.sketch_block(M, (5, 0), T_R),
+                     "sketch_fwd_narrow_kernel"))
     del M, Mc, P_hat, Qt, om
     # ragged against every tile, alpha 0.5, with acc
     for m, K, n in ((5, 100003, 1001), (1001, 7, 2305)):
@@ -580,11 +649,13 @@ def phase_gemm(dev, local):
              local.gemm_block(A, B, alpha=0.5, acc=acc.clone()),
              local._gemm_block_torch(A, B, 0.5, acc), K)
     torch.cuda.synchronize()
-    for call, (ms, plain, lib, (bms, by)) in times.items():
+    for call, (ms, plain, lib, (bms, by), *parts) in times.items():
         name = "sketch_fwd" if call == "sketch_fwd" else f"gemm ({call})"
         print(f"[timing] {name} at the embed leaf ({T_M}x{T_N}, r={T_R}): "
               f"{ms:.3f} ms (plain {plain:.3f}, library {lib:.3f}, bound "
-              f"{bms:.3f} ms by {by})")
+              f"{bms:.3f} ms by {by})"
+              + "".join(f"; on the device (torch.profiler): {parts_text(p)}"
+                        for p in parts))
     return worst, times
 
 
@@ -749,6 +820,15 @@ def profile_step(step, state, batch):
         groups[group] = groups.get(group, 0.0) + t
     for group, t in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {t:9.3f} ms ({t / total:.3f}) {group}")
+    port = {}
+    for key, (t, n) in by_name.items():
+        found = re.search(r"(\w+_kernel)\b", key)
+        if "repro_torch" in key and found:
+            pt, pn = port.get(found.group(1), (0.0, 0))
+            port[found.group(1)] = (pt + t, pn + n)
+    print("[profile]   the port's kernels by name: " + ", ".join(
+        f"{name} {t:.3f} ms in {n}"
+        for name, (t, n) in sorted(port.items(), key=lambda kv: -kv[1][0])))
     for key, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"[profile]   {t:9.3f} ms ({t / total:.3f}) in {n:5d} x "
               f"{key[:100]}")
@@ -854,6 +934,7 @@ def main() -> int:
           f"W rel_fro={err_W:.3e} (tol {f32_tol(SLAB):.1e})")
     print(f"[stream] reconstruct(rank=64) error {rec_err:.3e}; nystrom() C "
           f"vs one-shot C rel_fro {err_Cn:.3e}")
+    check(y_bitwise, "streamed Y is not bitwise the one-shot B")
     check(err_Y <= f32_tol(N), "streamed Y disagrees with the one-shot B")
     check(err_W <= f32_tol(SLAB), "W disagrees with the plain version")
     check(math.isfinite(rec_err) and rec_err < 1e-2,
@@ -884,11 +965,20 @@ def main() -> int:
     fwd_ms = time_ms(lambda: local.sketch_block(A, SEED, R))
     fwd_plain = time_ms(lambda: local._sketch_block_torch(A, SEED, R))
     fwd_lib = time_ms(lambda: torch.matmul(A, om))
+    fwd_bound = bound_ms(2.0 * N * N * R, 4.0 * (N * N + N * R))
+    fwd_parts = kernel_parts(lambda: local.sketch_block(A, SEED, R),
+                             "sketch_fwd_gemm_kernel")
     rows.append(("sketch_fwd",
                  "src/repro/kernels/local.py:286 _sketch_block_pallas (K2; "
                  "K6: kernels/sketch_matmul.py:76 sketch_matmul_pallas)",
                  counts["sketch_fwd"], fwd_err, fwd_ms, fwd_plain,
-                 bound_ms(2.0 * N * N * R, 4.0 * (N * N + N * R)), fwd_lib))
+                 fwd_bound, fwd_lib))
+    sketch_fwd_calls = {
+        "one_shot": (fwd_ms, fwd_plain, fwd_lib, fwd_bound, fwd_parts)}
+    print(f"[timing] sketch_fwd at the one-shot ({N}x{N} -> {N}x{R}): "
+          f"{fwd_ms:.3f} ms (plain {fwd_plain:.3f}, library {fwd_lib:.3f}, "
+          f"bound {fwd_bound[0]:.3f} ms by {fwd_bound[1]}); on the device "
+          f"(torch.profiler): {parts_text(fwd_parts)}")
     del om
     # sketch_t at the streaming W update's shape: W (l, N) += Psi_k^T H_k
     H = A[:SLAB]
@@ -900,8 +990,9 @@ def main() -> int:
                                                           salt=1, acc=W))
     t_lib = time_ms(lambda: torch.addmm(W, psi.T, H))
     t_bound = bound_ms(2.0 * SLAB * N * L, 4.0 * (SLAB * N + 2 * L * N))
-    t_parts = sketch_t_parts(
-        lambda: local.sketch_t_block(H, SEED, L, salt=1, acc=W))
+    t_parts = kernel_parts(
+        lambda: local.sketch_t_block(H, SEED, L, salt=1, acc=W),
+        "sketch_t_gemm_kernel")
     rows.append(("sketch_t",
                  "src/repro/kernels/local.py:326 _sketch_t_block_pallas (K3; "
                  "K7: kernels/sketch_matmul.py:125 sketch_t_matmul_pallas)",
@@ -912,7 +1003,8 @@ def main() -> int:
     c_plain = time_ms(lambda: local._sketch_t_block_torch(B, SEED, R))
     c_lib = time_ms(lambda: torch.matmul(om.T, B))
     c_bound = bound_ms(2.0 * N * R * R, 4.0 * (N * R + R * R))
-    c_parts = sketch_t_parts(lambda: local.sketch_t_block(B, SEED, R))
+    c_parts = kernel_parts(lambda: local.sketch_t_block(B, SEED, R),
+                           "sketch_t_gemm_kernel")
     del om
     sketch_t_calls = {
         "w_update": (t_ms, t_plain, t_lib, t_bound, t_parts),
@@ -922,22 +1014,7 @@ def main() -> int:
         ms, plain, lib, (bms, by), parts = sketch_t_calls[call]
         print(f"[timing] sketch_t at the {shape}: {ms:.3f} ms (plain "
               f"{plain:.3f}, library {lib:.3f}, bound {bms:.3f} ms by {by}); "
-              f"on the device (torch.profiler): "
-              + ", ".join(f"{part} " + ("none" if t is None
-                                        else f"{t:.4f} ms")
-                          for part, t in parts.items()))
-
-    # What bounds sketch_fwd: gen_omega gives the card's rate of normal
-    # draws (3 Philox calls each); the kernel draws its Omega tile once per
-    # 128-row tile of A.  uniform/rademacher need 1 call per entry.
-    draws = (N + 127) // 128 * N * R
-    draw_rate = N * L / (gen_ms * 1e-3)
-    for kind in ("uniform", "rademacher"):
-        ms = time_ms(lambda: local.sketch_block(A, SEED, R, kind=kind))
-        print(f"[diagnosis] sketch_fwd kind={kind}: {ms:.3f} ms")
-    print(f"[diagnosis] sketch_fwd draws {draws:.3e} normal entries; at "
-          f"gen_omega's rate ({draw_rate:.3e}/s) they alone take "
-          f"{draws / draw_rate * 1e3:.3f} ms of its {fwd_ms:.3f} ms")
+              f"on the device (torch.profiler): {parts_text(parts)}")
 
     del A, B, C, st, H, W, psi
     torch.cuda.empty_cache()
@@ -963,10 +1040,18 @@ def main() -> int:
           + ("not measured (no profiler trace)" if f_kernel is None
              else f"{f_kernel:.4f} ms on the device (torch.profiler)")
           + f", bound {f_bound:.4f} ms")
-    diag = serving_diagnosis(dev, local)
+    diag, lane_fwd = serving_diagnosis(dev, local, _omega_tile_torch)
     for (name, k), ms in diag.items():
         print(f"[diagnosis] serving shape: {name} one lane of k={k} "
               f"(n2={S_N2}, r={S_R}): {ms:.3f} ms")
+    for k, (ms, plain, lib, (bms, by), parts) in lane_fwd.items():
+        print(f"[timing] sketch_fwd at a serving lane of k={k} ({k}x{S_N2} "
+              f"-> {k}x{S_R}): {ms:.4f} ms a wrapper call (plain "
+              f"{plain:.4f}, library torch.matmul(H, Omega) {lib:.4f}, bound "
+              f"{bms:.4f} ms by {by})"
+              + ("" if parts is None else
+                 f"; on the device (torch.profiler): {parts_text(parts)}"))
+    sketch_fwd_calls["serving_lane"] = lane_fwd[128]
     # phase 8's lanes average about 128 rows: the kernel time of its timed
     # window, estimated
     timed = serve_st["launches"]
@@ -983,6 +1068,7 @@ def main() -> int:
 
     # -- 9. gemm, 10. exchange, 11. training ---------------------------------
     gemm_err, gemm_times = phase_gemm(dev, local)
+    sketch_fwd_calls["embed_leaf"] = gemm_times["sketch_fwd"]
     torch.cuda.empty_cache()
     phase_exchange(dev, local, grad_compress)
     torch.cuda.empty_cache()
@@ -1018,15 +1104,17 @@ def main() -> int:
                 c: {"ms": t[0], "plain_ms": t[1], "library_ms": t[2],
                     "bound_ms": t[3][0], "bound_by": t[3][1]}
                 for c, t in gemm_times.items() if c in "abc"}
-        if name == "sketch_t":
-            # ms, plain_ms, library_ms and bound_ms are the W update's;
-            # each of the main path's two shapes on its own, with the
-            # device time of the call's draw, GEMM and reduce kernels:
+        if name in ("sketch_t", "sketch_fwd"):
+            # ms, plain_ms, library_ms and bound_ms are those of sketch_t's
+            # W update and of sketch_fwd's one-shot; each of the main
+            # paths' shapes on its own, with the device time of the call's
+            # draw, product and reduce kernels:
             kernels[-1]["calls"] = {
                 c: {"ms": t[0], "plain_ms": t[1], "library_ms": t[2],
                     "bound_ms": t[3][0], "bound_by": t[3][1],
                     "device_ms": t[4]}
-                for c, t in sketch_t_calls.items()}
+                for c, t in (sketch_t_calls if name == "sketch_t"
+                             else sketch_fwd_calls).items()}
         print(f"[timing] {name}: {ms:.3f} ms (plain {plain_ms:.3f}, library "
               f"{'none' if lib is None else f'{lib:.3f}'}, bound {bms:.3f} "
               f"ms by {by}) launches={n}")

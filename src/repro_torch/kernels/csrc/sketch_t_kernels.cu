@@ -19,11 +19,12 @@
 // more on Philox than on FMAs.
 //
 // Design (one rt_sketch_t call: two launches, three with a split):
-//   1. sketch_t_draw_kernel draws Omega[row0:row0+K, col0:col0+m] ONCE into
-//      an f32 scratch of K x ldm (ldm = m rounded up to 4; pad columns
-//      hold 0), by `omega_entry` at the same global coordinates as
-//      gen_omega (row0 + k and col0 + i wrap at 2^32), so its entries are
-//      bitwise those of gen_omega.  Within the call Omega sits in device
+//   1. omega_slab_draw_kernel (omega_slab.cuh, shared with sketch_fwd)
+//      draws Omega[row0:row0+K, col0:col0+m] ONCE into an f32 scratch of
+//      K x ldm (ldm = m rounded up to 4; pad columns hold 0), by
+//      `omega_entry` at the same global coordinates as gen_omega (row0 + k
+//      and col0 + i wrap at 2^32), so its entries are bitwise those of
+//      gen_omega.  Within the call Omega sits in device
 //      memory (the caller's scratch, no larger than B on the main path);
 //      it never outlives the call and never crosses a link.
 //   2. sketch_t_gemm_kernel: a 128 x 128 output tile a block, 256 threads
@@ -45,7 +46,7 @@
 //   3. Split K where the tiles do not fill the card: the caller picks
 //      `splits` from (m, n, K) alone (sketch_matmul.py
 //      `sketch_t_splits`).  Each split sums its k range in order into a
-//      [splits, m, n] f32 work buffer, and sketch_t_reduce_kernel adds the
+//      [splits, m, n] f32 work buffer, and split_reduce_kernel adds the
 //      partial sums in split order, then forms acc + sum and rounds once.
 //      No atomics: two runs give the same bits, and a ragged lane (the
 //      same m, n, K) the bits of its solo update.
@@ -56,22 +57,10 @@
 // element is read and then written by one thread, and neither pointer is
 // __restrict__.  The kernels allocate nothing; each launch's
 // cudaGetLastError() is returned.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
-
-#include "philox.cuh"
+#include "omega_slab.cuh"
 
 namespace repro_torch {
 namespace {
-
-struct DrawArgs {
-  PhiloxKey key;
-  uint32_t row0, col0, salt;
-  int kind;
-  float scale;
-};
 
 constexpr int kBM = 128, kBN = 128, kBK = 8, kTM = 8, kTN = 8;
 constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
@@ -85,56 +74,6 @@ constexpr int kBf16 = 2;   // bf16 through registers, upcast to f32
 static_assert(kThreads == 256 && kBK * kBM == 4 * kThreads &&
                   kBK * kBN == 4 * kThreads,
               "each thread copies 4 words of each tile a step");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// Copy 16 (or 4) bytes from global to shared memory; with valid == false
-// nothing is read and the destination is zero-filled.
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most one group (the newest) is still in flight.
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__global__ void __launch_bounds__(256)
-    sketch_t_draw_kernel(float* __restrict__ S, int K, int m, int ldm,
-                         DrawArgs om) {
-  const long long total = static_cast<long long>(K) * ldm;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       e < total; e += stride) {
-    const int k = static_cast<int>(e / ldm);
-    const int i = static_cast<int>(e - static_cast<long long>(k) * ldm);
-    S[e] = i < m ? omega_entry(om.key, om.row0 + static_cast<uint32_t>(k),
-                               om.col0 + static_cast<uint32_t>(i), om.salt,
-                               om.kind, om.scale)
-                 : 0.0f;
-  }
-}
 
 // C(m, n) = S(K, ldm)[:, :m]^T · B(K, n) over split blockIdx.z's k range;
 // with work == nullptr it writes acc? + C into out, else C into
@@ -261,20 +200,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <typename TO>
-__global__ void __launch_bounds__(256)
-    sketch_t_reduce_kernel(const float* __restrict__ work, const TO* acc,
-                           TO* out, long long mn, int splits) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= mn) return;
-  float dot = 0.0f;
-  for (int s = 0; s < splits; ++s) dot += work[s * mn + idx];
-  float v = dot;
-  if (acc != nullptr) v = to_f32(acc[idx]) + v;
-  store(out + idx, v);
-}
-
 template <int kMode, typename TO>
 int launch(const float* S, int ldm, const void* B, const void* acc, void* out,
            float* work, int m, int n, int K, int splits,
@@ -287,11 +212,8 @@ int launch(const float* S, int ldm, const void* B, const void* acc, void* out,
       splits > 1 ? work : nullptr, m, n, K, k_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const long long mn = static_cast<long long>(m) * n;
-  sketch_t_reduce_kernel<TO><<<static_cast<unsigned>((mn + 255) / 256), 256,
-                               0, stream>>>(
-      work, static_cast<const TO*>(acc), static_cast<TO*>(out), mn, splits);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(reduce_splits<TO>(
+      work, acc, out, static_cast<long long>(m) * n, splits, stream));
 }
 
 template <typename TO>
@@ -326,30 +248,21 @@ int rt_sketch_t(const void* B, const void* acc, void* out, void* scratch,
                 void* stream) {
   using namespace repro_torch;
   if (m <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-  const auto misaligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
-  };
   if (K < 0 || splits < 1 || splits > kMaxSplits ||
       (m + kBM - 1) / kBM > kMaxTiles || (n + kBN - 1) / kBN > kMaxTiles ||
-      (K > 0 && (scratch == nullptr || misaligned(scratch))) ||
-      (splits > 1 && (work == nullptr || misaligned(work))))
+      (K > 0 && (scratch == nullptr || misaligned16(scratch))) ||
+      (splits > 1 && (work == nullptr || misaligned16(work))))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ldm = (m + 3) / 4 * 4;
   float* S = static_cast<float*>(scratch);
-  if (K > 0) {
-    const long long total = static_cast<long long>(K) * ldm;
-    long long blocks = (total + 255) / 256;
-    if (blocks > 132 * 64) blocks = 132 * 64;
-    sketch_t_draw_kernel<<<static_cast<unsigned>(blocks), 256, 0, st>>>(
-        S, K, m, ldm,
-        DrawArgs{PhiloxKey{k0, k1}, row0, col0, salt, kind, scale});
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = draw_omega_slab(
+      S, K, m, ldm, DrawArgs{PhiloxKey{k0, k1}, row0, col0, salt, kind, scale},
+      st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int b_mode =
       b_bf16 ? kBf16
-             : (!misaligned(B) && n % 4 == 0 ? kB16 : kB4);
+             : (!misaligned16(B) && n % 4 == 0 ? kB16 : kB4);
   float* w = static_cast<float*>(work);
   if (out_bf16)
     return dispatch<__nv_bfloat16>(S, ldm, B, b_mode, acc, out, w, m, n, K,

@@ -17,10 +17,10 @@ place.
 Backends (one spelling across the port):
 
   * ``"cuda"``  — the hand-written kernels (``csrc/sketch_kernels.cu``,
-                  ``csrc/sketch_t_kernels.cu``); ``sketch_block`` draws
-                  Omega in shared memory and never stores it,
-                  ``sketch_t_block`` draws its slab once a call into a
-                  scratch that is released when the call returns.
+                  ``csrc/sketch_t_kernels.cu``); ``sketch_block`` and
+                  ``sketch_t_block`` each draw their Omega slab once a
+                  call into a scratch that is released when the call
+                  returns.
   * ``"torch"`` — the plain version (``_sketch_block_torch``): Omega
                   materialized by the plain Philox, f32 ``matmul``.  It is
                   the CPU path and the reference the kernel is held to.

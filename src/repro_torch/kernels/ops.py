@@ -15,13 +15,13 @@ from .local import sketch_block, sketch_t_block
 
 def sketch_matmul(A: torch.Tensor, *, seed: int, r: int,
                   kind: str = "normal", salt: int = 0) -> torch.Tensor:
-    """B = A @ Omega(n2, r) with Omega generated inside the kernel."""
+    """B = A @ Omega(n2, r) with Omega drawn on the card inside the call."""
     return sketch_block(A, seed, r, kind=kind, salt=salt)
 
 
 def sketch_t_matmul(B: torch.Tensor, *, seed: int, r: int,
                     kind: str = "normal", salt: int = 0) -> torch.Tensor:
-    """C = Omega(n, r)^T @ B with Omega generated inside the kernel."""
+    """C = Omega(n, r)^T @ B with Omega drawn on the card inside the call."""
     return sketch_t_block(B, seed, r, kind=kind, salt=salt)
 
 
@@ -36,8 +36,9 @@ def gen_omega(*, seed: int, n2: int, r: int, kind: str = "normal",
 
 def nystrom_fused(A: torch.Tensor, *, seed: int, r: int,
                   kind: str = "normal"):
-    """(B, C) of the Nystrom pair with Omega never stored: B = A·Omega,
-    then C = Omega^T·B, both through the fused kernels."""
+    """(B, C) of the Nystrom pair with Omega never kept: B = A·Omega,
+    then C = Omega^T·B, both through the kernels, each of which draws its
+    Omega slab into a scratch that lives for one call."""
     B = sketch_matmul(A, seed=seed, r=r, kind=kind)
     C = sketch_t_matmul(B, seed=seed, r=r, kind=kind)
     return B, C

@@ -10,7 +10,9 @@ dense GEMM of ``csrc/gemm_kernels.cu``:
   * ``gen_omega_cuda``  — a materialized Omega tile (the K1 generator's
                           oracle, K8);
   * ``sketch_fwd_cuda`` — ``acc? + A · Omega[row0:, col0:col0+cols]``
-                          (K2, and K6 at offset 0);
+                          (K2, and K6 at offset 0): Omega drawn once a
+                          call into a scratch, a narrow kernel for at most
+                          16 columns, K split for one column tile;
   * ``sketch_t_cuda``   — ``acc? + Omega[row0:, col0:col0+cols]^T · B``
                           (K3, and K7 at offset 0): Omega drawn once a
                           call into a scratch, K split where the output
@@ -143,6 +145,62 @@ def gen_omega_cuda(key0: int, key1: int, row0: int, col0: int, rows: int,
     return out
 
 
+# sketch_fwd's wide path has sketch_t's 128 x 128 output tiles
+# (kBM = kBN of csrc/sketch_kernels.cu); an output of at most
+# SKETCH_FWD_NARROW_N columns (its kNarrowMaxN, which refuses a split
+# there) takes the narrow kernel, which streams A once and never splits.  The split count depends on (n, K) alone, never on m:
+# a split changes the order of the f32 sum, and a streamed slab, a ragged
+# lane or a one-shot sketch must give the same bits for the same row.
+# Only a single column tile is split (n <= SKETCH_FWD_TILE: the service's
+# lanes, whose k <= 256 rows leave at most 2 row tiles), into chunks of at
+# least SKETCH_FWD_MIN_K_SPLIT rows and at most SKETCH_FWD_MAX_SPLITS; a
+# wider output (the one-shot and streaming sketches, r = 512) is not.
+SKETCH_FWD_TILE = 128
+SKETCH_FWD_NARROW_N = 16
+SKETCH_FWD_MIN_K_SPLIT = 512
+SKETCH_FWD_MAX_SPLITS = 64
+
+
+def sketch_fwd_narrow(n: int) -> bool:
+    """Whether an output of ``n`` columns takes ``sketch_fwd``'s narrow
+    kernel (the gradient exchange's r = 8)."""
+    return n <= SKETCH_FWD_NARROW_N
+
+
+def sketch_fwd_splits(n: int, K: int) -> int:
+    """How many blocks share the contraction of one output tile of
+    ``sketch_fwd``: 1 on the narrow path and for outputs wider than one
+    tile, else ``K // SKETCH_FWD_MIN_K_SPLIT`` capped at
+    ``SKETCH_FWD_MAX_SPLITS`` (16 on a serving lane, K = 8192).
+
+    Its price, since m is not looked at: a split call needs an f32 work
+    buffer of ``splits·m·n·4`` bytes (256 MiB at m = 32768, n = 128,
+    K = 32768) and writes and reads it once more, up to about 16% of the
+    FMA time at 512-row splits, also at a tall m whose tiles would fill
+    the card without a split."""
+    if sketch_fwd_narrow(n) or n > SKETCH_FWD_TILE:
+        return 1
+    return max(1, min(K // SKETCH_FWD_MIN_K_SPLIT, SKETCH_FWD_MAX_SPLITS))
+
+
+def sketch_fwd_scratch_bytes(n: int, K: int) -> int:
+    """Bytes of the f32 scratch that one ``sketch_fwd`` call draws its Omega
+    slab into: K rows of n columns, padded to a multiple of 4 (16 bytes)."""
+    return K * (-(-n // 4) * 4) * 4
+
+
+def sketch_fwd_plan(m: int, n: int, K: int) -> dict:
+    """What one ``sketch_fwd`` call of A (m, K) -> (m, n) launches and
+    allocates: its ``path`` ("narrow" or "wide"), ``splits``, and the
+    bytes of its scratch and of its work buffer.  The path and the split
+    depend on (n, K) alone; only the work buffer grows with m."""
+    splits = sketch_fwd_splits(n, K)
+    return {"path": "narrow" if sketch_fwd_narrow(n) else "wide",
+            "splits": splits,
+            "scratch_bytes": sketch_fwd_scratch_bytes(n, K),
+            "work_bytes": splits * m * n * 4 if splits > 1 else 0}
+
+
 def sketch_fwd_cuda(A: torch.Tensor, key0: int, key1: int, cols: int,
                     row0: int = 0, col0: int = 0, kind: str = "normal",
                     salt: int = 0, scale=None,
@@ -151,10 +209,20 @@ def sketch_fwd_cuda(A: torch.Tensor, key0: int, key1: int, cols: int,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``acc? + A @ Omega[row0:row0+k, col0:col0+cols]`` on the card.
 
-    ``A`` (m, k) float32/bfloat16, contiguous; Omega is generated inside
-    the kernel.  The result is written into ``out`` when given (a
-    contiguous view of ``out_dtype``), else into ``acc`` in place, else
-    into a new tensor.
+    ``A`` (m, k) float32/bfloat16, contiguous (any start: a view into a
+    larger buffer is read where it lies).  The result is written into
+    ``out`` when given (a contiguous view of ``out_dtype``), else into
+    ``acc`` in place, else into a new tensor.
+
+    One call is one ctypes call and two launches on the current stream,
+    three with a split: the Omega slab is drawn once into a scratch of
+    :func:`sketch_fwd_scratch_bytes`, then the product runs over it — the
+    narrow kernel for at most SKETCH_FWD_NARROW_N columns, else the tiled
+    one, split over K by :func:`sketch_fwd_splits` into an f32 work
+    buffer whose partial sums are added in split order
+    (:func:`sketch_fwd_plan`).  Scratch and work
+    are allocated here and released on return; the count in
+    ``LAUNCHES["sketch_fwd"]`` is one a call.
     """
     name = "sketch_fwd"
     _check_operand(A, name)
@@ -162,19 +230,29 @@ def sketch_fwd_cuda(A: torch.Tensor, key0: int, key1: int, cols: int,
     n = cols
     out_dtype = out_dtype or A.dtype
     args = _omega_args(key0, key1, row0, col0, salt, kind, scale)
-    if max(m, n, K) > _INT_MAX:
-        raise ValueError(f"{name}: dims ({m}, {n}, {K}) exceed int32")
+    if (max(m, n, K) > _INT_MAX
+            or -(-m // SKETCH_FWD_TILE) * -(-n // SKETCH_FWD_TILE)
+            > _INT_MAX):
+        raise ValueError(f"{name}: dims ({m}, {n}, {K}) exceed int32 or the "
+                         f"grid")
     out = _output(acc, out, (m, n), out_dtype, A.device, name)
     if m == 0 or n == 0:
         return out
+    plan = sketch_fwd_plan(m, n, K)
+    splits = plan["splits"]
+    scratch = torch.empty(plan["scratch_bytes"] // 4, dtype=torch.float32,
+                          device=A.device)
+    work = (torch.empty((splits, m, n), dtype=torch.float32, device=A.device)
+            if splits > 1 else None)
     lib = _build.library()
     with torch.cuda.device(A.device):
         rc = lib.rt_sketch_fwd(A.data_ptr(),
                                None if acc is None else acc.data_ptr(),
-                               out.data_ptr(), m, K, n,
-                               int(A.dtype == torch.bfloat16),
-                               int(out_dtype == torch.bfloat16), *args,
-                               _stream(A.device))
+                               out.data_ptr(), scratch.data_ptr(),
+                               None if work is None else work.data_ptr(), m,
+                               K, n, int(A.dtype == torch.bfloat16),
+                               int(out_dtype == torch.bfloat16), splits,
+                               *args, _stream(A.device))
     _launched(rc, name)
     return out
 

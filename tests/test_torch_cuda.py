@@ -22,7 +22,9 @@ two f32 sums of K terms differ by more than one bfloat16 ulp of the
 elements near zero, so there the output is held bitwise to the kernel's
 own f32 product plus ``acc`` rounded once (the epilogue's contract), and
 to one ulp of the plain version where K is short.  Its split form must
-give the same bits twice.
+give the same bits twice.  The redesigned ``sketch_fwd`` is held the same
+way, and its rows computed at two different m must have the same bits
+(its split and its path depend on (n, K) alone).
 """
 import numpy as np
 import pytest
@@ -34,7 +36,7 @@ from repro_torch.kernels import (LAUNCHES, fold_rows_block, gemm_block,
 from repro_torch.kernels.local import (_fold_rows_torch, _gemm_block_torch,
                                        _sketch_block_torch,
                                        _sketch_t_block_torch)
-from repro_torch.kernels.sketch_matmul import sketch_t_splits
+from repro_torch.kernels.sketch_matmul import sketch_fwd_plan, sketch_t_splits
 from repro_torch.stream import SketchService, StreamConfig, StreamingSketch
 
 pytestmark = pytest.mark.cuda
@@ -221,12 +223,13 @@ SKETCH_T_SHAPES = {
 }
 
 
-def _sketch_t_input(dev, K, n, dt, offset, seed):
-    """B (K, n) of ``dt`` as a view starting ``offset`` elements into a
-    larger buffer (an odd offset leaves its base off 16 bytes)."""
+def _offset_view(dev, rows, cols, dt, offset, seed):
+    """A (rows, cols) operand of ``dt`` as a view starting ``offset``
+    elements into a larger buffer (an odd offset leaves its base off 16
+    bytes, as a ragged lane's ``Hb[i, :k]`` may)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    buf = torch.randn(K * n + offset, generator=g, device=dev).to(dt)
-    return buf[offset:].view(K, n)
+    buf = torch.randn(rows * cols + offset, generator=g, device=dev).to(dt)
+    return buf[offset:].view(rows, cols)
 
 
 @pytest.mark.parametrize("shape", list(SKETCH_T_SHAPES))
@@ -238,7 +241,7 @@ def test_sketch_t_redesign_matches_plain(dev, shape, dt_in, dt_out, use_acc,
                                          offset):
     (m, n, K), splits = SKETCH_T_SHAPES[shape]
     assert sketch_t_splits(m, n, K) == splits
-    B = _sketch_t_input(dev, K, n, dt_in, offset, 12)
+    B = _offset_view(dev, K, n, dt_in, offset, 12)
     assert B.is_contiguous() and B.storage_offset() == offset
     kw = dict(row0=2 ** 32 - 300, col0=2 ** 31, kind="normal", salt=2)
     g = torch.Generator(device=dev).manual_seed(13)
@@ -268,8 +271,78 @@ def test_sketch_t_redesign_matches_plain(dev, shape, dt_in, dt_out, use_acc,
 def test_sketch_t_split_is_deterministic(dev, dt_in):
     (m, n, K), splits = SKETCH_T_SHAPES["split_c"]
     assert splits > 1
-    B = _sketch_t_input(dev, K, n, dt_in, 0, 14)
+    B = _offset_view(dev, K, n, dt_in, 0, 14)
     runs = [sketch_t_block(B, 5, m, row0=3, salt=1,
                            out_dtype=torch.float32) for _ in range(2)]
     torch.cuda.synchronize()
+    assert torch.equal(_bits(runs[0]), _bits(runs[1]))
+
+
+# (m, K, n) of sketch_fwd with its (path, splits): the tiled kernel without
+# a split, a serving lane split 16 ways, the narrow kernel with K longer
+# than one shared-memory chunk (3072 rows at r = 8), and rows of 70
+# columns over a K that is not a multiple of 4
+SKETCH_FWD_SHAPES = {
+    "wide": ((1000, 4099, 333), ("wide", 1)),
+    "serving_split": ((200, 8192, 128), ("wide", 16)),
+    "narrow": ((3001, 9216, 8), ("narrow", 1)),
+    "unaligned": ((45, 133, 70), ("wide", 1)),
+}
+FWD_KW = dict(row0=2 ** 32 - 300, col0=2 ** 31, kind="normal", salt=2)
+
+
+@pytest.mark.parametrize("shape", list(SKETCH_FWD_SHAPES))
+@pytest.mark.parametrize("dt_in", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt_out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_acc", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_sketch_fwd_redesign_matches_plain(dev, shape, dt_in, dt_out,
+                                           use_acc, offset):
+    (m, K, n), (path, splits) = SKETCH_FWD_SHAPES[shape]
+    plan = sketch_fwd_plan(m, n, K)
+    assert (plan["path"], plan["splits"]) == (path, splits)
+    A = _offset_view(dev, m, K, dt_in, offset, 15)
+    assert A.is_contiguous() and A.storage_offset() == offset
+    g = torch.Generator(device=dev).manual_seed(16)
+    acc = (torch.randn(m, n, generator=g, device=dev).to(dt_out)
+           if use_acc else None)
+    reset_launches()
+    dot = sketch_block(A, 77, n, out_dtype=torch.float32, **FWD_KW)
+    acc_in = None if acc is None else acc.clone()
+    got = sketch_block(A, 77, n, acc=acc_in, out_dtype=dt_out, **FWD_KW)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sketch_fwd"] == 2 and LAUNCHES["gen_omega"] == 0
+    assert got.dtype == dt_out and tuple(got.shape) == (m, n)
+    if use_acc:
+        assert got.data_ptr() == acc_in.data_ptr()     # updated in place
+    _close(dot, _sketch_block_torch(A, 77, n, out_dtype=torch.float32,
+                                    **FWD_KW))
+    want = (dot if acc is None else acc.float() + dot).to(dt_out)
+    assert torch.equal(_bits(got), _bits(want))         # acc + dot, once
+    ref = _sketch_block_torch(A, 77, n, acc=acc, out_dtype=dt_out, **FWD_KW)
+    if dt_out == torch.float32:
+        _close(got, ref)
+    elif K < 1000:
+        _within_bf16_ulp(got, ref)
+
+
+@pytest.mark.parametrize("shape", ["serving_split", "narrow", "wide"])
+@pytest.mark.parametrize("dt_in", [torch.float32, torch.bfloat16])
+def test_sketch_fwd_rows_do_not_depend_on_m(dev, shape, dt_in):
+    """Two runs give the same bits, and the rows of a shorter call (into
+    an ``out=`` view, as a ragged lane writes its dY) the bits of the
+    same rows of the whole call."""
+    (m, K, n), _ = SKETCH_FWD_SHAPES[shape]
+    A = _offset_view(dev, m, K, dt_in, 1, 17)
+    runs = [sketch_block(A, 5, n, row0=3, salt=1, out_dtype=torch.float32)
+            for _ in range(2)]
+    dYb = torch.full((2, 80, n), float("nan"), device=dev)
+    for k in (1, 37, 64):
+        view = dYb[1, :k]
+        got = sketch_block(A[m - k:], 5, n, row0=3, salt=1,
+                           out_dtype=torch.float32, out=view)
+        assert got.data_ptr() == view.data_ptr()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(view), _bits(runs[0][m - k:]))
+    assert torch.isnan(dYb[0]).all() and torch.isnan(dYb[1, 64:]).all()
     assert torch.equal(_bits(runs[0]), _bits(runs[1]))

@@ -29,9 +29,12 @@ from repro.kernels import ref as jref
 from repro_torch.core import rng, sketch
 from repro_torch.kernels import local, ops, ref
 from repro_torch.kernels.sketch_matmul import (
-    SKETCH_T_MAX_SPLITS, SKETCH_T_MIN_K_SPLIT, SKETCH_T_SMS,
-    SKETCH_T_TARGET_BLOCKS, SKETCH_T_TILE, sketch_t_cuda,
-    sketch_t_scratch_bytes, sketch_t_splits)
+    SKETCH_FWD_MAX_SPLITS, SKETCH_FWD_MIN_K_SPLIT, SKETCH_FWD_NARROW_N,
+    SKETCH_FWD_TILE, SKETCH_T_MAX_SPLITS, SKETCH_T_MIN_K_SPLIT, SKETCH_T_SMS,
+    SKETCH_T_TARGET_BLOCKS, SKETCH_T_TILE, sketch_fwd_cuda,
+    sketch_fwd_narrow, sketch_fwd_plan, sketch_fwd_scratch_bytes,
+    sketch_fwd_splits, sketch_t_cuda, sketch_t_scratch_bytes,
+    sketch_t_splits)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WRAP = 2 ** 32 - 6
@@ -180,6 +183,94 @@ def test_sketch_t_on_the_cpu_takes_the_plain_path(monkeypatch):
     assert got is acc and torch.equal(got, want)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         sketch_t_cuda(B, 3, 0, 6)
+
+
+@pytest.mark.parametrize("n,K,want,narrow", [
+    (512, 32768, 1, False),       # one-shot and streaming: never split
+    (512, 4096, 1, False),
+    (128, 8192, 16, False),       # a serving lane: 16 splits of 512 rows
+    (128, 32768, SKETCH_FWD_MAX_SPLITS, False),
+    (70, 1024, 2, False),
+    (17, 8192, 16, False),
+    (129, 8192, 1, False),        # two column tiles: not split
+    (8, 2304, 1, True),           # the exchange's embed leaf
+    (8, 9216, 1, True),           # the exchange's d_ff leaves
+    (16, 10 ** 6, 1, True),
+    (1, 5, 1, True),
+    (128, 1023, 1, False),        # too short to split
+    (128, 511, 1, False),
+    (300, 0, 1, False),
+])
+def test_sketch_fwd_splits_at_the_main_path_shapes(n, K, want, narrow):
+    assert sketch_fwd_splits(n, K) == want
+    assert sketch_fwd_narrow(n) is narrow
+
+
+def test_sketch_fwd_policy_does_not_depend_on_m():
+    """The path and the split are functions of (n, K): at every m the
+    launcher takes the same ones, so a row's sum has the same order in a
+    slab, a ragged lane and a one-shot sketch.  Splits stay in [1, 64],
+    never under SKETCH_FWD_MIN_K_SPLIT rows, and only the work buffer
+    grows with m."""
+    ms = (1, 40, 96, 128, 129, 256, 4096, 32768, 256000)
+    for n in (1, 4, 5, 8, 9, 16, 17, 45, 70, 128, 129, 300, 512, 2304):
+        for K in (0, 1, 133, 511, 512, 1023, 2304, 4099, 8192, 9216, 32768,
+                  10 ** 7):
+            plans = [sketch_fwd_plan(m, n, K) for m in ms]
+            for key in ("path", "splits", "scratch_bytes"):
+                assert len({p[key] for p in plans}) == 1, (n, K, key)
+            s = plans[0]["splits"]
+            assert plans[0]["path"] == ("narrow" if n <= SKETCH_FWD_NARROW_N
+                                        else "wide")
+            assert 1 <= s <= SKETCH_FWD_MAX_SPLITS
+            assert s <= max(1, K // SKETCH_FWD_MIN_K_SPLIT)
+            if s > 1:
+                assert plans[0]["path"] == "wide" and n <= SKETCH_FWD_TILE
+                assert K // s >= SKETCH_FWD_MIN_K_SPLIT
+            for m, p in zip(ms, plans):
+                assert p["work_bytes"] == (s * m * n * 4 if s > 1 else 0)
+
+
+@pytest.mark.parametrize("n,K,want", [
+    (512, 32768, 64 * 2 ** 20),           # A = 32768²: 64 MiB
+    (512, 4096, 8 * 2 ** 20),             # one streaming slab's Omega rows
+    (128, 8192, 4 * 2 ** 20),             # a serving lane: 4 MiB
+    (8, 2304, 2304 * 8 * 4),              # the embed leaf: 72 KiB
+    (70, 133, 133 * 72 * 4),
+    (5, 3, 3 * 8 * 4), (1, 0, 0), (0, 5, 0),
+])
+def test_sketch_fwd_scratch_bytes(n, K, want):
+    assert sketch_fwd_scratch_bytes(n, K) == want
+    assert sketch_fwd_plan(7, n, K)["scratch_bytes"] == want
+
+
+def test_sketch_fwd_on_the_cpu_takes_the_plain_path(monkeypatch):
+    """A CPU tensor never reaches the launcher (so no scratch or work
+    buffer is sized or allocated), with acc, with out= and without either;
+    the launcher refuses one before allocating."""
+    def refuse(*a, **k):
+        raise AssertionError("the CPU path reached the CUDA launcher")
+    monkeypatch.setattr(local, "sketch_fwd_cuda", refuse)
+    mod = sys.modules["repro_torch.kernels.sketch_matmul"]
+    for name in ("sketch_fwd_plan", "sketch_fwd_scratch_bytes",
+                 "sketch_fwd_splits"):
+        monkeypatch.setattr(mod, name, refuse)
+    gen = np.random.default_rng(8)
+    A = torch.from_numpy(gen.standard_normal((9, 40)).astype(np.float32))
+    acc = torch.from_numpy(gen.standard_normal((9, 6)).astype(np.float32))
+    want = local._sketch_block_torch(A, 3, 6, row0=WRAP, acc=acc)
+    got = local.sketch_block(A, 3, 6, row0=WRAP, acc=acc)
+    assert got is acc and torch.equal(got, want)
+    buf = torch.zeros(2, 12, 6)
+    view = buf[1, :9]
+    got = local.sketch_block(A, 3, 6, out=view, out_dtype=torch.float32)
+    assert got is view and torch.equal(
+        buf[1, :9], local._sketch_block_torch(A, 3, 6))
+    assert not buf[0].any() and not buf[1, 9:].any()
+    assert torch.equal(local.sketch_block(A, 3, 6),
+                       local._sketch_block_torch(A, 3, 6))
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        sketch_fwd_cuda(A, 3, 0, 6)
 
 
 @pytest.mark.parametrize("kind", ["normal", "uniform", "rademacher"])
