@@ -62,13 +62,20 @@ then the training path, at gemma2-2b's published size (m = 256000,
 n = 2304 is its largest leaf, ``embed``; r = 8):
 
   9. gemm       — the K5 kernel (gemm_block) against its plain version at
-                  the three calls of the gradient exchange on the embed
-                  leaf — (a) P̂ᵀ·M, split over K; (b) P̂·Qᵀ; (c) M − P̂·Qᵀ
-                  in place into M (alpha -1) — and at two ragged shapes
-                  with alpha 0.5, within min(16·sqrt(K)·2**-24, 1e-5);
-                  each call timed beside its plain version,
-                  ``torch.matmul`` / ``addmm`` and its bound; sketch_fwd
-                  (its narrow path) timed at the embed shape too;
+                  the calls of the gradient exchange on the embed leaf —
+                  (a) P̂ᵀ·M, skinny, split over K; (b) P̂·Qᵀ into f32 and,
+                  as the training path makes it, into a bf16 tensor
+                  through out=; (c) M − P̂·Qᵀ in place into M (alpha -1);
+                  (b) and (c) on the thin path — within
+                  min(16·sqrt(K)·2**-24, 1e-5) (f32) or 2**-12 (bf16), and
+                  at ragged shapes on every path with alpha 0.5 (K = 1, 7,
+                  16 and N = 2305 thin, K = 17 tiled, acc at an odd
+                  element); each embed call timed beside its plain
+                  version, ``torch.matmul`` / ``addmm`` (none for the bf16
+                  (b): matmul + cast printed) and its bound, with the path
+                  ``gemm_plan`` chose and its kernels' device time
+                  (torch.profiler); sketch_fwd (its narrow path) timed at
+                  the embed shape too;
  10. exchange   — ``compress_and_allreduce`` on an embed-shaped gradient
                   with a nonzero error buffer, kernels against the same
                   exchange written with the plain versions, both on the
@@ -577,45 +584,98 @@ def serving_diagnosis(dev, local, omega_tile):
     return out, fwd
 
 
+# the kernels each K5 path launches (csrc/gemm_kernels.cu)
+GEMM_KERNELS = {"thin": ("gemm_thin_kernel",),
+                "skinny": ("gemm_skinny_kernel", "splitk_reduce_kernel"),
+                "tiled": ("gemm_tiled_kernel",)}
+
+
+# what phase 9 times beside a K5 call, by the key it is kept under
+YARDSTICKS = {"matmul_cast_ms": "matmul + cast (two calls)",
+              "zero_ms": "zero_() of the output's bytes",
+              "neg_ms": "neg_() of M in place"}
+
+
+def gemm_parts(fn, path: str) -> dict:
+    """Device time of one K5 call's kernels on ``path`` (torch.profiler)."""
+    return {name: device_ms(fn, name) for name in GEMM_KERNELS[path]}
+
+
 def phase_gemm(dev, local):
-    """Phase 9: K5 against its plain version at the exchange's three calls
-    on the embed leaf and at two ragged shapes; each embed call timed.
-    Returns (worst max-abs error, {call: (ms, plain, library, bound)})."""
+    """Phase 9: K5 against its plain version at the exchange's calls on the
+    embed leaf — (a), (b) into f32 and, as the training path makes it, into
+    a bf16 tensor through out=, and (c) — and at ragged shapes on every
+    path; each embed call timed with its path and its kernels' device time.
+    Returns (worst max-abs error, {call: (ms, plain, library, bound,
+    {"path": ..., "device_ms": {kernel: ms}, ...})})."""
+    from repro_torch.kernels.sketch_matmul import gemm_plan
     g = torch.Generator(device=dev).manual_seed(9)
     M = torch.randn(T_M, T_N, generator=g, device=dev)
     P_hat = torch.linalg.qr(torch.randn(T_M, T_R, generator=g,
                                         device=dev)).Q
+    print(f"[gemm] Q of torch.linalg.qr: strides {P_hat.stride()} "
+          f"({'column' if P_hat.stride(0) == 1 else 'row'}-major)")
     Qt = torch.randn(T_R, T_N, generator=g, device=dev)
+    bf16 = torch.bfloat16
     worst, times = 0.0, {}
 
     def held(name, got, ref, K):
         nonlocal worst
+        tol = gemm_tol(K) if ref.dtype == torch.float32 else BF16_TOL
         err = rel_fro(got, ref)
-        print(f"[gemm] {name}: rel_fro={err:.3e} (tol {gemm_tol(K):.1e})")
+        print(f"[gemm] {name}: rel_fro={err:.3e} (tol {tol:.1e})")
         check(got.dtype == ref.dtype and got.shape == ref.shape,
               f"gemm {name}: wrong output {got.dtype} {tuple(got.shape)}")
-        check(err <= gemm_tol(K), f"gemm {name} disagrees with its plain "
-                                 f"version: {err:.3e}")
+        check(err <= tol, f"gemm {name} disagrees with its plain version: "
+                          f"{err:.3e}")
         worst = max(worst, max_abs(got, ref))
+
+    def timed(call, shape, fn, plain, lib, out_bytes, **extra):
+        path = gemm_plan(*shape)["path"]
+        m_, n_, k_ = shape
+        times[call] = (time_ms(fn), time_ms(plain),
+                       None if lib is None else time_ms(lib),
+                       bound_ms(2.0 * m_ * n_ * k_,
+                                out_bytes + 4.0 * (m_ * k_ + k_ * n_)),
+                       {"path": path, "device_ms": gemm_parts(fn, path),
+                        **extra})
 
     # (a) Q^T_loc = P^T M: K = m, an r x n output
     held(f"(a) P^T.M ({T_R}x{T_M})({T_M}x{T_N})",
          local.gemm_block(P_hat.T, M), local._gemm_block_torch(P_hat.T, M),
          T_M)
-    times["a"] = (time_ms(lambda: local.gemm_block(P_hat.T, M)),
-                  time_ms(lambda: local._gemm_block_torch(P_hat.T, M)),
-                  time_ms(lambda: torch.matmul(P_hat.T, M)),
-                  bound_ms(2.0 * T_R * T_M * T_N,
-                           4.0 * (T_M * T_N + T_M * T_R + T_R * T_N)))
-    # (b) g_hat = P Q^T: K = r
-    held(f"(b) P.Q^T ({T_M}x{T_R})({T_R}x{T_N})",
+    timed("a", (T_R, T_N, T_M), lambda: local.gemm_block(P_hat.T, M),
+          lambda: local._gemm_block_torch(P_hat.T, M),
+          lambda: torch.matmul(P_hat.T, M), 4.0 * T_R * T_N)
+    # (b) g_hat = P Q^T: K = r, into f32
+    held(f"(b) P.Q^T ({T_M}x{T_R})({T_R}x{T_N}) f32",
          local.gemm_block(P_hat, Qt), local._gemm_block_torch(P_hat, Qt),
          T_R)
-    times["b"] = (time_ms(lambda: local.gemm_block(P_hat, Qt)),
-                  time_ms(lambda: local._gemm_block_torch(P_hat, Qt)),
-                  time_ms(lambda: torch.matmul(P_hat, Qt)),
-                  bound_ms(2.0 * T_R * T_M * T_N,
-                           4.0 * (T_M * T_N + T_M * T_R + T_R * T_N)))
+    # beside (b) and (c), a PyTorch pass over the same output bytes with
+    # no product (zero_: writes only; neg_: reads and writes in place), a
+    # yardstick of the streaming rate the card gives
+    X = torch.empty_like(M)
+    timed("b", (T_M, T_N, T_R), lambda: local.gemm_block(P_hat, Qt),
+          lambda: local._gemm_block_torch(P_hat, Qt),
+          lambda: torch.matmul(P_hat, Qt), 4.0 * T_M * T_N,
+          zero_ms=time_ms(X.zero_))
+    del X
+    # (b) as the training path makes it: rounded to bf16 into the
+    # gradient's storage (grad_compress: out_dtype=g.dtype, out=g.view)
+    G = torch.empty(T_M, T_N, dtype=bf16, device=dev)
+    got = local.gemm_block(P_hat, Qt, out_dtype=bf16, out=G)
+    check(got.data_ptr() == G.data_ptr(), "gemm (b) bf16 ignored out=")
+    held("(b) P.Q^T into a bf16 out=", got,
+         local._gemm_block_torch(P_hat, Qt, out_dtype=bf16), T_R)
+    # no one PyTorch call takes f32 operands to a bf16 product: the
+    # library column is empty, and matmul + cast (two calls) is printed
+    timed("b_bf16", (T_M, T_N, T_R),
+          lambda: local.gemm_block(P_hat, Qt, out_dtype=bf16, out=G),
+          lambda: local._gemm_block_torch(P_hat, Qt, out_dtype=bf16), None,
+          2.0 * T_M * T_N,
+          matmul_cast_ms=time_ms(lambda: torch.matmul(P_hat, Qt).to(bf16)),
+          zero_ms=time_ms(G.zero_))
+    del G, got
     # (c) e' = M - P Q^T_loc in place, checked on a copy of M
     ref = local._gemm_block_torch(P_hat, Qt, -1.0, M)
     Mc = M.clone()
@@ -623,13 +683,11 @@ def phase_gemm(dev, local):
     check(got.data_ptr() == Mc.data_ptr(), "gemm (c) did not write in place")
     held("(c) M - P.Q^T in place", got, ref, T_R)
     del ref, got
-    times["c"] = (time_ms(lambda: local.gemm_block(P_hat, Qt, acc=Mc,
-                                                   alpha=-1.0)),
-                  time_ms(lambda: local._gemm_block_torch(P_hat, Qt, -1.0,
-                                                          Mc)),
-                  time_ms(lambda: Mc.addmm_(P_hat, Qt, alpha=-1.0)),
-                  bound_ms(2.0 * T_R * T_M * T_N,
-                           4.0 * (2 * T_M * T_N + T_M * T_R + T_R * T_N)))
+    timed("c", (T_M, T_N, T_R),
+          lambda: local.gemm_block(P_hat, Qt, acc=Mc, alpha=-1.0),
+          lambda: local._gemm_block_torch(P_hat, Qt, -1.0, Mc),
+          lambda: Mc.addmm_(P_hat, Qt, alpha=-1.0), 8.0 * T_M * T_N,
+          neg_ms=time_ms(Mc.neg_))
     # K2 at the exchange's shape: P = M Omega, K = n, r columns
     om = local._omega_f32(5, 0, 0, 0, T_N, T_R, "normal", 0, None, dev)
     times["sketch_fwd"] = (
@@ -640,22 +698,42 @@ def phase_gemm(dev, local):
         kernel_parts(lambda: local.sketch_block(M, (5, 0), T_R),
                      "sketch_fwd_narrow_kernel"))
     del M, Mc, P_hat, Qt, om
-    # ragged against every tile, alpha 0.5, with acc
-    for m, K, n in ((5, 100003, 1001), (1001, 7, 2305)):
+    # ragged against every path, alpha 0.5, with acc (at = 1: acc a view
+    # one element into a larger buffer, off every vector boundary); A
+    # column-major, as P is
+    for m, K, n, at, want in ((5, 100003, 1001, 0, "skinny"),
+                              (1001, 7, 2305, 0, "thin"),
+                              (1001, 1, 2304, 0, "thin"),
+                              (1001, 16, 2304, 0, "thin"),
+                              (1001, 17, 2304, 0, "tiled"),
+                              (4099, 8, 2305, 0, "thin"),
+                              (1001, 8, 2304, 1, "thin")):
+        path = gemm_plan(m, n, K)["path"]
+        check(path == want, f"gemm_plan({m}, {n}, {K}) is {path}, not {want}")
         A = torch.randn(K, m, generator=g, device=dev).T
         B = torch.randn(K, n, generator=g, device=dev)
         acc = torch.randn(m, n, generator=g, device=dev)
-        held(f"ragged ({m}x{K})({K}x{n}) alpha 0.5",
-             local.gemm_block(A, B, alpha=0.5, acc=acc.clone()),
+        buf = torch.zeros(m * n + at, device=dev)
+        view = buf[at:].view(m, n)
+        view.copy_(acc)
+        held(f"ragged ({m}x{K})({K}x{n}) alpha 0.5, {path}"
+             + (f", acc at element {at}" if at else ""),
+             local.gemm_block(A, B, alpha=0.5, acc=view),
              local._gemm_block_torch(A, B, 0.5, acc), K)
     torch.cuda.synchronize()
-    for call, (ms, plain, lib, (bms, by), *parts) in times.items():
+    for call, (ms, plain, lib, (bms, by), parts) in times.items():
         name = "sketch_fwd" if call == "sketch_fwd" else f"gemm ({call})"
+        if call == "sketch_fwd":
+            extra = f"; on the device (torch.profiler): {parts_text(parts)}"
+        else:
+            extra = (f"; path {parts['path']}, on the device "
+                     f"(torch.profiler): {parts_text(parts['device_ms'])}"
+                     + "".join(f"; {YARDSTICKS[k]} {t:.3f} ms"
+                               for k, t in parts.items() if k in YARDSTICKS))
         print(f"[timing] {name} at the embed leaf ({T_M}x{T_N}, r={T_R}): "
-              f"{ms:.3f} ms (plain {plain:.3f}, library {lib:.3f}, bound "
-              f"{bms:.3f} ms by {by})"
-              + "".join(f"; on the device (torch.profiler): {parts_text(p)}"
-                        for p in parts))
+              f"{ms:.3f} ms (plain {plain:.3f}, library "
+              f"{'none' if lib is None else f'{lib:.3f}'}, bound "
+              f"{bms:.3f} ms by {by}){extra}")
     return worst, times
 
 
@@ -1098,12 +1176,15 @@ def main() -> int:
         if name == "fold_rows":
             kernels[-1]["kernel_ms"] = f_kernel
         if name == "gemm":
-            # ms, plain_ms, library_ms and bound_ms sum the three calls of
-            # one embed-leaf exchange; each call on its own:
+            # ms, plain_ms, library_ms and bound_ms sum calls (a), (b) into
+            # f32 and (c) of one embed-leaf exchange (the training path's
+            # (b) writes bf16, "b_bf16", which no one library call does);
+            # each call on its own, with its path and its kernels' device
+            # time:
             kernels[-1]["calls"] = {
                 c: {"ms": t[0], "plain_ms": t[1], "library_ms": t[2],
-                    "bound_ms": t[3][0], "bound_by": t[3][1]}
-                for c, t in gemm_times.items() if c in "abc"}
+                    "bound_ms": t[3][0], "bound_by": t[3][1], **t[4]}
+                for c, t in gemm_times.items() if c != "sketch_fwd"}
         if name in ("sketch_t", "sketch_fwd"):
             # ms, plain_ms, library_ms and bound_ms are those of sketch_t's
             # W update and of sketch_fwd's one-shot; each of the main

@@ -39,7 +39,8 @@ SIGNATURES = {
     "rt_sketch_fwd": (_VP,) * 5 + (_INT,) * 6 + _OMEGA,
     "rt_sketch_t": (_VP,) * 5 + (_INT,) * 6 + _OMEGA,
     "rt_fold_rows": (_VP, _VP, _VP, _VP) + (_INT,) * 7 + (_VP,),
-    "rt_gemm": (_VP,) * 5 + (_INT,) * 3 + (_LL, _LL, _INT, _F32, _INT, _VP),
+    "rt_gemm": (_VP,) * 5 + (_INT,) * 3 + (_LL, _LL, _INT, _INT, _F32, _INT,
+                                          _VP),
 }
 
 

@@ -23,7 +23,9 @@ dense GEMM of ``csrc/gemm_kernels.cu``:
                           ``_fold_rows_pallas`` vmapped over lanes);
   * ``gemm_cuda``       — ``acc? + (A · B)·alpha`` with both operands in
                           device memory (K5, the reference's
-                          ``_gemm_pallas``), split over K for a skinny A.
+                          ``_gemm_pallas``): a streaming thin kernel for
+                          K <= 16, split over K for a skinny A, tiled
+                          otherwise (``gemm_plan``).
 
 Keys, offsets, salt, kind and scale are runtime arguments, so one build
 serves every seed and shard offset.  Each launcher checks device, dtype,
@@ -403,9 +405,16 @@ def fold_rows_cuda(ys: Sequence[torch.Tensor], d: torch.Tensor,
     _launched(rc, name)
 
 
-# Skinny A (at most this many rows) takes the split-K kernel; the split
-# count aims at this many blocks (8 a streaming multiprocessor of an H100)
-# without giving a split fewer than GEMM_MIN_K_SPLIT rows of B.
+# The path of a K5 call is chosen by its shape (``gemm_plan``), and
+# ``rt_gemm`` of csrc/gemm_kernels.cu takes the code of GEMM_PATHS that it
+# names (its kPathTiled / kPathSkinny / kPathThin).  A contraction of at
+# most GEMM_THIN_K (its kThinMaxK) takes the thin kernel, a streaming pass
+# over acc and out, at any M; else a skinny A (at most GEMM_SKINNY_M rows)
+# takes the split-K kernel, whose split count aims at GEMM_TARGET_BLOCKS
+# blocks (8 a streaming multiprocessor of an H100) without giving a split
+# fewer than GEMM_MIN_K_SPLIT rows of B; else the tiled kernel.
+GEMM_PATHS = {"tiled": 0, "skinny": 1, "thin": 2}
+GEMM_THIN_K = 16
 GEMM_SKINNY_M = 32
 GEMM_TARGET_BLOCKS = 132 * 8
 GEMM_MIN_K_SPLIT = 512
@@ -413,13 +422,33 @@ _GEMM_SKINNY_COLS = 128          # kSkinnyCols of csrc/gemm_kernels.cu
 
 
 def gemm_splits(M: int, N: int, K: int) -> int:
-    """How many blocks share the K loop of one output column tile: 1 unless
-    A is skinny (``M <= GEMM_SKINNY_M``) and K long enough to split."""
+    """How many blocks share the K loop of one output column tile of the
+    skinny kernel: 1 unless A is skinny (``M <= GEMM_SKINNY_M``) and K long
+    enough to split (at least ``2·GEMM_MIN_K_SPLIT``, so never on the thin
+    path); the splits' partial sums are added in split order."""
     if M > GEMM_SKINNY_M:
         return 1
     tiles = -(-N // _GEMM_SKINNY_COLS)
     return max(1, min(-(-GEMM_TARGET_BLOCKS // tiles), K // GEMM_MIN_K_SPLIT,
                       65535))
+
+
+def gemm_plan(M: int, N: int, K: int) -> dict:
+    """What one ``gemm`` call of (M, K)·(K, N) launches and allocates: its
+    ``path`` ("thin" for K <= GEMM_THIN_K, else "skinny" for
+    M <= GEMM_SKINNY_M, else "tiled"), ``splits`` (:func:`gemm_splits`;
+    above 1 only on the skinny path) and the bytes of its f32 work buffer.
+    The exchange's calls (b) and (c) (K = r) take "thin", call (a)
+    (M = r, K = m) "skinny"."""
+    if K <= GEMM_THIN_K:
+        path = "thin"
+    elif M <= GEMM_SKINNY_M:
+        path = "skinny"
+    else:
+        path = "tiled"
+    splits = gemm_splits(M, N, K)
+    return {"path": path, "splits": splits,
+            "work_bytes": splits * M * N * 4 if splits > 1 else 0}
 
 
 def gemm_cuda(A: torch.Tensor, B: torch.Tensor, alpha: float = 1.0,
@@ -428,14 +457,19 @@ def gemm_cuda(A: torch.Tensor, B: torch.Tensor, alpha: float = 1.0,
     """``acc? + (A @ B)·alpha`` on the card, summed in f32 and cast once to
     ``out_dtype`` (default float32).
 
-    ``A`` (M, K) float32, any strides (a transposed view is read as it
-    is); ``B`` (K, N) float32, contiguous.  The result is written into
-    ``out`` when given, else into ``acc`` in place when given (both
-    contiguous (M, N) of ``out_dtype``; ``out`` may be ``acc``), else into
-    a new tensor.  With a skinny A the K loop is split over blocks and the
-    partial sums are added in a fixed order by a second pass (one more
-    kernel on the stream, counted with the first as one launch): two runs
-    give the same bits.
+    ``A`` (M, K) float32, any strides (a transposed view, or the
+    column-major Q of ``torch.linalg.qr``, is read as it is); ``B`` (K, N)
+    float32, contiguous.  The result is written into ``out`` when given,
+    else into ``acc`` in place when given (both contiguous (M, N) of
+    ``out_dtype``, at any start; ``out`` may be ``acc``), else into a new
+    tensor.  The kernel is the one :func:`gemm_plan` names: for K <= 16 the
+    thin kernel, which streams acc and out with 16-byte (f32) or 8-byte
+    (bf16) accesses where N % 4 == 0 and both start on such a boundary,
+    else one element at a time; for a skinny A the K loop split over
+    blocks, the partial sums added in a fixed order by a second pass (one
+    more kernel on the stream, counted with the first as one launch); else
+    the tiled kernel.  Every path sums each element in the same order, so
+    two runs give the same bits.
     """
     name = "gemm"
     for what, X in (("A", A), ("B", B)):
@@ -458,7 +492,8 @@ def gemm_cuda(A: torch.Tensor, B: torch.Tensor, alpha: float = 1.0,
     dst = _output(acc, out, (M, N), out_dtype, A.device, name)
     if M == 0 or N == 0:
         return dst
-    splits = gemm_splits(M, N, K)
+    plan = gemm_plan(M, N, K)
+    splits = plan["splits"]
     work = (torch.empty((splits, M, N), dtype=torch.float32, device=A.device)
             if splits > 1 else None)
     lib = _build.library()
@@ -467,7 +502,8 @@ def gemm_cuda(A: torch.Tensor, B: torch.Tensor, alpha: float = 1.0,
                          None if acc is None else acc.data_ptr(),
                          dst.data_ptr(),
                          None if work is None else work.data_ptr(), M, N, K,
-                         A.stride(0), A.stride(1), splits, float(alpha),
+                         A.stride(0), A.stride(1), GEMM_PATHS[plan["path"]],
+                         splits, float(alpha),
                          int(out_dtype == torch.bfloat16), _stream(A.device))
     _launched(rc, name)
     return dst

@@ -15,8 +15,9 @@ held bitwise, and so is each lane of the service's ragged update against
 the solo update of its stream.  The dense GEMM (K5) is held to
 ``16·sqrt(K)·2**-24`` relative Frobenius in float32 (two f32 sums of K
 terms in different orders) and to ``2**-12`` when its output is bfloat16
-(both sides round one f32 value), and its split-K form must give the same
-bits twice.  The redesigned ``sketch_t`` is held to its plain version at
+(both sides round one f32 value); each of its paths (thin for K <= 16,
+skinny split-K, tiled) must give the same bits twice, also into views of
+a larger buffer at any start, which it must leave untouched.  The redesigned ``sketch_t`` is held to its plain version at
 the float32 tolerance above; where its output is bfloat16 and K is long,
 two f32 sums of K terms differ by more than one bfloat16 ulp of the
 elements near zero, so there the output is held bitwise to the kernel's
@@ -165,17 +166,43 @@ def test_service_ragged_lanes_bitwise_equal_solo_on_card(dev, dtype):
         assert torch.equal(_bits(svc.corange(s)), _bits(ref.corange(r)))
 
 
-@pytest.mark.parametrize("M,N,K,trans_a", [
-    (8, 2304, 20000, True),      # call (a): P^T·M, split over K
-    (13, 100, 3000, True),       # skinny, ragged
-    (1000, 77, 8, False),        # calls (b)/(c): K = r
-    (130, 70, 45, False),        # tiled, ragged against 64 x 64 x 16
-])
+# (M, N, K, A transposed, offset): offset None gives acc and out as tensors
+# of their own; an offset o makes them views starting o elements into a
+# larger contiguous buffer (o = N: the row-offset view big[1:]; with N odd
+# or o = 1 or 2 their base is off the thin kernel's 16-byte (f32) and
+# 8-byte (bf16) boundary, so it moves one element at a time).  The thin
+# shapes take A transposed, as the column-major Q of torch.linalg.qr is.
+GEMM_SHAPES = [
+    (8, 2304, 20000, True, None),    # call (a): P^T·M, split over K
+    (13, 100, 3000, True, None),     # skinny, ragged
+    (1000, 77, 8, False, None),      # calls (b)/(c): K = r, A row-major
+    (130, 70, 45, False, None),      # tiled, ragged against 64 x 64 x 16
+] + [(M, N, K, True, None) for K in (1, 8, 16) for M in (5, 1000, 4099)
+     for N in (77, 2304, 2305)] + [
+    (1000, 77, 8, True, 77),         # big[1:] with N odd
+    (4099, 2305, 16, True, 2305),
+    (1000, 2304, 8, True, 1),        # N % 4 == 0, base off by one element
+    (1000, 2304, 16, True, 2),       # 8 bytes (f32) / 4 bytes (bf16) off
+    (1000, 2304, 8, True, 4),        # 16 bytes (f32) / 8 bytes (bf16) on
+]
+
+
+def _at(dev, src, offset, dtype):
+    """(buffer, view): ``src`` copied into a view starting ``offset``
+    elements into a buffer of ``dtype`` whose other entries are 7."""
+    M, N = src.shape
+    buf = torch.full((offset + M * N + 3,), 7.0, dtype=dtype, device=dev)
+    view = buf[offset:offset + M * N].view(M, N)
+    view.copy_(src)
+    return buf, view
+
+
+@pytest.mark.parametrize("M,N,K,trans_a,offset", GEMM_SHAPES)
 @pytest.mark.parametrize("alpha", [1.0, -1.0, 0.5])
 @pytest.mark.parametrize("use_acc", [False, True])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-def test_gemm_kernel_matches_plain(dev, M, N, K, trans_a, alpha, use_acc,
-                                   out_dtype):
+def test_gemm_kernel_matches_plain(dev, M, N, K, trans_a, offset, alpha,
+                                   use_acc, out_dtype):
     g = torch.Generator(device=dev).manual_seed(5)
     A = (torch.randn(K, M, generator=g, device=dev).T if trans_a
          else torch.randn(M, K, generator=g, device=dev))
@@ -183,15 +210,29 @@ def test_gemm_kernel_matches_plain(dev, M, N, K, trans_a, alpha, use_acc,
     acc = (torch.randn(M, N, generator=g, device=dev).to(out_dtype)
            if use_acc else None)
     ref = _gemm_block_torch(A, B, alpha, acc, out_dtype)
+
+    def call():
+        if offset is None:
+            return None, gemm_block(A, B, alpha=alpha, out_dtype=out_dtype,
+                                    acc=None if acc is None else acc.clone())
+        buf, view = _at(dev, torch.zeros(M, N) if acc is None else acc,
+                        offset, out_dtype)
+        got = (gemm_block(A, B, alpha=alpha, acc=view, out_dtype=out_dtype)
+               if use_acc else
+               gemm_block(A, B, alpha=alpha, out=view, out_dtype=out_dtype))
+        assert got.data_ptr() == view.data_ptr()
+        return buf, got
+
     reset_launches()
-    got = gemm_block(A, B, alpha=alpha, out_dtype=out_dtype,
-                     acc=None if acc is None else acc.clone())
-    again = gemm_block(A, B, alpha=alpha, out_dtype=out_dtype,
-                       acc=None if acc is None else acc.clone())
+    buf, got = call()
+    _, again = call()
     torch.cuda.synchronize()
     assert LAUNCHES["gemm"] == 2
     assert got.dtype == out_dtype and tuple(got.shape) == (M, N)
     assert torch.equal(_bits(got), _bits(again))        # deterministic
+    if buf is not None:                                  # nothing else moved
+        rest = torch.cat([buf[:offset], buf[offset + M * N:]])
+        assert bool((rest == 7).all())
     err = float(torch.linalg.norm(got.float() - ref.float())
                 / torch.linalg.norm(ref.float()))
     tol = 16 * K ** 0.5 * 2.0 ** -24 if out_dtype == torch.float32 \
@@ -199,18 +240,34 @@ def test_gemm_kernel_matches_plain(dev, M, N, K, trans_a, alpha, use_acc,
     assert err <= tol, (err, tol)
 
 
-def test_gemm_kernel_in_place_error_feedback(dev):
-    """Call (c): M <- M - P·Q_loc^T with the accumulator as the output."""
+@pytest.mark.parametrize("case", ["acc_f32", "out_bf16_view"])
+def test_gemm_kernel_in_place_error_feedback(dev, case):
+    """Call (c): M <- M - P·Q_loc^T with the accumulator as the output;
+    and call (b) as the exchange makes it, P·Q^T rounded to bf16 into a
+    view of a larger tensor (the gradient's storage) through out=."""
     g = torch.Generator(device=dev).manual_seed(6)
     P = torch.randn(5000, 8, generator=g, device=dev)
     Qt = torch.randn(8, 300, generator=g, device=dev)
-    M = torch.randn(5000, 300, generator=g, device=dev)
-    ref = _gemm_block_torch(P, Qt, -1.0, M)
-    out = gemm_block(P, Qt, alpha=-1.0, acc=M)
+    if case == "acc_f32":
+        M = torch.randn(5000, 300, generator=g, device=dev)
+        ref = _gemm_block_torch(P, Qt, -1.0, M)
+        out = gemm_block(P, Qt, alpha=-1.0, acc=M)
+        torch.cuda.synchronize()
+        assert out.data_ptr() == M.data_ptr()
+        err = float(torch.linalg.norm(M - ref) / torch.linalg.norm(ref))
+        assert err <= 16 * 8 ** 0.5 * 2.0 ** -24
+        return
+    P = torch.linalg.qr(P).Q                 # column-major, as the exchange's
+    big = torch.full((3, 5000, 300), 7.0, dtype=torch.bfloat16, device=dev)
+    view = big[1]
+    ref = _gemm_block_torch(P, Qt, out_dtype=torch.bfloat16)
+    out = gemm_block(P, Qt, out_dtype=torch.bfloat16, out=view)
     torch.cuda.synchronize()
-    assert out.data_ptr() == M.data_ptr()
-    err = float(torch.linalg.norm(M - ref) / torch.linalg.norm(ref))
-    assert err <= 16 * 8 ** 0.5 * 2.0 ** -24
+    assert out.data_ptr() == view.data_ptr() and out.dtype == torch.bfloat16
+    assert bool((big[0] == 7).all()) and bool((big[2] == 7).all())
+    err = float(torch.linalg.norm(view.float() - ref.float())
+                / torch.linalg.norm(ref.float()))
+    assert err <= 2.0 ** -12
 
 
 # (m, n, K) of sketch_t: one split, split 8 and 16 ways (the Nystrom C's

@@ -29,12 +29,12 @@ from repro.kernels import ref as jref
 from repro_torch.core import rng, sketch
 from repro_torch.kernels import local, ops, ref
 from repro_torch.kernels.sketch_matmul import (
-    SKETCH_FWD_MAX_SPLITS, SKETCH_FWD_MIN_K_SPLIT, SKETCH_FWD_NARROW_N,
-    SKETCH_FWD_TILE, SKETCH_T_MAX_SPLITS, SKETCH_T_MIN_K_SPLIT, SKETCH_T_SMS,
-    SKETCH_T_TARGET_BLOCKS, SKETCH_T_TILE, sketch_fwd_cuda,
-    sketch_fwd_narrow, sketch_fwd_plan, sketch_fwd_scratch_bytes,
-    sketch_fwd_splits, sketch_t_cuda, sketch_t_scratch_bytes,
-    sketch_t_splits)
+    GEMM_PATHS, GEMM_THIN_K, SKETCH_FWD_MAX_SPLITS, SKETCH_FWD_MIN_K_SPLIT,
+    SKETCH_FWD_NARROW_N, SKETCH_FWD_TILE, SKETCH_T_MAX_SPLITS,
+    SKETCH_T_MIN_K_SPLIT, SKETCH_T_SMS, SKETCH_T_TARGET_BLOCKS,
+    SKETCH_T_TILE, gemm_cuda, gemm_plan, sketch_fwd_cuda, sketch_fwd_narrow,
+    sketch_fwd_plan, sketch_fwd_scratch_bytes, sketch_fwd_splits,
+    sketch_t_cuda, sketch_t_scratch_bytes, sketch_t_splits)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WRAP = 2 ** 32 - 6
@@ -271,6 +271,86 @@ def test_sketch_fwd_on_the_cpu_takes_the_plain_path(monkeypatch):
                        local._sketch_block_torch(A, 3, 6))
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         sketch_fwd_cuda(A, 3, 0, 6)
+
+
+# (m, n) of gemma2-2b's compressed leaves and the split of the exchange's
+# call (a) on each (P^T·M: M = r = 8, K = m): ceil(1056 / ceil(n / 128))
+# blocks, never a split under 512 rows of K
+GEMM_LEAVES = {
+    "embed": ((256000, 2304), 59),
+    "w_down": ((239616, 2304), 59),
+    "wo": ((53248, 2304), 59),
+    "wq": ((59904, 2048), 66),
+    "w_gate_up": ((59904, 9216), 15),
+    "wk_wv": ((59904, 1024), 117),      # 59904 // 512 binds
+    "norm": ((26, 2304), 1),            # K = 26: too short to split
+}
+
+
+@pytest.mark.parametrize("leaf", list(GEMM_LEAVES))
+@pytest.mark.parametrize("call", ["a", "b", "c"])
+def test_gemm_plan_at_the_main_path_shapes(leaf, call):
+    """Calls (b) and (c) (K = r = 8) of every compressed leaf take the thin
+    kernel with no split and no work buffer; call (a) takes the skinny
+    kernel, split over K into a splits x r x n f32 work buffer."""
+    (m, n), splits_a = GEMM_LEAVES[leaf]
+    r = 8
+    if call == "a":
+        plan = gemm_plan(r, n, m)
+        want = {"path": "skinny", "splits": splits_a,
+                "work_bytes": splits_a * r * n * 4 if splits_a > 1 else 0}
+    else:
+        plan = gemm_plan(m, n, r)
+        want = {"path": "thin", "splits": 1, "work_bytes": 0}
+    assert plan == want
+
+
+def test_gemm_plan_thin_for_every_short_contraction():
+    """K <= GEMM_THIN_K is always thin (no split, no work buffer) at any M
+    and N; one more row of K goes to the skinny kernel for M <= 32 and to
+    the tiled one above; every path has a code of rt_gemm."""
+    assert GEMM_THIN_K == 16 and set(GEMM_PATHS) == {"thin", "skinny",
+                                                     "tiled"}
+    for M in (1, 5, 26, 32, 33, 1000, 4099, 256000):
+        for N in (1, 77, 1024, 2304, 2305, 9216):
+            for K in range(GEMM_THIN_K + 1):
+                assert gemm_plan(M, N, K) == {"path": "thin", "splits": 1,
+                                              "work_bytes": 0}, (M, N, K)
+            over = gemm_plan(M, N, GEMM_THIN_K + 1)
+            assert over["path"] == ("skinny" if M <= 32 else "tiled")
+            assert over["splits"] == 1
+    assert gemm_plan(33, 2304, 10 ** 6)["path"] == "tiled"
+    assert gemm_plan(33, 2304, 10 ** 6)["splits"] == 1
+
+
+def test_gemm_on_the_cpu_takes_the_plain_path(monkeypatch):
+    """A CPU tensor never reaches gemm_cuda or gemm_plan (nothing is sized
+    or allocated for the card), with acc in place, with a bf16 out= view
+    and with neither; the launcher refuses one before planning."""
+    def refuse(*a, **k):
+        raise AssertionError("the CPU path reached the CUDA launcher")
+    monkeypatch.setattr(local, "gemm_cuda", refuse)
+    mod = sys.modules["repro_torch.kernels.sketch_matmul"]
+    for name in ("gemm_plan", "gemm_splits"):
+        monkeypatch.setattr(mod, name, refuse)
+    gen = np.random.default_rng(9)
+    P = torch.from_numpy(gen.standard_normal((40, 8)).astype(np.float32))
+    Qt = torch.from_numpy(gen.standard_normal((8, 12)).astype(np.float32))
+    M = torch.from_numpy(gen.standard_normal((40, 12)).astype(np.float32))
+    want = local._gemm_block_torch(P, Qt, -1.0, M)
+    got = local.gemm_block(P, Qt, alpha=-1.0, acc=M)
+    assert got is M and torch.equal(got, want)
+    buf = torch.zeros(2, 50, 12, dtype=torch.bfloat16)
+    view = buf[1, :40]
+    got = local.gemm_block(P, Qt, out_dtype=torch.bfloat16, out=view)
+    assert got is view and torch.equal(
+        buf[1, :40], local._gemm_block_torch(P, Qt,
+                                             out_dtype=torch.bfloat16))
+    assert not buf[0].any() and not buf[1, 40:].any()
+    assert torch.equal(local.gemm_block(P.T, M),
+                       local._gemm_block_torch(P.T, M))
+    with pytest.raises(ValueError, match="must be a 2-D float32 CUDA"):
+        gemm_cuda(P, Qt)
 
 
 @pytest.mark.parametrize("kind", ["normal", "uniform", "rademacher"])
