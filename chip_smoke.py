@@ -30,15 +30,22 @@ PSD, made on the card from a seed; r = 512, l = 1025):
                   sketch_t at both of its shapes (the W update and the
                   Nystrom C) and sketch_fwd at the one-shot, with the
                   device time of each call's Omega draw, its product and
-                  its split-K reduce apart.
+                  its split-K reduce apart; gen_omega's bound is its
+                  integer work: the instructions of one normal entry in
+                  its SASS (cuobjdump of the built library), by pipe, at
+                  the SM clock nvidia-smi reads while it runs.
 
 then the serving path, at the shape of one serving configuration (streams
 of n1 = 16384, n2 = 8192, r = 128, l = 257, float32):
 
   6. fold       — the K4 kernel (fold_rows) against its plain version on the
                   card, bitwise: float32 and bfloat16, masked and unmasked,
-                  1 and 64 lanes, c not a multiple of 32, resident -0.0
-                  rows, NaN in d's dead rows, starts outside [0, m + k];
+                  1 and 64 lanes, c not a multiple of 4 (the one-element
+                  path) and c = 128 (16-byte vectors), resident -0.0 rows,
+                  NaN in d's dead rows, starts outside [0, m + k], more
+                  lanes than one launch holds (one launch per 240 lanes
+                  with a row to change) and a lane that is a view at an
+                  odd element;
   7. lanes      — 8 streams: one ``update_ragged`` round (NaN pad rows) on
                   one service, the same slabs one by one through ``update``
                   on another; Y and W must be equal bitwise;
@@ -51,8 +58,11 @@ of n1 = 16384, n2 = 8192, r = 128, l = 257, float32):
                   quarantined nothing, with one fold launch per lane batch
                   and one sketch_fwd and one sketch_t per update; then
                   fold_rows is timed at one bucket of it (64 lanes, kb =
-                  256) beside its plain version, the per-lane
-                  ``narrow().add_()`` loop and its bound, sketch_fwd at
+                  256): the wrapper, its host stages, the kernel on the
+                  device (warm, and with the L2 flushed), beside its plain
+                  version, one ``torch._foreach_add_`` over the live
+                  windows, the per-lane ``narrow().add_()`` loop and its
+                  bound; sketch_fwd at
                   one lane (k = 1, 128, 256) beside its plain version,
                   ``torch.matmul(H, Omega)`` and its bound, and the run is
                   repeated once under torch.profiler for its device time
@@ -193,16 +203,19 @@ def time_ms(fn, reps: int = 5, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, calls: int = 20):
+def device_ms(fn, kernel: str, calls: int = 20, before=None):
     """Device time of one launch of the CUDA kernel whose name contains
     ``kernel``, from a torch.profiler trace of ``calls`` calls of ``fn``
     (a host-bound wrapper's CUDA-event time is its host overhead, not its
-    kernel's time); None when the trace holds no such kernel."""
+    kernel's time), each after ``before()`` if given; None when the trace
+    holds no such kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
+            if before is not None:
+                before()
             fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.key_averages() if kernel in e.key]
@@ -215,6 +228,109 @@ def device_ms(fn, kernel: str, calls: int = 20):
 def bound_ms(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# The SASS of gen_omega_kernel (K8), read with cuobjdump from the built
+# library, gives its bound by integer work.  Each instruction of one normal
+# entry's path through the kernel's grid-stride loop (the loop with the most
+# IMAD.WIDE: three Philox calls; the 64-bit e / cols takes its 32-bit path
+# while rows x cols < 2**32, so the slow path that CALLs the 64-bit division
+# is left out) goes to a pipe of an H100 SM, in lanes per clock per SM: the
+# integer ALU 64 (LOP3, IADD3, LEA, SHF, ISETP, MOV, I2FP, ...), the FMA
+# pipe's heavy half 64 (IMAD*, IMUL, and VIADD, taken as an IMAD.IADD),
+# both FMA halves 128 (with FMUL/FADD/FFMA), the XU 16 (MUFU, I2F, F2I),
+# the LSU 32 (STG), and issue 128 (one warp instruction a clock in each of
+# 4 schedulers).  Each pipe at its full rate, all overlapped: an entry
+# takes max(count / rate) clocks of one SM's lane, and the kernel at least
+# entries x that / (132 SMs x the SM clock under load).
+SASS_LINE = re.compile(r"^\s*/\*([0-9a-f]+)\*/\s*(@!?U?P[T0-9]+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+PIPE_RATES = {"alu": 64, "fma_heavy": 64, "fma": 128, "xu": 16, "lsu": 32,
+              "issue": 128}
+H100_SMS = 132
+
+
+def sass_pipe(op: str) -> str:
+    if op.startswith(("IMAD", "IMUL", "VIADD")):
+        return "fma_heavy"
+    if op.startswith(("FMUL", "FADD", "FFMA", "HFMA2", "HADD2", "HMUL2")):
+        return "fp32"
+    if op.startswith(("MUFU", "I2F.", "F2I", "F2F.", "POPC", "FLO", "BREV")):
+        return "xu"
+    if op.startswith(("STG", "LDG", "LDS", "STS", "ATOM", "RED")):
+        return "lsu"
+    if op.startswith(("BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET", "NOP",
+                      "BAR", "U")):
+        return "other"
+    return "alu"
+
+
+def omega_entry_sass(lib_path) -> dict:
+    """Instructions of one normal entry of gen_omega_kernel, by pipe, from
+    ``cuobjdump -sass`` of the built library."""
+    from repro_torch.kernels import _build
+    cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
+    return count_entry_sass(subprocess.run(
+        [str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+        text=True, timeout=600, check=True).stdout)
+
+
+def count_entry_sass(text: str) -> dict:
+    fn = re.search(r"Function : \S*gen_omega_kernel\S*\n(.*?)"
+                   r"(?=\n\s*Function :|\Z)", text, re.S)
+    check(fn is not None, "gen_omega_kernel not found in the SASS")
+    ins = [(int(x.group(1), 16), x.group(2) or "", x.group(3), x.group(4))
+           for x in map(SASS_LINE.match, fn.group(1).splitlines()) if x]
+
+    def target(ops):
+        t = re.search(r"0x([0-9a-f]+)", ops)
+        return int(t.group(1), 16) if t else None
+    loops = [(target(o), a) for a, _, op, o in ins
+             if op == "BRA" and target(o) is not None and target(o) < a]
+    check(bool(loops), "gen_omega_kernel has no loop in its SASS")
+    lo, hi = max(loops, key=lambda lh: sum(
+        op.startswith("IMAD.WIDE") for a, _, op, _ in ins
+        if lh[0] <= a <= lh[1]))
+    body = [x for x in ins if lo <= x[0] <= hi]
+    skip = set()
+    for a, pred, op, o in body:
+        t = target(o)
+        if op == "BRA" and pred and t is not None and a < t <= hi:
+            region = [x for x in body if a < x[0] < t]
+            if any(x[2].startswith("CALL") for x in region):
+                skip |= {x[0] for x in region}
+    path = [x[2] for x in body if x[0] not in skip]
+    count = {pipe: 0 for pipe in ("alu", "fma_heavy", "fp32", "xu", "lsu",
+                                  "other")}
+    for op in path:
+        count[sass_pipe(op)] += 1
+    count["issue"] = len(path)
+    count["fma"] = count["fma_heavy"] + count["fp32"]
+    count["imad_wide"] = sum(op.startswith("IMAD.WIDE") for op in path)
+    return count
+
+
+def sm_clock_mhz(fn, ms: float, seconds: float = 2.0) -> float:
+    """The SM clock (nvidia-smi clocks.sm, median of 3 reads) while the card
+    runs about ``seconds`` of back-to-back calls of ``fn`` (``ms`` each)."""
+    for _ in range(max(1, int(seconds / (ms * 1e-3)))):
+        fn()
+    reads = []
+    for _ in range(3):
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60,
+                             check=True)
+        reads.append(float(out.stdout.strip().splitlines()[0]))
+    torch.cuda.synchronize()
+    return statistics.median(reads)
+
+
+def omega_ops_bound_ms(count: dict, entries: int, mhz: float):
+    """(bound ms, clocks an entry takes of one SM lane, binding pipe)."""
+    pipe = max(PIPE_RATES, key=lambda p: count[p] / PIPE_RATES[p])
+    clocks = count[pipe] / PIPE_RATES[pipe]
+    return entries * clocks / (H100_SMS * mhz * 1e6) * 1e3, clocks, pipe
 
 
 def card_line() -> str:
@@ -371,20 +487,26 @@ def parts_text(parts: dict) -> str:
                      for part, t in parts.items())
 
 
-def phase_fold(dev, fold_rows_block, plain_fold, LAUNCHES):
+def phase_fold(dev, fold_rows_block, plain_fold, LAUNCHES, capacity):
     """Phase 6: the fold kernel against its plain version, bitwise."""
     g = torch.Generator(device=dev).manual_seed(6)
     worst = 0.0
-    cases = [  # (lanes, m, k, c, y dtype, d dtype, masked)
-        (1, S_N1, S_KMAX, S_R, torch.float32, torch.float32, True),
-        (64, S_N1, S_KMAX, S_R, torch.float32, torch.float32, True),
-        (64, S_N1, S_KMAX, S_R, torch.bfloat16, torch.float32, True),
-        (64, 2000, 77, 45, torch.bfloat16, torch.bfloat16, True),
-        (1, 2000, 77, 45, torch.float32, torch.bfloat16, False),
-        (64, 2000, 77, 45, torch.float32, torch.float32, False),
-        (64, 1000, 200, 100, torch.bfloat16, torch.float32, False),
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (lanes, m, k, c, y dtype, d dtype, masked, odd lane)
+        (1, S_N1, S_KMAX, S_R, f32, f32, True, False),
+        (64, S_N1, S_KMAX, S_R, f32, f32, True, False),
+        (64, S_N1, S_KMAX, S_R, bf16, f32, True, False),
+        (64, 2000, 77, 45, bf16, bf16, True, False),
+        (1, 2000, 77, 45, f32, bf16, False, False),
+        (64, 2000, 77, 45, f32, f32, False, False),
+        (64, 1000, 200, 100, bf16, f32, False, False),
+        # more lanes than one launch's parameter block holds
+        (2 * capacity + 3, 1000, 77, S_R, f32, f32, True, False),
+        (capacity + 1, 300, 40, 100, bf16, f32, False, False),
+        # lane 5 a view at an odd element: the one-element path
+        (64, S_N1, S_KMAX, S_R, f32, f32, True, True),
     ]
-    for lanes, m, k, c, ydt, ddt, masked in cases:
+    for lanes, m, k, c, ydt, ddt, masked, odd in cases:
         y = torch.randn(lanes, m, c, generator=g, device=dev).to(ydt)
         y[:, ::3] = -0.0                          # resident -0.0 rows
         d = torch.randn(lanes, k, c, generator=g, device=dev).to(ddt)
@@ -401,16 +523,26 @@ def phase_fold(dev, fold_rows_block, plain_fold, LAUNCHES):
                 d[i, nv:] = float("nan")          # never read
         want = plain_fold(y, d, starts, nvalid)
         ys = [y[i].clone() for i in range(lanes)]
+        if odd:
+            buf = torch.empty(m * c + 1, dtype=ydt, device=dev)
+            ys[5] = buf[1:].view(m, c)
+            ys[5].copy_(y[5])
+        # one launch per `capacity` lanes that holds a row to change
+        launches = sum(1 for a in range(0, lanes, capacity)
+                       if nvalid is None or max(nvalid[a:a + capacity]) > 0)
         before = LAUNCHES["fold_rows"]
         fold_rows_block(ys, d, starts, nvalid)
         torch.cuda.synchronize()
         got = torch.stack(ys)
         same = torch.equal(_bits(got), _bits(want))
-        print(f"[fold] lanes={lanes:2d} y=({m}x{c}) {str(ydt):14s} "
-              f"d=({k}x{c}) {str(ddt):14s} masked={masked!s:5s}: "
+        print(f"[fold] lanes={lanes:3d} y=({m}x{c}) {str(ydt):14s} "
+              f"d=({k}x{c}) {str(ddt):14s} masked={masked!s:5s}"
+              + (" (lane 5 at an odd element)" if odd else "")
+              + f": {LAUNCHES['fold_rows'] - before} launch(es), "
               f"bitwise={same}")
-        check(LAUNCHES["fold_rows"] == before + 1,
-              "fold_rows_block did not launch the kernel exactly once")
+        check(LAUNCHES["fold_rows"] == before + launches,
+              f"fold_rows_block launched {LAUNCHES['fold_rows'] - before} "
+              f"times for {launches} lane groups")
         check(same, "fold_rows differs from its plain version")
         worst = max(worst, max_abs(got, want))
     return worst
@@ -480,9 +612,14 @@ def phase_serving(serve, reset_launches, LAUNCHES):
     return counts, st
 
 
-def fold_timing(dev, fold_rows_block, plain_fold):
+def fold_timing(dev, fold_rows_block, plain_fold, sm):
     """fold_rows at one bucket of the serving phase: 64 lanes, kb = 256,
-    heights uniform in (128, 256] (the pow2 bucket of 256)."""
+    heights uniform in (128, 256] (the pow2 bucket of 256): the wrapper
+    call (CUDA events; host-bound), the kernel's device time, the host
+    time of the wrapper's stages (``time.perf_counter_ns``, median of 200
+    calls), its plain version, the library call (one
+    ``torch._foreach_add_`` over the live windows, building the view lists
+    included) and the per-lane ``narrow().add_()`` loop."""
     rng = np.random.default_rng(8)
     lanes, kb = 64, S_KMAX
     ks = rng.integers(kb // 2 + 1, kb + 1, lanes).tolist()
@@ -493,16 +630,42 @@ def fold_timing(dev, fold_rows_block, plain_fold):
     ms = time_ms(lambda: fold_rows_block(ys, d, starts, ks), inner=50)
     kernel = device_ms(lambda: fold_rows_block(ys, d, starts, ks),
                        "fold_rows_kernel")
+    # the same with a 256 MiB read before each call: y and d come from
+    # device memory (back to back, the bucket's 14 MB stay in the L2)
+    flush = torch.empty(64 * 2 ** 20, device=dev)
+    cold = device_ms(lambda: fold_rows_block(ys, d, starts, ks),
+                     "fold_rows_kernel", before=flush.sum)
+    del flush
+    stages = {"check": [], "pack": [], "launch": []}
+    for _ in range(200):
+        t0 = time.perf_counter_ns()
+        lanes = sm._fold_check(ys, d, starts, ks)
+        t1 = time.perf_counter_ns()
+        plan, calls = sm._fold_pack(ys[0].dtype, d, *lanes)
+        t2 = time.perf_counter_ns()
+        sm._fold_launch(d, calls)
+        t3 = time.perf_counter_ns()
+        torch.cuda.synchronize()
+        for name, t in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
+            stages[name].append(t)
+    split = {name: statistics.median(t) / 1e3 for name, t in stages.items()}
     ystack = torch.stack(ys)
     plain = time_ms(lambda: plain_fold(ystack, d, starts, ks), reps=3)
     del ystack
 
     def library():
+        torch._foreach_add_([y.narrow(0, r0, k)
+                             for y, r0, k in zip(ys, row0s, ks)],
+                            [di[:k] for di, k in zip(d, ks)])
+
+    def loop():
         for y, r0, k, di in zip(ys, row0s, ks, d):
             y.narrow(0, r0, k).add_(di[:k])
     lib = time_ms(library, inner=10)
+    loop_ms = time_ms(loop, inner=10)
     nbytes = 3.0 * 4 * S_R * sum(ks)        # read y + d windows, write y
-    return ms, kernel, plain, lib, bound_ms(0.0, nbytes)
+    return (ms, (kernel, cold), plain, lib, bound_ms(0.0, nbytes), split,
+            plan, loop_ms)
 
 
 def device_busy_us(dev_events, w0, w1) -> float:
@@ -931,6 +1094,8 @@ def main() -> int:
         print(f"chip_smoke: the repro_torch package is missing ({e})",
               file=sys.stderr)
         return 1
+    # the launcher module (the package's `sketch_matmul` is the ops function)
+    sm = sys.modules["repro_torch.kernels.sketch_matmul"]
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1033,11 +1198,29 @@ def main() -> int:
     gen_plain = time_ms(lambda: _omega_tile_torch(k0, k1, 0, 0, N, L,
                                                   "normal", 1, None, None,
                                                   dev))
+    # its bound by integer work: the SASS count of one normal entry, the SM
+    # clock under this load
+    sass = omega_entry_sass(_build.build())
+    mhz = sm_clock_mhz(lambda: gen_omega_cuda(k0, k1, 0, 0, N, L, "normal",
+                                              1, device=dev), gen_ms)
+    gen_ops, gen_clocks, gen_pipe = omega_ops_bound_ms(sass, N * L, mhz)
+    gen_bytes = bound_ms(0.0, 4.0 * N * L)[0]
+    gen_bound = ((gen_ops, "operations") if gen_ops >= gen_bytes
+                 else (gen_bytes, "bytes"))
+    print(f"[k8] gen_omega_kernel SASS, one normal entry: "
+          f"{sass['issue']} instructions ({sass['alu']} integer ALU, "
+          f"{sass['fma_heavy']} IMAD/VIADD of which {sass['imad_wide']} "
+          f"IMAD.WIDE, {sass['fp32']} FP32, {sass['xu']} XU, {sass['lsu']} "
+          f"LSU, {sass['other']} branch/barrier); SM clock under load "
+          f"{mhz:.0f} MHz; {gen_clocks:.4f} clocks an entry of an SM lane "
+          f"({gen_pipe} binds) x {N * L} entries / {H100_SMS} SMs: bound "
+          f"{gen_ops:.4f} ms by operations (bytes {gen_bytes:.4f} ms); "
+          f"measured {gen_ms:.4f} ms, {gen_ops / gen_ms:.3f} of the bound")
     rows.append(("gen_omega",
                  "src/repro/kernels/sketch_matmul.py:161 gen_omega_pallas "
                  "(K8; generator K1: kernels/local.py:173 _om_block)",
                  counts["gen_omega"], gen_err, gen_ms, gen_plain,
-                 bound_ms(0.0, 4.0 * N * L), None))
+                 gen_bound, None))
     # sketch_fwd at nystrom_fused's shape: A (N, N) -> B (N, r)
     om = _omega_tile_torch(k0, k1, 0, 0, N, R, "normal", 0, None, None, dev)
     fwd_ms = time_ms(lambda: local.sketch_block(A, SEED, R))
@@ -1099,25 +1282,30 @@ def main() -> int:
 
     # -- 6. fold, 7. lanes vs solo, 8. serving -------------------------------
     fold_err = phase_fold(dev, local.fold_rows_block, local._fold_rows_torch,
-                          LAUNCHES)
+                          LAUNCHES, sm.FOLD_LANE_CAPACITY)
     phase_lanes(dev, SketchService, StreamConfig)
     serve_counts, serve_st = phase_serving(serve, reset_launches, LAUNCHES)
-    f_ms, f_kernel, f_plain, f_lib, (f_bound, f_by) = fold_timing(
-        dev, local.fold_rows_block, local._fold_rows_torch)
+    (f_ms, f_kernel, f_plain, f_lib, (f_bound, f_by), f_split, f_plan,
+     f_loop) = fold_timing(dev, local.fold_rows_block,
+                           local._fold_rows_torch, sm)
     rows.append(("fold_rows",
                  "src/repro/kernels/local.py:503 _fold_rows_pallas (K4; "
                  "vmapped over lanes by src/repro/stream/state.py:336 "
                  "local_rowblock_ragged_prog)",
                  serve_counts["fold_rows"], fold_err, f_ms, f_plain,
                  (f_bound, f_by), f_lib))
-    print(f"[timing] fold_rows library call: the per-lane "
-          f"Y.narrow(0, row0, k).add_(dY[:k]) loop, 64 lanes")
-    print(f"[timing] fold_rows at one bucket (64 lanes, kb={S_KMAX}): the "
-          f"wrapper {f_ms:.4f} ms a call (host-bound: lane checks and the "
-          f"metadata copy), the kernel itself "
-          + ("not measured (no profiler trace)" if f_kernel is None
-             else f"{f_kernel:.4f} ms on the device (torch.profiler)")
-          + f", bound {f_bound:.4f} ms")
+    print(f"[timing] fold_rows library call: one torch._foreach_add_ over "
+          f"the 64 live windows (view lists built in the call) "
+          f"{f_lib:.4f} ms; diagnosis: the per-lane "
+          f"Y.narrow(0, row0, k).add_(dY[:k]) loop {f_loop:.4f} ms")
+    print(f"[timing] fold_rows at one bucket (64 lanes, kb={S_KMAX}; plan "
+          f"{f_plan}): the wrapper {f_ms:.4f} ms a call (host-bound), the "
+          f"kernel itself "
+          + ("not measured (no profiler trace)" if None in f_kernel
+             else f"{f_kernel[0]:.4f} ms on the device (torch.profiler; "
+                  f"{f_kernel[1]:.4f} ms with the L2 flushed by a read)")
+          + f", bound {f_bound:.4f} ms; the wrapper's host stages "
+          + ", ".join(f"{k} {us:.1f} us" for k, us in f_split.items()))
     diag, lane_fwd = serving_diagnosis(dev, local, _omega_tile_torch)
     for (name, k), ms in diag.items():
         print(f"[diagnosis] serving shape: {name} one lane of k={k} "
@@ -1173,8 +1361,19 @@ def main() -> int:
             "replaces": rep, "launches": n, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib, "card": card})
+        if name == "gen_omega":
+            # bound_ms: the larger of the byte bound and the operation
+            # bound from the SASS count of one normal entry
+            kernels[-1].update(sass_per_entry=sass, sm_clock_mhz=mhz,
+                               ops_bound_ms=gen_ops,
+                               bytes_bound_ms=gen_bytes)
         if name == "fold_rows":
-            kernels[-1]["kernel_ms"] = f_kernel
+            # ms is the wrapper call (host-bound); the kernel's device
+            # time, the wrapper's host stages and the plan beside it
+            kernels[-1].update(kernel_ms=f_kernel[0],
+                               kernel_cold_ms=f_kernel[1],
+                               host_split_us=f_split,
+                               plan=f_plan, per_lane_loop_ms=f_loop)
         if name == "gemm":
             # ms, plain_ms, library_ms and bound_ms sum calls (a), (b) into
             # f32 and (c) of one embed-leaf exchange (the training path's

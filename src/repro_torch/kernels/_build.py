@@ -38,7 +38,7 @@ SIGNATURES = {
     "rt_gen_omega": (_VP, _INT, _INT) + _OMEGA,
     "rt_sketch_fwd": (_VP,) * 5 + (_INT,) * 6 + _OMEGA,
     "rt_sketch_t": (_VP,) * 5 + (_INT,) * 6 + _OMEGA,
-    "rt_fold_rows": (_VP, _VP, _VP, _VP) + (_INT,) * 7 + (_VP,),
+    "rt_fold_rows": (_VP, _VP),
     "rt_gemm": (_VP,) * 5 + (_INT,) * 3 + (_LL, _LL, _INT, _INT, _F32, _INT,
                                           _VP),
 }

@@ -204,8 +204,9 @@ def _fold_rows_torch(y: torch.Tensor, d: torch.Tensor, start,
 
 
 def _per_lane(v, n: int) -> list:
-    vals = ([int(v)] * n if isinstance(v, int) or getattr(v, "ndim", 1) == 0
-            else [int(x) for x in v])
+    scalar = isinstance(v, int) or (not isinstance(v, (list, tuple))
+                                    and getattr(v, "ndim", 1) == 0)
+    vals = [int(v)] * n if scalar else list(map(int, v))
     if len(vals) != n:
         raise ValueError(f"need one value per lane ({n}), got {len(vals)}")
     return vals
@@ -224,9 +225,9 @@ def fold_rows_block(y: Union[torch.Tensor, Sequence[torch.Tensor]],
     change; every other row keeps its exact bits (not even +0.0 is added,
     so a resident -0.0 survives and NaN pad rows of ``d`` are never
     read).  Without it every row is rewritten as ``y + win``.  When ``d``
-    is on the card all lanes go through ONE launch of the K4 kernel; when
-    it is on the CPU each lane runs :func:`_fold_rows_torch`.  Returns
-    ``y``.
+    is on the card all lanes go through ONE launch of the K4 kernel (one
+    per ``FOLD_LANE_CAPACITY`` = 240 lanes); when it is on the CPU each
+    lane runs :func:`_fold_rows_torch`.  Returns ``y``.
     """
     lanes = [y] if isinstance(y, torch.Tensor) else list(y)
     if isinstance(y, torch.Tensor):

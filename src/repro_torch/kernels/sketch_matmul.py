@@ -18,7 +18,8 @@ dense GEMM of ``csrc/gemm_kernels.cu``:
                           call into a scratch, K split where the output
                           tiles do not fill the card;
   * ``fold_rows_cuda``  — ``y_i + [0; d_i; 0][start_i : start_i + m]``
-                          for many lanes in one launch, masked to
+                          for up to 240 lanes in one launch, their
+                          metadata in its parameter block, masked to
                           ``nvalid_i`` rows (K4, the reference's
                           ``_fold_rows_pallas`` vmapped over lanes);
   * ``gemm_cuda``       — ``acc? + (A · B)·alpha`` with both operands in
@@ -36,9 +37,11 @@ refused, and adds one to ``LAUNCHES[name]`` once the launch is accepted
 """
 from __future__ import annotations
 
+import functools
+import operator
+import struct
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
 from . import _build
@@ -341,68 +344,153 @@ def sketch_t_cuda(B: torch.Tensor, key0: int, key1: int, cols: int,
     return out
 
 
-def fold_rows_cuda(ys: Sequence[torch.Tensor], d: torch.Tensor,
-                   start: Sequence[int],
-                   nvalid: Optional[Sequence[int]] = None) -> None:
-    """``ys[i] <- ys[i] + [0_m; d[i]; 0_m][start[i] : start[i] + m]`` for
-    every lane i, in place, in ONE launch.
+# K4's launch (``rt_fold_rows`` of csrc/fold_kernels.cu) carries its lanes'
+# y pointers, starts and nvalids in the kernel's parameter block, at most
+# FOLD_LANE_CAPACITY lanes (its kLaneCap; 16 bytes a lane inside the 4 KB
+# block); a bucket of more lanes is several launches.  A block covers
+# FOLD_BLOCK_SLOTS vector slots a pass (kThreads x kUnroll), whole rows of
+# one lane; a slot is FOLD_VEC columns when every base is 16-byte aligned
+# and c % FOLD_VEC == 0, else one.
+FOLD_LANE_CAPACITY = 240
+FOLD_BLOCK_SLOTS = 1024
+FOLD_VEC = 4
 
-    ``ys``: the lanes' y, each a contiguous (m, c) float32/bfloat16
-    tensor, all of one shape and dtype on one card (separate allocations:
-    nothing is stacked).  ``d``: a contiguous (lanes, k, c)
-    float32/bfloat16 tensor.  ``start`` and ``nvalid`` are host integers,
-    one per lane; with ``nvalid`` the fold is masked (rows not fed by the
-    first ``nvalid[i]`` rows of ``d[i]`` keep their exact bits).  They
-    travel to the card with the lane pointers in one host-to-device copy
-    from pinned memory; nothing is read back.  The sum is taken in f32 and
-    rounded once to y's dtype.
-    """
+
+def fold_rows_plan(lanes: int, m: int, k: int, c: int, y_dtype, d_dtype,
+                   aligned: bool) -> dict:
+    """What one ``fold_rows`` call of ``lanes`` (m, c) y's and a (lanes, k,
+    c) d launches: the vector width ``vec`` (FOLD_VEC columns an access
+    when ``aligned`` — every y base and d's base a multiple of 16 bytes —
+    and c % FOLD_VEC == 0, else 1), the ``rows`` a block covers and the
+    number of ``launches`` (FOLD_LANE_CAPACITY lanes each).  Raises
+    ValueError for a dtype the kernel does not take and for sizes past
+    int32 (or more than 65535 lanes)."""
+    if y_dtype not in KERNEL_DTYPES or d_dtype not in KERNEL_DTYPES:
+        raise ValueError(f"fold_rows: y and d must be float32 or bfloat16, "
+                         f"got {y_dtype} and {d_dtype}")
+    if max(m, k, c, lanes) > _INT_MAX or lanes > 65535:
+        raise ValueError("fold_rows: sizes or offsets exceed int32 (or more "
+                         "than 65535 lanes)")
+    vec = FOLD_VEC if aligned and c % FOLD_VEC == 0 else 1
+    return {"vec": vec, "rows": max(1, FOLD_BLOCK_SLOTS // -(-c // vec)),
+            "launches": -(-lanes // FOLD_LANE_CAPACITY)}
+
+
+_T = torch.Tensor
+_SHAPE, _DTYPE = operator.attrgetter("shape"), operator.attrgetter("dtype")
+
+
+def _fold_check(ys: Sequence[torch.Tensor], d: torch.Tensor, start,
+                nvalid) -> Optional[tuple]:
+    """fold_rows_cuda's checks, each a C-level pass over the lanes: (m, k,
+    c, y pointers, starts, nvalids or None), or None when there is nothing
+    to launch.  Raises ValueError for what the kernel does not take."""
     name = "fold_rows"
     n = len(ys)
-    if d.dim() != 3 or d.shape[0] != n:
+    dshape = d.shape
+    if len(dshape) != 3 or dshape[0] != n:
         raise ValueError(f"{name}: d must be (lanes={n}, k, c), got "
-                         f"{tuple(d.shape)}")
-    _, k, c = d.shape
+                         f"{tuple(dshape)}")
+    _, k, c = dshape
     if not d.is_cuda or d.dtype not in KERNEL_DTYPES or not d.is_contiguous():
         raise ValueError(f"{name}: d must be a contiguous float32/bfloat16 "
                          f"CUDA tensor, got {d.dtype} on {d.device}")
     if n == 0:
-        return
+        return None
     m = ys[0].shape[0]
-    for y in ys:
-        _check_like(y, (m, c), ys[0].dtype, d.device, "every y", name)
-    if ys[0].dtype not in KERNEL_DTYPES:
-        raise ValueError(f"{name}: y must be float32 or bfloat16, got "
-                         f"{ys[0].dtype}")
-    starts = [int(s) for s in start]
-    nvalids = None if nvalid is None else [int(v) for v in nvalid]
+    shape, dt, dev = (m, c), ys[0].dtype, d.get_device()
+    count = operator.countOf
+    if (count(map(_SHAPE, ys), shape) != n or count(map(_DTYPE, ys), dt) != n
+            or not all(map(_T.is_contiguous, ys))
+            or count(map(_T.get_device, ys), dev) != n):
+        for y in ys:                      # raises at the first bad lane
+            _check_like(y, shape, dt, d.device, "every y", name)
+    if dt not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: y must be float32 or bfloat16, got {dt}")
+    starts = list(map(int, start))
+    nvalids = None if nvalid is None else list(map(int, nvalid))
     if len(starts) != n or (nvalids is not None and len(nvalids) != n):
         raise ValueError(f"{name}: need {n} start/nvalid entries")
-    if max(m, k, c, n) > _INT_MAX or n > 65535 or any(
-            not -2 ** 31 <= v <= _INT_MAX for v in starts + (nvalids or [])):
+    words = (starts,) if nvalids is None else (starts, nvalids)
+    if (max(m, k, c, n) > _INT_MAX or n > 65535
+            or min(map(min, words)) < -2 ** 31
+            or max(map(max, words)) > _INT_MAX):
         raise ValueError(f"{name}: sizes or offsets exceed int32 (or more "
                          f"than 65535 lanes)")
-    span = m if nvalids is None else max(nvalids)
-    if span <= 0:
-        return
-    # one pinned buffer: n lane pointers (int64), then 2n int32 words
-    meta = np.zeros(2 * n, np.int64)
-    meta[:n] = [y.data_ptr() for y in ys]
-    words = meta[n:].view(np.int32)
-    words[:n] = starts
-    if nvalids is not None:
-        words[n:] = nvalids
-    meta_d = torch.from_numpy(meta).pin_memory().to(d.device,
-                                                    non_blocking=True)
-    base = meta_d.data_ptr()
+    if nvalids is not None and max(nvalids) <= 0:
+        return None
+    return m, k, c, list(map(_T.data_ptr, ys)), starts, nvalids
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_call_struct(n: int) -> struct.Struct:
+    """``rt_fold_rows``'s call record for n lanes: its FoldCall header
+    (d's address; n, m, k, c, span, masked, vec, rows, y_bf16, d_bf16),
+    then n uint64 y pointers, n int32 starts and n int32 nvalids."""
+    return struct.Struct(f"<Q10i{n}Q{2 * n}i")
+
+
+def _fold_pack(y_dtype, d: torch.Tensor, m: int, k: int, c: int, ptrs,
+               starts, nvalids) -> tuple:
+    """The plan and one packed call record (host bytes) for each launch of
+    at most FOLD_LANE_CAPACITY lanes, d's address advanced by whole lanes;
+    a launch whose lanes change no row is left out."""
+    n, d_ptr = len(ptrs), d.data_ptr()
+    aligned = not (functools.reduce(operator.or_, ptrs, d_ptr) & 15)
+    plan = fold_rows_plan(n, m, k, c, y_dtype, d.dtype, aligned)
+    masked = nvalids is not None
+    flags = (int(masked), plan["vec"], plan["rows"],
+             int(y_dtype == torch.bfloat16), int(d.dtype == torch.bfloat16))
+    cap, lane_bytes = FOLD_LANE_CAPACITY, k * c * d.element_size()
+    nvs = nvalids if masked else [0] * n
+    calls = []
+    for a in range(0, n, cap):
+        nv = nvs[a:a + cap]
+        span = min(m, max(nv)) if masked else m
+        if span > 0:
+            calls.append(_fold_call_struct(len(nv)).pack(
+                d_ptr + a * lane_bytes, len(nv), m, k, c, span, *flags,
+                *ptrs[a:a + cap], *starts[a:a + cap], *nv))
+    return plan, calls
+
+
+def _fold_launch(d: torch.Tensor, calls) -> None:
+    """One ``rt_fold_rows`` call (one launch, counted) per call record, on
+    the current stream of d's card."""
+    idx = d.get_device()
+    if torch.cuda.current_device() != idx:
+        with torch.cuda.device(idx):
+            return _fold_launch(d, calls)
     lib = _build.library()
-    with torch.cuda.device(d.device):
-        rc = lib.rt_fold_rows(
-            base, d.data_ptr(), base + 8 * n,
-            None if nvalids is None else base + 12 * n, n, m, k, c, span,
-            int(ys[0].dtype == torch.bfloat16),
-            int(d.dtype == torch.bfloat16), _stream(d.device))
-    _launched(rc, name)
+    stream = torch._C._cuda_getCurrentRawStream(idx)   # current_stream's
+    for call in calls:
+        _launched(lib.rt_fold_rows(call, stream), "fold_rows")
+
+
+def fold_rows_cuda(ys: Sequence[torch.Tensor], d: torch.Tensor,
+                   start: Sequence[int],
+                   nvalid: Optional[Sequence[int]] = None) -> None:
+    """``ys[i] <- ys[i] + [0_m; d[i]; 0_m][start[i] : start[i] + m]`` for
+    every lane i, in place: ONE launch for up to FOLD_LANE_CAPACITY lanes.
+
+    ``ys``: the lanes' y, each a contiguous (m, c) float32/bfloat16
+    tensor, all of one shape and dtype on one card (separate allocations:
+    nothing is stacked; any start, the pointers are read at every call).
+    ``d``: a contiguous (lanes, k, c) float32/bfloat16 tensor.  ``start``
+    and ``nvalid`` are host integers, one per lane; with ``nvalid`` the
+    fold is masked (rows not fed by the first ``nvalid[i]`` rows of
+    ``d[i]`` keep their exact bits).  They reach the kernel with the lane
+    pointers through the launch's parameter block (no device metadata, no
+    host-to-device copy); nothing is read back.  The sum is taken in f32
+    and rounded once to y's dtype.  A bucket of more lanes runs as
+    :func:`fold_rows_plan`'s launches on the current stream, each counted
+    in ``LAUNCHES["fold_rows"]``.
+    """
+    lanes = _fold_check(ys, d, start, nvalid)
+    if lanes is None:
+        return
+    _, calls = _fold_pack(ys[0].dtype, d, *lanes)
+    _fold_launch(d, calls)
 
 
 # The path of a K5 call is chosen by its shape (``gemm_plan``), and

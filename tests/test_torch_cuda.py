@@ -37,7 +37,10 @@ from repro_torch.kernels import (LAUNCHES, fold_rows_block, gemm_block,
 from repro_torch.kernels.local import (_fold_rows_torch, _gemm_block_torch,
                                        _sketch_block_torch,
                                        _sketch_t_block_torch)
-from repro_torch.kernels.sketch_matmul import sketch_fwd_plan, sketch_t_splits
+from repro_torch.kernels.sketch_matmul import (
+    FOLD_LANE_CAPACITY, KernelLaunchError, _fold_call_struct, _fold_check,
+    _fold_launch, _fold_pack, fold_rows_cuda, fold_rows_plan, sketch_fwd_plan,
+    sketch_t_splits)
 from repro_torch.stream import SketchService, StreamConfig, StreamingSketch
 
 pytestmark = pytest.mark.cuda
@@ -138,6 +141,178 @@ def test_fold_rows_kernel_bitwise_vs_plain(dev, ydt, ddt, masked, lanes):
     torch.cuda.synchronize()
     assert LAUNCHES["fold_rows"] == 1
     assert torch.equal(_bits(torch.stack(ys)), _bits(want))
+
+
+def _fold_case(dev, lanes, m, k, c, ydt, ddt, masked, seed):
+    """(y stack, d, starts, nvalid) with resident -0.0 rows, starts outside
+    [0, m + k] and NaN in d's dead rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn(lanes, m, c, generator=g, device=dev).to(ydt)
+    y[:, ::3] = -0.0
+    d = torch.randn(lanes, k, c, generator=g, device=dev).to(ddt)
+    gen = np.random.default_rng(seed)
+    starts = gen.integers(-k, m + 2 * k, lanes).tolist()
+    starts[0] = m + k + 50
+    nvalid = None
+    if masked:
+        nvalid = gen.integers(0, k + 1, lanes).tolist()
+        nvalid[-1] = k
+        for i, nv in enumerate(nvalid):
+            d[i, nv:] = float("nan")
+    return y, d, starts, nvalid
+
+
+def _fold_path(ys, d, m, k, c, starts, nvalid):
+    """The vector width the wrapper picks for this call."""
+    ptrs = [y.data_ptr() for y in ys]
+    plan, _ = _fold_pack(ys[0].dtype, d, m, k, c, ptrs, starts, nvalid)
+    return plan["vec"]
+
+
+# (c, lane offset): c = 128 (the service's r) and 100 (c % 4 == 0, a bf16
+# row 200 bytes) take the vector path; c = 45 and a lane that is a view at
+# an odd element take the one-element path
+FOLD_PATHS = [(128, None, 4), (100, None, 4), (45, None, 1), (128, 1, 1),
+              (100, 3, 1)]
+
+
+@pytest.mark.parametrize("c,offset,vec", FOLD_PATHS)
+@pytest.mark.parametrize("ydt,ddt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fold_rows_vector_and_scalar_paths_bitwise(dev, c, offset, vec, ydt,
+                                                   ddt, masked):
+    lanes, m, k = 7, 300, 40
+    y, d, starts, nvalid = _fold_case(dev, lanes, m, k, c, ydt, ddt, masked,
+                                      c + (offset or 0))
+    want = _fold_rows_torch(y, d, starts, nvalid)
+    ys = [y[i].clone() for i in range(lanes)]
+    if offset is not None:                       # lane 2: a view at offset
+        buf = torch.full((offset + m * c + 5,), 7.0, dtype=ydt, device=dev)
+        ys[2] = buf[offset:offset + m * c].view(m, c)
+        ys[2].copy_(y[2])
+    assert _fold_path(ys, d, m, k, c, starts, nvalid) == vec
+    reset_launches()
+    fold_rows_block(ys, d, starts, nvalid)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fold_rows"] == 1
+    assert torch.equal(_bits(torch.stack(ys)), _bits(want))
+    if offset is not None:                       # nothing around it moved
+        assert (buf[:offset] == 7).all() and (buf[offset + m * c:] == 7).all()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("lanes", [FOLD_LANE_CAPACITY + 1,
+                                   2 * FOLD_LANE_CAPACITY + 3])
+def test_fold_rows_lanes_above_capacity_bitwise(dev, masked, lanes):
+    """A bucket of more lanes than one parameter block holds runs as the
+    plan's launches, bitwise."""
+    m, k, c = 64, 16, 128
+    y, d, starts, nvalid = _fold_case(dev, lanes, m, k, c, torch.float32,
+                                      torch.float32, masked, lanes)
+    if masked:                 # every launch has a live row
+        for a in range(0, lanes, FOLD_LANE_CAPACITY):
+            i = min(a + 1, lanes - 1)
+            starts[i], nvalid[i] = m - 3, k
+    want = _fold_rows_torch(y, d, starts, nvalid)
+    ys = [y[i].clone() for i in range(lanes)]
+    plan = fold_rows_plan(lanes, m, k, c, torch.float32, torch.float32, True)
+    assert plan["launches"] == -(-lanes // FOLD_LANE_CAPACITY) > 1
+    reset_launches()
+    fold_rows_block(ys, d, starts, nvalid)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fold_rows"] == plan["launches"]
+    assert torch.equal(_bits(torch.stack(ys)), _bits(want))
+
+
+def _fold_rejects(dev):
+    """(name, ys, d, start, nvalid, message) the launcher must refuse."""
+    m, k, c, f32 = 20, 4, 8, torch.float32
+    ys = [torch.zeros(m, c, device=dev) for _ in range(3)]
+    d = torch.zeros(3, k, c, device=dev)
+    st, nv = [20, 21, 22], [4, 4, 4]
+    wide = torch.zeros(m, 2 * c, device=dev)
+    return [
+        ("d_not_3d", ys, d[0], st, nv, r"d must be \(lanes=3"),
+        ("d_lanes", ys, d[:2], st, nv, r"d must be \(lanes=3"),
+        ("d_on_cpu", ys, d.cpu(), st, nv, "CUDA tensor"),
+        ("d_float64", ys, d.double(), st, nv, "CUDA tensor"),
+        ("d_strided", ys, torch.zeros(3, k, 2 * c, device=dev)[..., ::2],
+         st, nv, "CUDA tensor"),
+        ("y_shape", [ys[0], ys[1], torch.zeros(m + 1, c, device=dev)], d,
+         st, nv, "every y must be"),
+        ("y_dtype_mixed", [ys[0], ys[1].bfloat16(), ys[2]], d, st, nv,
+         "every y must be"),
+        ("y_strided", [ys[0], wide[:, ::2], ys[2]], d, st, nv,
+         "every y must be"),
+        ("y_on_cpu", [ys[0], ys[1].cpu(), ys[2]], d, st, nv,
+         "every y must be"),
+        ("y_float64", [y.double() for y in ys], d, st, nv,
+         "y must be float32 or bfloat16"),
+        ("start_count", ys, d, st[:2], nv, "need 3 start/nvalid"),
+        ("nvalid_count", ys, d, st, nv + [1], "need 3 start/nvalid"),
+        ("start_int32", ys, d, [20, 2 ** 31, 22], nv, "exceed int32"),
+        ("nvalid_int32", ys, d, st, [4, -2 ** 31 - 1, 4], "exceed int32"),
+        ("lanes_65536", [ys[0]] * 65536,
+         torch.zeros(65536, 1, c, dtype=f32, device=dev), [0] * 65536,
+         None, "more than 65535 lanes"),
+    ]
+
+
+@pytest.mark.parametrize("case", range(15))
+def test_fold_rows_rejects_what_the_kernel_does_not_take(dev, case):
+    """Every input the launcher refused before its redesign is refused with
+    the same message, before anything launches or is written."""
+    name, ys, d, start, nvalid, msg = _fold_rejects(dev)[case]
+    before = [y.clone() for y in ys[:3]]
+    reset_launches()
+    with pytest.raises(ValueError, match=msg):
+        fold_rows_cuda(ys, d, start, nvalid)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fold_rows"] == 0, name
+    assert all(torch.equal(a, b) for a, b in zip(before, ys[:3])), name
+
+
+def test_fold_rows_refused_launch_raises(dev):
+    """rt_fold_rows refuses a vector launch for a lane off its access
+    boundary: the wrapper raises KernelLaunchError and counts nothing."""
+    m, k, c = 16, 4, 8
+    buf = torch.zeros(m * c + 1, device=dev)
+    ys = [torch.zeros(m, c, device=dev), buf[1:].view(m, c)]
+    d = torch.zeros(2, k, c, device=dev)
+    lanes = _fold_check(ys, d, [m, m], [k, k])
+    plan, _ = _fold_pack(torch.float32, d, *lanes)
+    assert plan["vec"] == 1
+    _, _, _, ptrs, starts, nvalids = lanes
+    forged = _fold_call_struct(2).pack(d.data_ptr(), 2, m, k, c, k, 1, 4,
+                                       plan["rows"], 0, 0, *ptrs, *starts,
+                                       *nvalids)
+    reset_launches()
+    with pytest.raises(KernelLaunchError):
+        _fold_launch(d, [forged])
+    assert LAUNCHES["fold_rows"] == 0
+
+
+def test_fold_rows_moves_no_metadata(dev):
+    """The lanes reach the kernel through its parameter block: a call puts
+    the fold kernel on the card and no copy, and allocates nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    lanes, m, k, c = 64, 512, 64, 128
+    y, d, starts, nvalid = _fold_case(dev, lanes, m, k, c, torch.float32,
+                                      torch.float32, True, 5)
+    ys = [y[i].clone() for i in range(lanes)]
+    fold_rows_block(ys, d, starts, nvalid)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fold_rows_block(ys, d, starts, nvalid)
+        torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) == allocated
+    names = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+    assert any("fold_rows_kernel" in n for n in names), names
+    assert not any("memcpy" in n.lower() for n in names), names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

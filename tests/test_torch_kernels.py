@@ -29,10 +29,12 @@ from repro.kernels import ref as jref
 from repro_torch.core import rng, sketch
 from repro_torch.kernels import local, ops, ref
 from repro_torch.kernels.sketch_matmul import (
-    GEMM_PATHS, GEMM_THIN_K, SKETCH_FWD_MAX_SPLITS, SKETCH_FWD_MIN_K_SPLIT,
-    SKETCH_FWD_NARROW_N, SKETCH_FWD_TILE, SKETCH_T_MAX_SPLITS,
+    FOLD_BLOCK_SLOTS, FOLD_LANE_CAPACITY, FOLD_VEC, GEMM_PATHS, GEMM_THIN_K,
+    SKETCH_FWD_MAX_SPLITS, SKETCH_FWD_MIN_K_SPLIT, SKETCH_FWD_NARROW_N,
+    SKETCH_FWD_TILE, SKETCH_T_MAX_SPLITS,
     SKETCH_T_MIN_K_SPLIT, SKETCH_T_SMS, SKETCH_T_TARGET_BLOCKS,
-    SKETCH_T_TILE, gemm_cuda, gemm_plan, sketch_fwd_cuda, sketch_fwd_narrow,
+    SKETCH_T_TILE, _fold_call_struct, _fold_pack, fold_rows_cuda,
+    fold_rows_plan, gemm_cuda, gemm_plan, sketch_fwd_cuda, sketch_fwd_narrow,
     sketch_fwd_plan, sketch_fwd_scratch_bytes, sketch_fwd_splits,
     sketch_t_cuda, sketch_t_scratch_bytes, sketch_t_splits)
 
@@ -351,6 +353,131 @@ def test_gemm_on_the_cpu_takes_the_plain_path(monkeypatch):
                        local._gemm_block_torch(P.T, M))
     with pytest.raises(ValueError, match="must be a 2-D float32 CUDA"):
         gemm_cuda(P, Qt)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("ydt,ddt", [(F32, F32), (BF16, F32), (BF16, BF16),
+                                     (F32, BF16)])
+@pytest.mark.parametrize("c", [128, 20, 8, 4, 4100])
+def test_fold_rows_plan_vector_path_when_aligned(ydt, ddt, c):
+    """Aligned lanes with c % 4 == 0 take the 4-column vector path (16
+    bytes a thread in f32, 8 in bf16) for every dtype pair; a block covers
+    whole rows, FOLD_BLOCK_SLOTS vector slots a pass (one row at least).
+    The service's bucket (c = r = 128) takes 32 rows a block."""
+    assert FOLD_VEC == 4 and FOLD_BLOCK_SLOTS == 1024
+    plan = fold_rows_plan(64, 16384, 256, c, ydt, ddt, aligned=True)
+    assert plan == {"vec": 4, "rows": max(1, 1024 // (c // 4)),
+                    "launches": 1}
+    if c == 128:
+        assert plan["rows"] == 32
+
+
+@pytest.mark.parametrize("ydt,ddt", [(F32, F32), (BF16, F32), (BF16, BF16)])
+@pytest.mark.parametrize("c,aligned", [(45, True), (45, False), (128, False),
+                                       (2, True), (1030, True)])
+def test_fold_rows_plan_scalar_path(ydt, ddt, c, aligned):
+    """c = 45 (or any c % 4 != 0), or a lane off a 16-byte boundary (a view
+    at an odd element), takes the one-element path."""
+    plan = fold_rows_plan(9, 2000, 77, c, ydt, ddt, aligned=aligned)
+    assert plan == {"vec": 1, "rows": max(1, 1024 // c), "launches": 1}
+
+
+@pytest.mark.parametrize("lanes,launches", [
+    (1, 1), (64, 1), (FOLD_LANE_CAPACITY, 1), (FOLD_LANE_CAPACITY + 1, 2),
+    (500, 3), (3 * FOLD_LANE_CAPACITY, 3), (65535, 274)])
+def test_fold_rows_plan_launches(lanes, launches):
+    """ceil(lanes / capacity) launches: the service's window of 64 lanes
+    is one; the capacity fits the lanes (16 bytes each) in the 4 KB
+    parameter block."""
+    assert FOLD_LANE_CAPACITY * 16 <= 4096 - 64
+    plan = fold_rows_plan(lanes, 16384, 256, 128, F32, F32, aligned=True)
+    assert plan["launches"] == launches == -(-lanes // FOLD_LANE_CAPACITY)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(y_dtype=torch.float64), dict(d_dtype=torch.float16),
+    dict(lanes=65536), dict(m=2 ** 31), dict(c=2 ** 31)])
+def test_fold_rows_plan_refuses(bad):
+    args = dict(lanes=4, m=100, k=10, c=128, y_dtype=F32, d_dtype=F32,
+                aligned=True)
+    args.update(bad)
+    with pytest.raises(ValueError, match="fold_rows"):
+        fold_rows_plan(**args)
+
+
+def test_fold_rows_pack_reads_alignment_from_the_pointers():
+    """The host decides the vector path from the pointer values of this
+    call: a lane that is a view at an odd element (or a d at one) puts the
+    whole call on the one-element path.  A call record is rt_fold_rows's
+    FoldCall header (d's address; n, m, k, c, span, masked, vec, rows,
+    y_bf16, d_bf16), then n uint64 pointers, n int32 starts and n int32
+    nvalids, one record per FOLD_LANE_CAPACITY lanes with d's address
+    advanced by whole lanes; a launch whose lanes change no row is left
+    out."""
+    m, k, c = 6, 3, 8
+    ys = [torch.zeros(m, c) for _ in range(3)]
+    d = torch.zeros(3, k, c)
+    ptrs = [y.data_ptr() for y in ys]
+    plan, calls = _fold_pack(F32, d, m, k, c, ptrs, [1, 2, 3], [3, 0, 2])
+    assert plan["vec"] == 4 and len(calls) == 1
+    assert _fold_call_struct(3).unpack(calls[0]) == (
+        d.data_ptr(), 3, m, k, c, 3, 1, 4, plan["rows"], 0, 0, *ptrs,
+        1, 2, 3, 3, 0, 2)
+    assert _fold_call_struct(3).size == 48 + 16 * 3
+    plan, calls = _fold_pack(BF16, d.bfloat16(), m, k, c, ptrs, [1, 2, 3],
+                             None)
+    head = _fold_call_struct(3).unpack(calls[0])[:11]
+    assert head[5:] == (m, 0, 4, plan["rows"], 1, 1)
+    buf = torch.zeros(m * c + 1)
+    odd = buf[1:].view(m, c)                      # 4 bytes off a boundary
+    plan, _ = _fold_pack(F32, d, m, k, c, [ptrs[0], odd.data_ptr(), ptrs[2]],
+                         [1, 2, 3], None)
+    assert plan["vec"] == 1
+    dbuf = torch.zeros(3 * k * c + 1)
+    plan, _ = _fold_pack(F32, dbuf[1:].view(3, k, c), m, k, c, ptrs,
+                         [1, 2, 3], None)
+    assert plan["vec"] == 1
+    n = FOLD_LANE_CAPACITY + 5
+    big = torch.zeros(n, k, c)
+    nv = [0] * FOLD_LANE_CAPACITY + [1] * 5
+    plan, calls = _fold_pack(F32, big, m, k, c, [ptrs[0]] * n,
+                             list(range(n)), nv)
+    assert plan["launches"] == 2 and len(calls) == 1   # the first: no row
+    rec = _fold_call_struct(5).unpack(calls[0])
+    assert rec[:6] == (big.data_ptr() + FOLD_LANE_CAPACITY * k * c * 4, 5,
+                       m, k, c, 1)
+    assert rec[11 + 5:11 + 10] == tuple(range(FOLD_LANE_CAPACITY, n))
+    plan, calls = _fold_pack(F32, big, m, k, c, [ptrs[0]] * n,
+                             list(range(n)), None)
+    heads = [_fold_call_struct(len(call) // 16 - 3).unpack(call)[:6]
+             for call in calls]
+    assert [h[1] for h in heads] == [FOLD_LANE_CAPACITY, 5]
+    assert [h[5] for h in heads] == [m, m]
+
+
+def test_fold_rows_on_the_cpu_takes_the_plain_path(monkeypatch):
+    """A CPU d never reaches fold_rows_cuda or its plan; the launcher
+    refuses one before reading any lane."""
+    def refuse(*a, **k):
+        raise AssertionError("the CPU path reached the CUDA launcher")
+    monkeypatch.setattr(local, "fold_rows_cuda", refuse)
+    mod = sys.modules["repro_torch.kernels.sketch_matmul"]
+    for name in ("fold_rows_plan", "_fold_pack", "_fold_launch"):
+        monkeypatch.setattr(mod, name, refuse)
+    gen = np.random.default_rng(10)
+    y = torch.from_numpy(gen.standard_normal((3, 9, 8)).astype(np.float32))
+    d = torch.from_numpy(gen.standard_normal((3, 4, 8)).astype(np.float32))
+    want = local._fold_rows_torch(y, d, [9, 7, 12], [4, 2, 3])
+    ys = [y[i].clone() for i in range(3)]
+    assert local.fold_rows_block(ys, d, [9, 7, 12], [4, 2, 3]) is not None
+    assert torch.equal(torch.stack(ys), want)
+    with pytest.raises(ValueError, match="must be a contiguous float32/"
+                                         "bfloat16 CUDA tensor"):
+        fold_rows_cuda(ys, d, [9, 7, 12], [4, 2, 3])
+    with pytest.raises(ValueError, match=r"d must be \(lanes=2"):
+        fold_rows_cuda(ys[:2], d, [9, 7], [4, 2])
 
 
 @pytest.mark.parametrize("kind", ["normal", "uniform", "rademacher"])
