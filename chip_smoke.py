@@ -105,11 +105,36 @@ n = 2304 is its largest leaf, ``embed``; r = 8):
                   step under torch.profiler for the device time by kernel
                   and the card's idle share of the step.
 
+then Alg. 1 (paper §4.2), with the card freed by the main process first:
+
+ 12. alg1       — four ranks spawned on cuda:0 over gloo (NCCL refuses two
+                  ranks on one card; gloo takes the CUDA tensors and stages
+                  them through host memory itself), each holding phases
+                  1-5's A (checked equal across ranks by the sum of its
+                  bits); r = 512, Omega seed 7: ``rand_matmul_auto`` (the
+                  §4.3 grid at P = 4 is (4,1,1), regime 1), ``rand_matmul``
+                  on (4,1,1), (2,2,1), (1,2,2) and (1,1,4), and
+                  ``rand_matmul_communicating`` on (2,2,1).  Each rank
+                  holds its B block to the same rows and columns of the
+                  one-device B (``sketch_block`` on the card): bitwise
+                  where p2 = p3 = 1, within f32_tol(n2/p2) otherwise; its
+                  words received to ``alg1_bandwidth_words`` (to
+                  ``alg1_communicating_cost`` for the baseline, which must
+                  receive more); each run launches sketch_fwd once (the
+                  baseline gen_omega once and sketch_fwd never), counts
+                  reset just before it.  Then each rank times sketch_fwd at
+                  its local shapes (K = n2/p2, cols = r/p3) and gen_omega
+                  at its Omega rows, four ranks sharing the card, beside
+                  their plain versions, ``torch.matmul`` and their bounds,
+                  and prints each call's wall time (gloo through host
+                  memory, not an interconnect time) and its peak memory.
+
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and the exit code is non-zero; without a CUDA card it exits 1 and prints no
 result.
 """
+import gc
 import json
 import math
 import pathlib
@@ -137,6 +162,11 @@ T_M, T_N, T_R = 256000, 2304, 8
 T_BATCH, T_SEQ, T_STEPS, T_PLAN_WORKERS = 4, 1024, 6, 8
 # the serving configuration of phases 6-8
 S_N1, S_N2, S_R, S_KMAX = 16384, 8192, 128, 256
+# phase 12: Alg. 1 on four ranks of one card, at phase 1-5's A
+ALG1_WORLD = 4
+ALG1_GRIDS = [(4, 1, 1), (2, 2, 1), (1, 2, 2), (1, 1, 4)]   # auto: the first
+ALG1_COMM_GRID = (2, 2, 1)
+ALG1_TIMEOUT_S = 600
 SERVE_ARGS = ["--workload", "sketch", "--streams", "128", "--updates", "4",
               "--n1", str(S_N1), "--n2", str(S_N2), "--r", str(S_R),
               "--max-rows", str(S_KMAX), "--window", "64", "--depth", "256"]
@@ -1075,6 +1105,255 @@ def profile_step(step, state, batch):
               f"{key[:100]}")
 
 
+# -- phase 12: Alg. 1 on four ranks of one card -------------------------------
+
+def alg1_rank(rank, world, store, queue, sass, mhz):
+    """Phase 12, one rank (a spawned process): its result or its error goes
+    to ``queue``."""
+    import traceback
+    try:
+        queue.put((rank, _alg1_rank(rank, world, store, sass, mhz), None))
+    except BaseException:  # noqa: BLE001 — reported to the parent, which fails
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def _alg1_rank(rank, world, store, sass, mhz):
+    import datetime
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.grid import alg1_bandwidth_words
+    from repro_torch.core.sketch import _omega_tile_torch
+    from repro_torch.kernels import local
+    from repro_torch.kernels.sketch_matmul import (LAUNCHES, gen_omega_cuda,
+                                                   reset_launches)
+    from repro_torch.parallel import collectives as col
+    from repro_torch.plan.model import alg1_communicating_cost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=ALG1_TIMEOUT_S))
+    lines = []
+
+    def say(msg):
+        lines.append(f"[alg1] rank {rank}: {msg}")
+
+    try:
+        A = make_matrix(dev)
+        # every rank must hold the same A: the sums of its bits agree
+        bits = torch.tensor([int(A.view(torch.int32).sum(
+            dtype=torch.int64))])
+        every = [torch.zeros_like(bits) for _ in range(world)]
+        dist.all_gather(every, bits)
+        check(all(torch.equal(b, bits) for b in every),
+              f"rank {rank}: the ranks' A differ")
+        # the check: the one-device port's B (sketch_fwd on the card)
+        B_one = local.sketch_block(A, SEED, R)
+        torch.cuda.synchronize()
+        groups = {grid: sk.make_grid_groups(*grid) for grid in ALG1_GRIDS}
+        runs, launches = {}, {"sketch_fwd": 0, "gen_omega": 0}
+
+        def drive(name, grid, fn, comm_words, compare_grid=None):
+            g = groups[grid]
+            dist.barrier()
+            reset_launches()
+            col.reset_comm()
+            t0 = time.perf_counter()
+            blk = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: LAUNCHES[k] for k in launches}
+            words = col.comm_words()
+            for k in launches:
+                launches[k] += counts[k]
+            ref = sk.output_block(B_one, g)
+            p1, p2, p3 = grid
+            check(tuple(blk.shape) == tuple(ref.shape)
+                  and bool(torch.isfinite(blk).all()),
+                  f"rank {rank}: {name}: block {tuple(blk.shape)}")
+            err = rel_fro(blk, ref)
+            if p2 == 1 and p3 == 1:
+                check(torch.equal(blk, ref),
+                      f"rank {rank}: {name}: block not bitwise the "
+                      f"one-device B (rel_fro {err:.3e})")
+                held = "bitwise"
+            else:
+                tol = f32_tol(N // p2)
+                check(err <= tol, f"rank {rank}: {name}: rel_fro {err:.3e} "
+                                  f"> {tol:.1e}")
+                held = f"rel_fro {err:.3e} <= f32_tol(n2/p2) {tol:.1e}"
+            check(words == comm_words,
+                  f"rank {rank}: {name}: {words} words received, the "
+                  f"formula says {comm_words}")
+            say(f"{name} on {grid}: block {tuple(blk.shape)} {held}; words "
+                f"received {words} == {comm_words:.0f}; launches {counts}; "
+                f"wall {wall:.4f} s")
+            runs[name] = {"grid": list(grid), "words": words,
+                          "formula_words": comm_words, "rel_fro": err,
+                          "bitwise": held == "bitwise", "wall_s": wall,
+                          "launches": counts}
+            return counts, words
+
+        counts, _ = drive(
+            "auto", ALG1_GRIDS[0],
+            lambda: _auto_checked(sk.rand_matmul_auto(A, SEED, R)),
+            alg1_bandwidth_words(N, N, R, *ALG1_GRIDS[0]))
+        check(counts["sketch_fwd"] == 1, f"rank {rank}: auto launched "
+                                         f"sketch_fwd {counts['sketch_fwd']}")
+        for grid in ALG1_GRIDS:
+            blk_in = sk.input_block(A, groups[grid])
+            counts, _ = drive(
+                str(grid), grid,
+                lambda: sk.rand_matmul(blk_in, SEED, R, groups[grid]),
+                alg1_bandwidth_words(N, N, R, *grid))
+            check(counts["sketch_fwd"] == 1 and counts["gen_omega"] == 0,
+                  f"rank {rank}: {grid} launched {counts}")
+            del blk_in
+        blk_in = sk.input_block(A, groups[ALG1_COMM_GRID])
+        counts, words = drive(
+            "communicating", ALG1_COMM_GRID,
+            lambda: sk.rand_matmul_communicating(blk_in, SEED, R,
+                                                 groups[ALG1_COMM_GRID]),
+            alg1_communicating_cost(N, N, R, ALG1_COMM_GRID).words)
+        check(counts["gen_omega"] == 1 and counts["sketch_fwd"] == 0,
+              f"rank {rank}: communicating launched {counts}")
+        check(words > runs[str(ALG1_COMM_GRID)]["words"],
+              f"rank {rank}: communicating moved no more words than Alg. 1")
+        del blk_in
+        torch.cuda.empty_cache()
+
+        # the local kernels at this rank's shapes, four ranks sharing the
+        # card: sketch_fwd on its gathered panel, gen_omega on its Omega rows
+        calls = {"sketch_fwd": {}, "gen_omega": {}}
+        for grid in ALG1_GRIDS:
+            p1, p2, p3 = grid
+            i, j, k = groups[grid].coords
+            m, K, cols = N // p1, N // p2, R // p3
+            row0, col0 = j * K, k * cols
+            key = f"{m}x{K}->{cols} at ({row0},{col0})"
+            a_ij = A[i * m:(i + 1) * m, row0:row0 + K].contiguous()
+            om = _omega_tile_torch(SEED, 0, row0, col0, K, cols, "normal", 0,
+                                   None, None, dev)
+            got = local.sketch_block(a_ij, SEED, cols, row0=row0, col0=col0)
+            plain = local._sketch_block_torch(a_ij, SEED, cols, row0=row0,
+                                              col0=col0)
+            err, abs_err = rel_fro(got, plain), max_abs(got, plain)
+            check(err <= f32_tol(K), f"rank {rank}: sketch_fwd {key}: "
+                                     f"rel_fro {err:.3e} vs plain")
+            ms = time_ms(lambda: local.sketch_block(a_ij, SEED, cols,
+                                                    row0=row0, col0=col0))
+            plain_ms = time_ms(lambda: local._sketch_block_torch(
+                a_ij, SEED, cols, row0=row0, col0=col0), reps=3)
+            lib_ms = time_ms(lambda: torch.matmul(a_ij, om))
+            bms, by = bound_ms(2.0 * m * K * cols, 4.0 * (m * K + m * cols))
+            calls["sketch_fwd"][key] = {
+                "grids": calls["sketch_fwd"].get(key, {}).get("grids", [])
+                + [list(grid)], "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                "max_abs_err": abs_err, "rel_fro": err}
+            del a_ij, om, got, plain
+        own = N // math.prod(ALG1_COMM_GRID)
+        row0 = rank * own
+        key = f"{own}x{R} at row {row0}"
+        got = gen_omega_cuda(SEED, 0, row0, 0, own, R, "normal", 0,
+                             device=dev)
+        plain = _omega_tile_torch(SEED, 0, row0, 0, own, R, "normal", 0,
+                                  None, None, dev)
+        check(torch.equal(got, plain), f"rank {rank}: gen_omega {key} not "
+                                       f"bitwise its plain version")
+        ops_ms = omega_ops_bound_ms(sass, own * R, mhz)[0]
+        bytes_ms = bound_ms(0.0, 4.0 * own * R)[0]
+        calls["gen_omega"][key] = {
+            "ms": time_ms(lambda: gen_omega_cuda(SEED, 0, row0, 0, own, R,
+                                                 "normal", 0, device=dev)),
+            "plain_ms": time_ms(lambda: _omega_tile_torch(
+                SEED, 0, row0, 0, own, R, "normal", 0, None, None, dev),
+                reps=3),
+            "library_ms": None, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "max_abs_err": 0.0}
+        for name, by_shape in calls.items():
+            for key, c in by_shape.items():
+                lib = c["library_ms"]
+                say(f"local kernel {name} {key} (four ranks share one "
+                    f"card): {c['ms']:.3f} ms (plain {c['plain_ms']:.3f}, "
+                    f"library {'none' if lib is None else f'{lib:.3f}'}, "
+                    f"bound {c['bound_ms']:.3f} ms by {c['bound_by']}), "
+                    f"max_abs_err {c['max_abs_err']:.3e}")
+        say("wall time per call (gloo through host memory, not an "
+            "interconnect time): " + ", ".join(
+                f"{n} {r['wall_s']:.4f} s" for n, r in runs.items()))
+        peak = torch.cuda.max_memory_allocated()
+        say(f"peak memory {peak / 2 ** 30:.2f} GiB "
+            f"(torch.cuda.max_memory_allocated)")
+        dist.barrier()
+        return {"lines": lines, "runs": runs, "launches": launches,
+                "calls": calls, "peak_gib": peak / 2 ** 30}
+    finally:
+        dist.destroy_process_group()
+
+
+def _auto_checked(res):
+    B_blk, gm, _ = res
+    check(gm.shape == ALG1_GRIDS[0] and gm.regime == 1,
+          f"rand_matmul_auto chose {gm.shape} (regime {gm.regime}), not "
+          f"{ALG1_GRIDS[0]} (regime 1)")
+    return B_blk
+
+
+def phase_alg1(sass, mhz):
+    """Phase 12: Alg. 1 on ALG1_WORLD ranks of one card over gloo (one
+    H100 here; NCCL refuses two ranks on one card), each rank a spawned
+    process holding phase 1-5's A.  Any rank's failure fails the phase."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_alg1_")
+    store = str(pathlib.Path(tmp) / "store")
+    print(f"[alg1] {ALG1_WORLD} ranks on cuda:0 over gloo (the collectives "
+          f"take CUDA tensors; gloo stages them through host memory "
+          f"itself): A {N}x{N} f32, r = {R}, grids auto "
+          f"{ALG1_GRIDS}, communicating {ALG1_COMM_GRID}")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=alg1_rank,
+                         args=(r, ALG1_WORLD, store, queue, sass, mhz))
+             for r in range(ALG1_WORLD)]
+    for p in procs:
+        p.start()
+    results = [None] * ALG1_WORLD
+    try:
+        for _ in range(ALG1_WORLD):
+            rank, res, err = queue.get(timeout=ALG1_TIMEOUT_S)
+            check(err is None, f"phase 12, rank {rank} failed:\n{err}")
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(all(p.exitcode == 0 for p in procs),
+          f"phase 12 ranks exited {[p.exitcode for p in procs]}")
+    print(f"[alg1] spawned, ran and joined in {time.perf_counter() - t0:.1f} "
+          f"s")
+    for res in results:
+        for line in res["lines"]:
+            print(line)
+    for name in ("sketch_fwd", "gen_omega"):
+        n = [res["launches"][name] for res in results]
+        check(all(x > 0 for x in n), f"{name} not launched on every rank: "
+                                     f"{n}")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1343,6 +1622,17 @@ def main() -> int:
     print(f"[phases] 11 done at {time.perf_counter() - t_start:.1f} s")
     check(train_counts["gemm"] > 0 and train_counts["sketch_fwd"] > 0,
           "gemm or sketch_fwd never launched on the training path")
+
+    # -- 12. Alg. 1 on four ranks of one card ---------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[phases] before the spawn this process holds "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved of the "
+          f"card")
+    alg1 = phase_alg1(sass, mhz)
+    print(f"[phases] 12 done at {time.perf_counter() - t_start:.1f} s")
+
     total = [sum(gemm_times[c][i] for c in "abc") for i in range(3)]
     bound3 = sum(gemm_times[c][3][0] for c in "abc")
     rows.append(("gemm",
@@ -1384,6 +1674,13 @@ def main() -> int:
                 c: {"ms": t[0], "plain_ms": t[1], "library_ms": t[2],
                     "bound_ms": t[3][0], "bound_by": t[3][1], **t[4]}
                 for c, t in gemm_times.items() if c != "sketch_fwd"}
+        if name in ("sketch_fwd", "gen_omega"):
+            # phase 12: each rank's launches over its Alg. 1 runs (counts
+            # reset just before each run), and its local calls timed with
+            # four ranks sharing the card
+            kernels[-1]["alg1"] = {
+                "launches": [res["launches"][name] for res in alg1],
+                "calls": [res["calls"][name] for res in alg1]}
         if name in ("sketch_t", "sketch_fwd"):
             # ms, plain_ms, library_ms and bound_ms are those of sketch_t's
             # W update and of sketch_fwd's one-shot; each of the main

@@ -1,13 +1,25 @@
-"""Core: Omega draws at global coordinates and the one-device oracles."""
-from . import kinds, rng, sketch, nystrom  # noqa: F401
+"""Core: Omega draws at global coordinates, the one-device oracles, the
+communication bounds and grids, and Alg. 1 on torch.distributed."""
+from . import kinds, rng, sketch, nystrom, lower_bounds, grid  # noqa: F401
 
 from .kinds import (  # noqa: F401
     DENSE_KINDS, SPARSE_KINDS, VALID_KINDS, validate_kind,
 )
 from .sketch import (  # noqa: F401
-    omega_tile, resolve_device, seed_keys, sketch_reference,
-    sketch_sparse_apply, sparse_omega_map, sparse_omega_rows,
+    GridGroups, gather_output, input_block, make_grid_groups, omega_tile,
+    output_block, rand_matmul, rand_matmul_auto, rand_matmul_communicating,
+    resolve_device, seed_keys, sketch_reference, sketch_sparse_apply,
+    sparse_omega_map, sparse_omega_rows,
 )
 from .nystrom import (  # noqa: F401
     nystrom_reference, reconstruct, relative_error,
+)
+from .lower_bounds import (  # noqa: F401
+    gemm_lower_bound, matmul_lower_bound, matmul_regime, nystrom_lower_bound,
+    nystrom_regime,
+)
+from .grid import (  # noqa: F401
+    MatmulGrid, NystromGrids, alg1_bandwidth_words, alg1_latency_hops,
+    alg2_bandwidth_words, factorizations_3d, select_matmul_grid,
+    select_nystrom_grids,
 )

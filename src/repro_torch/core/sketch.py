@@ -1,4 +1,5 @@
-"""Omega draws at global coordinates, and the one-device sketch oracles.
+"""Omega draws at global coordinates, the one-device sketch oracles, and
+Alg. 1 (the sketch on a (p1, p2, p3) grid of torch.distributed ranks).
 
 Entry values depend only on (seed, salt, global coordinate), never on the
 tiling, so any shard regenerates exactly the block it consumes.  On the
@@ -8,7 +9,9 @@ card the dense kinds are drawn by the gen-Omega CUDA kernel
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import math
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +22,10 @@ from .rng import resolve_device
 
 __all__ = ["DENSE_KINDS", "SPARSE_KINDS", "VALID_KINDS", "validate_kind",
            "resolve_device", "seed_keys", "omega_tile", "sparse_omega_map",
-           "sparse_omega_rows", "sketch_sparse_apply", "sketch_reference"]
+           "sparse_omega_rows", "sketch_sparse_apply", "sketch_reference",
+           "GridGroups", "make_grid_groups", "input_block", "output_block",
+           "gather_output", "rand_matmul", "rand_matmul_auto",
+           "rand_matmul_communicating"]
 
 
 def seed_keys(seed):
@@ -154,3 +160,250 @@ def sketch_reference(A: torch.Tensor, seed, r: int, kind: str = "normal",
         om = om * torch.tensor(scale, dtype=A.dtype, device=A.device)
     return A @ om
 
+
+# ---------------------------------------------------------------------------
+# The processor grid on torch.distributed
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GridGroups:
+    """This rank's place on a (p1, p2, p3) grid and its fiber groups.
+
+    Grid rank ``(i·p2 + j)·p3 + k`` is process rank ``(i·p2 + j)·p3 + k``
+    (the reference's ``np.reshape(devices[:P], (p1, p2, p3))``).
+    ``coords`` is None on a rank past the grid, which holds no block.
+    ``p2_group`` joins the ranks that differ only in j (None when
+    p2 == 1), ``p3_group`` those that differ only in k (None when
+    p3 == 1), ``grid_group`` the grid's P ranks (None when it is the whole
+    world: the default group)."""
+    shape: Tuple[int, int, int]
+    rank: int
+    coords: Optional[Tuple[int, int, int]]
+    p2_group: Any = None
+    p3_group: Any = None
+    grid_group: Any = None
+
+    @property
+    def size(self) -> int:
+        return self.shape[0] * self.shape[1] * self.shape[2]
+
+
+_GRID_GROUPS: dict = {}
+
+
+def make_grid_groups(p1: int, p2: int, p3: int) -> GridGroups:
+    """This rank's :class:`GridGroups` of a (p1, p2, p3) grid over the
+    first p1·p2·p3 ranks of the default process group (the counterpart of
+    ``make_grid_mesh``).
+
+    Every rank of the world must call it with the same shapes in the same
+    order: ``torch.distributed.new_group`` is collective over the world,
+    and every rank creates every fiber's group, in (i, k) order for the
+    p2 fibers, then (i, j) order for the p3 fibers.  The result is cached
+    per shape for the life of the default group."""
+    import torch.distributed as dist
+    shape = (int(p1), int(p2), int(p3))
+    world = dist.group.WORLD
+    cached = _GRID_GROUPS.get(shape)
+    if cached is not None and cached[0] is world:
+        return cached[1]
+    P, nworld, rank = math.prod(shape), dist.get_world_size(), dist.get_rank()
+    if P > nworld:
+        raise ValueError(f"grid {p1}x{p2}x{p3} needs {P} devices, have "
+                         f"{nworld}")
+
+    def flat(i, j, k):
+        return (i * p2 + j) * p3 + k
+
+    mine = {}
+    fibers = ([("p2", [flat(i, j, k) for j in range(p2)])
+               for i in range(p1) for k in range(p3)] if p2 > 1 else [])
+    fibers += ([("p3", [flat(i, j, k) for k in range(p3)])
+                for i in range(p1) for j in range(p2)] if p3 > 1 else [])
+    for axis, ranks in fibers:
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine[axis] = group
+    grid = dist.new_group(list(range(P))) if P < nworld else None
+    coords = None
+    if rank < P:
+        coords = (rank // (p2 * p3), rank // p3 % p2, rank % p3)
+    g = GridGroups(shape, rank, coords, mine.get("p2"), mine.get("p3"),
+                   grid if rank < P else None)
+    _GRID_GROUPS[shape] = (world, g)
+    return g
+
+
+def _not_divisible(n1: int, n2: int, r: int, shape) -> ValueError:
+    p1, p2, p3 = shape
+    return ValueError(f"shape ({n1},{n2},r={r}) not divisible by grid "
+                      f"({p1},{p2},{p3})")
+
+
+def input_block(A: torch.Tensor, g: GridGroups) -> Optional[torch.Tensor]:
+    """This rank's block of A in Alg. 1's input layout P(p1, (p2, p3)):
+    rows ``i·n1/p1``, columns ``(j·p3 + k)·n2/(p2·p3)``, contiguous (None
+    past the grid)."""
+    p1, p2, p3 = g.shape
+    n1, n2 = A.shape
+    if n1 % p1 or n2 % (p2 * p3):
+        raise ValueError(f"A of shape ({n1},{n2}) not divisible by grid "
+                         f"({p1},{p2},{p3})")
+    if g.coords is None:
+        return None
+    i, j, k = g.coords
+    rows, cols = n1 // p1, n2 // (p2 * p3)
+    c0 = (j * p3 + k) * cols
+    return A[i * rows:(i + 1) * rows, c0:c0 + cols].contiguous()
+
+
+def output_block(B: torch.Tensor, g: GridGroups) -> Optional[torch.Tensor]:
+    """This rank's block of B in Alg. 1's output layout P((p1, p2), p3):
+    rows ``(i·p2 + j)·n1/(p1·p2)``, columns ``k·r/p3`` (a view; None past
+    the grid)."""
+    p1, p2, p3 = g.shape
+    n1, r = B.shape
+    if n1 % (p1 * p2) or r % p3:
+        raise ValueError(f"B of shape ({n1},{r}) not divisible by grid "
+                         f"({p1},{p2},{p3})")
+    if g.coords is None:
+        return None
+    i, j, k = g.coords
+    rows, cols = n1 // (p1 * p2), r // p3
+    r0 = (i * p2 + j) * rows
+    return B[r0:r0 + rows, k * cols:(k + 1) * cols]
+
+
+def gather_output(B_blk: Optional[torch.Tensor],
+                  g: GridGroups) -> Optional[torch.Tensor]:
+    """The full B from every grid rank's output block (for tests and
+    checks; its words are not counted).  None past the grid."""
+    if g.coords is None:
+        return None
+    from repro_torch.parallel.collectives import gather_blocks
+    p1, p2, p3 = g.shape
+    rows, cols = B_blk.shape
+    blocks = gather_blocks(B_blk, g.grid_group, g.size)
+    return (blocks.view(p1 * p2, p3, rows, cols).permute(0, 2, 1, 3)
+            .reshape(p1 * p2 * rows, p3 * cols))
+
+
+# ---------------------------------------------------------------------------
+# Algorithm 1
+# ---------------------------------------------------------------------------
+
+def _dense_only(kind: str) -> None:
+    validate_kind(kind)
+    if kind in SPARSE_KINDS:
+        raise NotImplementedError(
+            f"kind {kind!r}: distributed sparse bodies are not ported "
+            f"(ROADMAP.md Queue 1, item 6) — use sketch_sparse_apply, or a "
+            f"dense kind here")
+
+
+def rand_matmul(A_blk: Optional[torch.Tensor], seed, r: int, g: GridGroups,
+                kind: str = "normal", scale: Optional[float] = None,
+                salt: int = 0) -> Optional[torch.Tensor]:
+    """B = A @ Omega on the grid ``g`` (paper Alg. 1), from this rank's
+    block ``A_blk = input_block(A, g)``; returns this rank's block of B,
+    ``output_block(B, g)`` (None past the grid).
+
+    One tiled all-gather of A over the p3 fiber (none when p3 == 1), the
+    local ``sketch_block`` over Omega's (n2/p2 x r/p3) block drawn at its
+    global offsets (on the card the ``sketch_fwd`` kernel; no Omega word
+    moves), one tiled reduce-scatter of B over the p2 fiber (none when
+    p2 == 1): ``(1-1/p3)·n1n2/(p1p2) + (1-1/p2)·n1r/(p1p3)`` words
+    received, ``parallel.collectives.COMM``.  Runs where ``A_blk`` lies."""
+    _dense_only(kind)
+    if g.coords is None:
+        return None
+    from repro_torch.kernels.local import sketch_block
+    from repro_torch.parallel.collectives import all_gather, reduce_scatter
+    p1, p2, p3 = g.shape
+    rows, cols = A_blk.shape
+    n1, n2 = rows * p1, cols * p2 * p3
+    # rows % p2: B is laid out P((p1, p2), p3), so the reduce-scatter
+    # splits each n1/p1 row block p2 ways
+    if rows % p2 or r % p3:
+        raise _not_divisible(n1, n2, r, g.shape)
+    _, j, k = g.coords
+    a_ij = all_gather(A_blk, 1, g.p3_group, p3)
+    blk_rows, blk_cols = n2 // p2, r // p3
+    b_partial = sketch_block(a_ij, seed, blk_cols, row0=j * blk_rows,
+                             col0=k * blk_cols, kind=kind, salt=salt,
+                             scale=scale)
+    return reduce_scatter(b_partial, g.p2_group, p2)
+
+
+def rand_matmul_auto(A: torch.Tensor, seed, r: int,
+                     P_procs: Optional[int] = None, kind: str = "normal",
+                     grid="auto", plan=None):
+    """Alg. 1 with the grid chosen automatically, from the full A that
+    every rank holds.
+
+    grid:
+      * ``"auto"`` — the paper's §4.3 grid (``select_matmul_grid``), or,
+        when it does not divide the shape, the factorization of P that
+        does with the fewest words (``_best_executable_alg1_grid``);
+      * an explicit ``(p1, p2, p3)`` tuple.
+    ``P_procs`` defaults to the world size.  Returns ``(B_blk,
+    MatmulGrid, GridGroups)``."""
+    import torch.distributed as dist
+
+    from repro_torch.plan.planner import (_alg1_executable,
+                                          _best_executable_alg1_grid)
+    from .grid import MatmulGrid, alg1_bandwidth_words, alg1_latency_hops
+    from .lower_bounds import matmul_regime
+    _dense_only(kind)
+    if plan is not None or grid == "plan":
+        raise NotImplementedError(
+            "grid='plan' / plan= need plan_sketch, which is not ported "
+            "(ROADMAP.md Queue 1, item 7); pass grid='auto' or a tuple")
+    P_procs = P_procs or dist.get_world_size()
+    n1, n2 = A.shape
+    if grid == "auto":
+        shape = _best_executable_alg1_grid(n1, n2, r, P_procs)
+        if shape is None:
+            raise ValueError(f"no factorization of P={P_procs} divides "
+                             f"({n1}, {n2}, r={r}); pad the shape or "
+                             f"change P")
+    else:
+        shape = tuple(grid)
+        if not _alg1_executable(n1, n2, r, shape):
+            raise _not_divisible(n1, n2, r, shape)
+    gm = MatmulGrid(*shape, matmul_regime(n1, n2, r, P_procs),
+                    alg1_bandwidth_words(n1, n2, r, *shape),
+                    alg1_latency_hops(shape[1], shape[2]))
+    g = make_grid_groups(*gm.shape)
+    return rand_matmul(input_block(A, g), seed, r, g, kind=kind), gm, g
+
+
+def rand_matmul_communicating(A_blk: Optional[torch.Tensor], seed, r: int,
+                              g: GridGroups, kind: str = "normal"
+                              ) -> Optional[torch.Tensor]:
+    """The baseline that COMMUNICATES Omega (paper Fig. 3's losing
+    strategy): each grid rank draws its n2/P rows of Omega (the one copy
+    in the system; on the card the ``gen_omega`` kernel), every rank
+    all-gathers the whole Omega over the grid, slices its (j, k) block
+    and multiplies with ``torch.matmul`` (the reference's plain
+    ``a_ij @ om``), then reduce-scatters over p2 as Alg. 1 does.  Same B,
+    strictly more words received."""
+    _dense_only(kind)
+    if g.coords is None:
+        return None
+    from repro_torch.parallel.collectives import all_gather, reduce_scatter
+    p1, p2, p3 = g.shape
+    rows, cols = A_blk.shape
+    n1, n2, P = rows * p1, cols * p2 * p3, g.size
+    if rows % p2 or r % p3 or n2 % P:
+        raise _not_divisible(n1, n2, r, g.shape)
+    _, j, k = g.coords
+    own = n2 // P
+    om_blk = omega_tile(seed, g.rank * own, 0, own, r, kind, A_blk.dtype,
+                        device=A_blk.device)
+    a_ij = all_gather(A_blk, 1, g.p3_group, p3)
+    om_full = all_gather(om_blk, 0, g.grid_group, P)
+    blk_rows, blk_cols = n2 // p2, r // p3
+    om = om_full[j * blk_rows:(j + 1) * blk_rows,
+                 k * blk_cols:(k + 1) * blk_cols]
+    return reduce_scatter(a_ij @ om, g.p2_group, p2)

@@ -1,5 +1,6 @@
 """Per-leaf raw-vs-sketched decision of the DP gradient exchange (the
-reference's ``plan_train_compression`` with ``objective="words"``).
+reference's ``plan_train_compression`` with ``objective="words"``), and
+the snap of Alg. 1's §4.3 grid to one that divides the shape.
 
 Beware at one worker: both exchanges move 0 words there, and a leaf
 compresses only when its words strictly drop, so ``P=1`` compresses
@@ -12,8 +13,37 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+from repro_torch.core.grid import (MatmulGrid, factorizations_3d,
+                                   select_matmul_grid)
 from repro_torch.models.api import param_leaves, unflatten_like
 from . import model as M
+
+
+def _alg1_executable(n1: int, n2: int, r: int,
+                     grid: Tuple[int, int, int]) -> bool:
+    """Whether ``core.sketch.rand_matmul`` can run ``grid`` on (n1, n2, r):
+    A laid out P(p1, (p2, p3)), B laid out P((p1, p2), p3), so the
+    reduce-scatter splits each n1/p1 row block p2 ways."""
+    p1, p2, p3 = grid
+    return (n1 % (p1 * p2) == 0 and n2 % (p2 * p3) == 0 and n2 % p2 == 0
+            and r % p3 == 0 and p1 <= n1 and p2 <= n2 and p3 <= r)
+
+
+def _best_executable_alg1_grid(n1: int, n2: int, r: int, P: int):
+    """The paper's grid if it divides the shape, else the factorization of
+    P that does with the fewest (words, latency hops); None if none does."""
+    g: MatmulGrid = select_matmul_grid(n1, n2, r, P)
+    if _alg1_executable(n1, n2, r, g.shape):
+        return g.shape
+    best = None
+    for cand in factorizations_3d(P):
+        if not _alg1_executable(n1, n2, r, cand):
+            continue
+        c = M.alg1_cost(n1, n2, r, cand)
+        key = (c.words, c.messages)
+        if best is None or key < best[0]:
+            best = (key, cand)
+    return best[1] if best else None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,16 +16,18 @@ def make_sketch_service(grid=None, plan=None,
     """The streaming-sketch serving entry point: many streams on one card
     (``device=None``; pass ``device="cpu"`` for the plain path).
 
-    ``grid`` / ``plan`` place a distributed service (Alg. 1), which the
-    port has not reached: anything but ``None`` raises
+    ``grid`` / ``plan`` place a distributed service (sharded streams over
+    Alg. 1's grid), which the port has not reached: anything but ``None``
+    raises
     ``NotImplementedError``, as does ``spill_dir``.  ``max_resident`` is
     the admission budget: colder non-pinned streams move to host memory
     and are restored bitwise on next touch.
     """
     if grid is not None or plan is not None:
         raise NotImplementedError(
-            "a distributed sketch service (grid/plan: Alg. 1) is not ported "
-            "to repro_torch yet (ROADMAP Queue 1 item 4)")
+            "a distributed sketch service (grid/plan: sharded streams, "
+            "ShardedStreamingSketch) is not ported to repro_torch yet "
+            "(ROADMAP Queue 1 item 6)")
     return SketchService(max_resident=max_resident, spill_dir=spill_dir,
                          device=device)
 

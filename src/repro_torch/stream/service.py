@@ -30,8 +30,9 @@ Admission/eviction: streams carry a QoS class (``pinned`` > ``standard`` >
 beyond the budget evicts the coldest non-pinned resident — its (Y, W) is
 copied to host memory and restored bitwise on next touch.
 
-Not in this slice (each raises ``NotImplementedError``): a ``mesh`` (Alg. 1
-on ``torch.distributed``, ROADMAP Queue 1 item 4), ``spill_dir`` (needs
+Not in this slice (each raises ``NotImplementedError``): a ``mesh`` (the
+sharded streams of ``ShardedStreamingSketch``, ROADMAP Queue 1 item 6),
+``spill_dir`` (needs
 ``checkpoint/ckpt.py``, item 9), ``reshard`` (``stream/elastic.py``, item
 9) and the sparse-payload updates (``SparseRows``, item 6).
 """
@@ -108,8 +109,8 @@ class SketchService:
     def __init__(self, mesh=None, max_resident: Optional[int] = None,
                  spill_dir: Optional[str] = None, device=None):
         if mesh is not None:
-            raise _not_ported("a distributed (mesh) service, i.e. Alg. 1",
-                              "item 4")
+            raise _not_ported("a distributed (mesh) service, which needs "
+                              "ShardedStreamingSketch", "item 6")
         if spill_dir is not None:
             raise _not_ported("spill_dir (checkpoint/ckpt.py)", "item 9")
         if max_resident is not None and max_resident < 1:

@@ -578,3 +578,26 @@ def test_sketch_fwd_rows_do_not_depend_on_m(dev, shape, dt_in):
         assert torch.equal(_bits(view), _bits(runs[0][m - k:]))
     assert torch.isnan(dYb[0]).all() and torch.isnan(dYb[1, 64:]).all()
     assert torch.equal(_bits(runs[0]), _bits(runs[1]))
+
+
+def test_alg1_four_ranks_on_one_card_match_the_one_device_sketch(dev):
+    """Alg. 1 on 4 gloo ranks that share cuda:0: each rank's B block
+    against the same rows and columns of the one-device card sketch,
+    bitwise on (4, 1, 1) (no collective; the same kernel on the same rows)
+    and within 16·sqrt(K)·2**-24 relative Frobenius on (2, 2, 1) (the
+    reduce-scatter sums two partials of K = n2/2); words received equal
+    the paper's formula; every rank launched sketch_fwd."""
+    from repro_torch.core.grid import alg1_bandwidth_words
+    from torch_dist_helper import alg1_card_worker, run_workers
+    n1, n2, r = 1024, 2048, 64
+    grids = [(4, 1, 1), (2, 2, 1)]
+    ranks = run_workers(alg1_card_worker, 4, n1, n2, r, 7, grids)
+    for rank, res in enumerate(ranks):
+        for grid in grids:
+            bitwise, err, words, launches, where = res[grid]
+            assert where == "cuda" and launches == 1, (rank, grid)
+            assert words == alg1_bandwidth_words(n1, n2, r, *grid)
+            if grid == (4, 1, 1):
+                assert bitwise and words == 0, (rank, err)
+            else:
+                assert err <= 16 * np.sqrt(n2 // 2) * 2.0 ** -24, (rank, err)

@@ -1,0 +1,250 @@
+"""The port's communication bounds, grids and Alg. 1 costs against the
+reference's (``repro.core.lower_bounds``, ``repro.core.grid``,
+``repro.plan``).
+
+The port keeps its own copies (pure ``math``), so every value must be
+EQUAL, not close: the same arithmetic in the same order.  The sweeps are
+deterministic (no Hypothesis): the shapes of ``tests/test_lower_bounds.py``
+and ``tests/test_grid.py`` and the paper's scales, every regime, the case
+boundaries, and P from 1 to 4096 (30000 for Theorem 3) in steps.
+"""
+import dataclasses
+
+import pytest
+
+from repro.core import grid as jgrid
+from repro.core import lower_bounds as jlb
+from repro.plan import model as jmodel
+from repro.plan import planner as jplanner
+from repro_torch.core import grid as tgrid
+from repro_torch.core import lower_bounds as tlb
+from repro_torch.plan import model as tmodel
+from repro_torch.plan import planner as tplanner
+
+# (n1, n2, r) of the reference's tests, the paper's scales, the chip's
+# main path and the distributed tests' shape, and a few odd ones
+MATMUL_SHAPES = [
+    (100, 200, 10), (64, 256, 16), (16, 1024, 8), (8, 64, 16),
+    (32, 512, 8), (4, 64, 16), (16, 48, 8), (50000, 50000, 500),
+    (50000, 50000, 5000), (10 ** 6, 10 ** 6, 1000), (4096, 4096, 256),
+    (32768, 32768, 512), (2000, 1999, 7), (3, 2000, 1500), (1, 8, 4),
+    (2, 48, 8), (17, 33, 5),
+]
+P_SWEEP = sorted({1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16, 24, 31, 32, 33, 48,
+                  63, 64, 65, 96, 100, 127, 128, 129, 255, 256, 257, 500,
+                  511, 512, 513, 1000, 1023, 1024, 1025, 2047, 2048, 2049,
+                  3000, 4000, 4095, 4096})
+NYSTROM_SHAPES = [(300, 20), (4096, 256), (4096, 64), (8192, 128),
+                  (50000, 5000), (64, 16), (128, 32), (3000, 2700),
+                  (32768, 512), (5, 4)]
+NYSTROM_P = sorted(set(P_SWEEP) | {5000, 10000, 19999, 20000, 30000})
+
+
+def _boundaries(n1, n2, r):
+    """P at and next to Theorem 2's case boundaries (P = n1, n1·n2/r)."""
+    b = int(n1 * n2 / r)
+    return sorted({p for p in (n1 - 1, n1, n1 + 1, b - 1, b, b + 1)
+                   if p >= 1})
+
+
+def _both(fn_t, fn_j, *args, **kw):
+    """The two functions' results, or the two exceptions' types and
+    messages."""
+    out = []
+    for fn in (fn_t, fn_j):
+        try:
+            out.append(("ok", fn(*args, **kw)))
+        except Exception as e:  # noqa: BLE001 — compared, not swallowed
+            out.append((type(e).__name__, str(e)))
+    return out
+
+
+def _fields(x):
+    return dataclasses.astuple(x) if dataclasses.is_dataclass(x) else x
+
+
+def _assert_same(fn_name, *args, **kw):
+    t, j = _both(getattr(_port_of(fn_name), fn_name),
+                 getattr(_ref_of(fn_name), fn_name), *args, **kw)
+    assert t[0] == j[0], (fn_name, args, t, j)
+    if t[0] == "ok":
+        assert _fields(t[1]) == _fields(j[1]), (fn_name, args, t, j)
+    else:
+        assert t[1] == j[1], (fn_name, args, t, j)
+
+
+def _port_of(name):
+    return tlb if hasattr(tlb, name) and hasattr(jlb, name) else tgrid
+
+
+def _ref_of(name):
+    return jlb if hasattr(tlb, name) and hasattr(jlb, name) else jgrid
+
+
+@pytest.mark.parametrize("shape", MATMUL_SHAPES, ids=str)
+def test_matmul_bounds_equal_reference(shape):
+    n1, n2, r = shape
+    for P in sorted(set(P_SWEEP) | set(_boundaries(*shape))):
+        for fn in ("matmul_regime", "matmul_access_lower_bound",
+                   "matmul_lower_bound", "report_matmul"):
+            _assert_same(fn, n1, n2, r, P)
+        _assert_same("gemm_lower_bound", n1, n2, r, P)
+
+
+@pytest.mark.parametrize("shape", MATMUL_SHAPES, ids=str)
+def test_matmul_regimes_cover_all_three(shape):
+    """The sweep reaches every regime the shape has, in order, on both."""
+    n1, n2, r = shape
+    Ps = sorted(set(P_SWEEP) | set(_boundaries(*shape)))
+    got = [tlb.matmul_regime(n1, n2, r, P) for P in Ps]
+    assert got == [jlb.matmul_regime(n1, n2, r, P) for P in Ps]
+    assert got == sorted(got)
+
+
+@pytest.mark.parametrize("shape", NYSTROM_SHAPES, ids=str)
+def test_nystrom_bounds_equal_reference(shape):
+    n, r = shape
+    for P in sorted(set(NYSTROM_P) | {r, r + 1, n, n + 1,
+                                      int(n * (n + r) / r),
+                                      int(n * (n + r) / r) + 1}):
+        for fn in ("nystrom_regime", "nystrom_access_lower_bound",
+                   "nystrom_lower_bound", "report_nystrom"):
+            _assert_same(fn, n, r, P)
+
+
+# the numeric optimizers sweep 4096 points each: a subset of (shape, P),
+# one in every regime
+MINIMIZE_MATMUL = [(s, P) for s in [(100, 200, 10), (16, 1024, 8),
+                                    (8, 64, 16), (2000, 1999, 7)]
+                   for P in (1, 7, 64, 500, 4096)]
+MINIMIZE_NYSTROM = [(s, P) for s in [(300, 20), (64, 16), (3000, 2700)]
+                    for P in (1, 10, 200, 5000, 30000)]
+
+
+@pytest.mark.parametrize("case", MINIMIZE_MATMUL, ids=str)
+def test_minimize_access_matmul_equals_reference(case):
+    (n1, n2, r), P = case
+    _assert_same("minimize_access_matmul", n1, n2, r, P)
+
+
+@pytest.mark.parametrize("case", MINIMIZE_NYSTROM, ids=str)
+def test_minimize_access_nystrom_equals_reference(case):
+    (n, r), P = case
+    _assert_same("minimize_access_nystrom", n, r, P)
+
+
+@pytest.mark.parametrize("P", P_SWEEP)
+def test_factorizations_equal_reference(P):
+    assert (list(tgrid.factorizations_3d(P))
+            == list(jgrid.factorizations_3d(P)))
+
+
+@pytest.mark.parametrize("shape", MATMUL_SHAPES, ids=str)
+def test_alg1_words_and_hops_equal_reference(shape):
+    n1, n2, r = shape
+    for P in (1, 2, 4, 6, 8, 12, 16, 64, 256, 4096):
+        for p in tgrid.factorizations_3d(P):
+            assert (tgrid.alg1_bandwidth_words(n1, n2, r, *p)
+                    == jgrid.alg1_bandwidth_words(n1, n2, r, *p)), p
+            assert (tgrid.alg1_latency_hops(p[1], p[2])
+                    == jgrid.alg1_latency_hops(p[1], p[2])), p
+
+
+@pytest.mark.parametrize("shape", MATMUL_SHAPES, ids=str)
+def test_select_matmul_grid_equals_reference(shape):
+    n1, n2, r = shape
+    for P in sorted(set(P_SWEEP) | set(_boundaries(*shape))):
+        _assert_same("select_matmul_grid", n1, n2, r, P)
+        _assert_same("select_matmul_grid", n1, n2, r, P,
+                     exhaustive_fallback=False)
+
+
+@pytest.mark.parametrize("variant", ["auto", "redist", "no_redist",
+                                     "bound_driven", "bogus"])
+@pytest.mark.parametrize("shape", NYSTROM_SHAPES, ids=str)
+def test_select_nystrom_grids_equal_reference(shape, variant):
+    n, r = shape
+    for P in P_SWEEP:
+        _assert_same("select_nystrom_grids", n, r, P, variant=variant)
+
+
+@pytest.mark.parametrize("P", [1, 2, 4, 6, 8, 12, 16])
+def test_alg2_words_and_executability_equal_reference(P):
+    facs = list(tgrid.factorizations_3d(P))
+    for n, r in [(64, 16), (4096, 256), (48, 12), (30, 6)]:
+        for p in facs:
+            for q in facs:
+                assert (tgrid.alg2_bandwidth_words(n, r, p, q)
+                        == jgrid.alg2_bandwidth_words(n, r, p, q))
+                assert (tgrid.alg2_two_grid_executable(n, r, p, q)
+                        == jgrid.alg2_two_grid_executable(n, r, p, q))
+
+
+@pytest.mark.parametrize("P", [1, 2, 4, 6, 8, 12, 16, 64])
+@pytest.mark.parametrize("shape", [(64, 16), (4096, 256), (48, 12),
+                                   (30, 6), (7, 3)], ids=str)
+def test_select_two_grid_executable_equals_reference(shape, P):
+    n, r = shape
+    _assert_same("select_two_grid_executable", n, r, P)
+    for p in tgrid.factorizations_3d(P):
+        _assert_same("select_two_grid_executable", n, r, P, p=p)
+
+
+@pytest.mark.parametrize("P", [1, 2, 4, 6, 8, 12, 16, 30])
+def test_two_grid_axis_split_equals_reference(P):
+    facs = list(tgrid.factorizations_3d(P))
+    for p in facs:
+        for q in facs:
+            _assert_same("two_grid_axis_split", p, q)
+    _assert_same("two_grid_axis_split", (P, 1, 1), (P + 1, 1, 1))
+
+
+def test_two_grid_shared_mesh_is_not_ported():
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tgrid.two_grid_shared_mesh((2, 1, 1), (1, 1, 2))
+
+
+@pytest.mark.parametrize("shape", MATMUL_SHAPES, ids=str)
+def test_alg1_executable_snap_equals_reference(shape):
+    n1, n2, r = shape
+    for P in (1, 2, 3, 4, 5, 6, 8, 12, 16, 64, 256, 1024, 4096):
+        for p in tgrid.factorizations_3d(P):
+            assert (tplanner._alg1_executable(n1, n2, r, p)
+                    == jplanner._alg1_executable(n1, n2, r, p)), p
+        assert (tplanner._best_executable_alg1_grid(n1, n2, r, P)
+                == jplanner._best_executable_alg1_grid(n1, n2, r, P)), P
+
+
+@pytest.mark.parametrize("shape", MATMUL_SHAPES, ids=str)
+def test_alg1_cost_prices_the_reference_words(shape):
+    """Words, hops and FLOPs are the reference's; the device-memory words
+    price the port's Omega scratch, which the reference's fused body does
+    not have."""
+    n1, n2, r = shape
+    for P in (1, 2, 4, 8, 16, 64):
+        for p in tgrid.factorizations_3d(P):
+            t, j = tmodel.alg1_cost(n1, n2, r, p), jmodel.alg1_cost(
+                n1, n2, r, p)
+            assert (t.words, t.messages, t.flops) == (j.words, j.messages,
+                                                      j.flops), p
+            tc = tmodel.alg1_communicating_cost(n1, n2, r, p)
+            jc = jmodel.alg1_communicating_cost(n1, n2, r, p)
+            assert (tc.words, tc.messages) == (jc.words, jc.messages), p
+
+
+def test_alg1_cost_prices_the_omega_scratch():
+    """The local body's Omega block is written to and read from device
+    memory once each: K x ceil4(cols) f32 words."""
+    n1, n2, r = 32768, 32768, 512
+    c = tmodel.alg1_cost(n1, n2, r, (2, 2, 1))
+    K, cols = n2 // 2, r
+    assert c.hbm_words == n1 * n2 / 4 + 2 * K * cols + n1 * r / 2
+    assert tmodel.alg1_cost(n1, n2, 510, (1, 1, 1)).hbm_words == (
+        n1 * n2 + 2 * n2 * 512 + n1 * 510)
+
+
+def test_cost_keeps_the_training_fields():
+    """The exchange's callers build a Cost from words and FLOPs alone."""
+    c = tmodel.grad_compress_cost(256, 64, 8, 2)
+    assert (c.messages, c.hbm_words) == (0.0, 0.0)
+    assert tmodel.Cost(words=1.0, flops=2.0).words == 1.0

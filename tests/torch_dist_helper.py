@@ -2,25 +2,24 @@
 stand-in for the reference's fake XLA devices) and collect each rank's
 result.  Imports no jax: the workers import only torch and the port."""
 import multiprocessing as mp
-import socket
+import os
+import shutil
+import tempfile
 import traceback
 
 TIMEOUT_S = 180
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+def _entry(fn, rank, world, store, queue, args):
+    import datetime
 
-
-def _entry(fn, rank, world, port, queue, args):
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
     try:
-        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                                world_size=world, rank=rank)
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", world_size=world,
+            rank=rank, timeout=datetime.timedelta(seconds=TIMEOUT_S))
         try:
             queue.put((rank, fn(rank, world, *args), None))
         finally:
@@ -31,11 +30,14 @@ def _entry(fn, rank, world, port, queue, args):
 
 def run_workers(fn, world: int, *args):
     """``[fn(rank, world, *args) for rank in range(world)]``, each in its
-    own process of one gloo group."""
+    own process of one gloo group.  The group meets at a ``file://``
+    store in a fresh temporary directory (no port to race for); a world
+    that has not answered in ``TIMEOUT_S`` seconds is killed."""
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_entry, args=(fn, r, world, port, queue,
+    tmp = tempfile.mkdtemp(prefix="torch_dist_")
+    store = os.path.join(tmp, "store")
+    procs = [ctx.Process(target=_entry, args=(fn, r, world, store, queue,
                                               args))
              for r in range(world)]
     for p in procs:
@@ -53,6 +55,7 @@ def run_workers(fn, world: int, *args):
             if p.is_alive():
                 p.kill()
                 p.join(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
     if errors:
         raise RuntimeError("\n".join(errors))
     return results
@@ -73,3 +76,91 @@ def exchange_worker(rank, world, grads, fbs, decisions, r, step):
     gc.compress_and_allreduce(g, e, step=step, rank=r, decisions=decisions)
     return ({k: v.numpy() for k, v in g.items()},
             {k: v.numpy() for k, v in e.items()}, gc.COMM["words"])
+
+
+def alg1_worker(rank, world, A, seed, r, grids, kinds, auto_cases):
+    """One rank of the Alg. 1 cases on the CPU: every grid of ``grids``
+    with every kind, the communicating baseline on every grid,
+    ``rand_matmul_auto`` on each ``(A, r)`` of ``auto_cases``, the
+    collectives' layouts, and a grid larger than the world.  Returns
+    numpy blocks (None past a grid) and the words this rank received."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import sketch as sk
+    from repro_torch.parallel import collectives as col
+
+    def arr(t):
+        return None if t is None else t.numpy()
+
+    def comm():
+        return {k: dict(v) for k, v in col.COMM.items()}
+
+    At = torch.from_numpy(np.array(A))
+    out = {"alg1": {}, "communicating": {}, "auto": [], "layout": {}}
+    for grid in grids:
+        g = sk.make_grid_groups(*grid)
+        out.setdefault("coords", {})[grid] = g.coords
+        for kind in kinds:
+            col.reset_comm()
+            blk = sk.rand_matmul(sk.input_block(At, g), seed, r, g,
+                                 kind=kind)
+            words = comm()
+            out["alg1"][(grid, kind)] = (arr(blk), words,
+                                         arr(sk.gather_output(blk, g)))
+        col.reset_comm()
+        blk = sk.rand_matmul_communicating(sk.input_block(At, g), seed, r,
+                                           g)
+        out["communicating"][grid] = (arr(blk), comm(),
+                                      arr(sk.gather_output(blk, g)))
+    for A_s, r_s in auto_cases:
+        col.reset_comm()
+        blk, gm, g = sk.rand_matmul_auto(torch.from_numpy(np.array(A_s)),
+                                         seed, r_s)
+        out["auto"].append((gm.shape, gm.regime, gm.bandwidth_words,
+                            arr(blk), comm(), arr(sk.gather_output(blk, g))))
+    # the layouts alone, on values that every sum keeps exact
+    x = (torch.arange(6, dtype=torch.float32).reshape(2, 3)
+         + 100.0 * rank)
+    g = sk.make_grid_groups(1, 1, world)
+    out["layout"]["dim1"] = col.all_gather(x, 1, g.p3_group, world).numpy()
+    out["layout"]["dim0"] = col.all_gather(x, 0, g.p3_group, world).numpy()
+    y = (rank + 1.0) * torch.arange(24, dtype=torch.float32).reshape(8, 3)
+    out["layout"]["reduce_scatter"] = col.reduce_scatter(
+        y, None, world).numpy()
+    try:
+        sk.make_grid_groups(world, 2, 1)
+    except ValueError as e:
+        out["too_big"] = str(e)
+    return out
+
+
+def alg1_card_worker(rank, world, n1, n2, r, seed, grids):
+    """One rank of Alg. 1 on cuda:0 (every rank shares the one card):
+    A drawn on the card from a seeded generator, each grid's block against
+    the one-device card sketch's block.  Returns, per grid, (bitwise,
+    rel_fro, words received, sketch_fwd launches, block device)."""
+    import torch
+
+    from repro_torch.core import sketch as sk
+    from repro_torch.kernels import LAUNCHES, reset_launches, sketch_block
+    from repro_torch.parallel import collectives as col
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    A = torch.randn(n1, n2, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    B_one = sketch_block(A, seed, r)
+    out = {}
+    for grid in grids:
+        g = sk.make_grid_groups(*grid)
+        blk_in = sk.input_block(A, g)
+        col.reset_comm()
+        reset_launches()
+        blk = sk.rand_matmul(blk_in, seed, r, g)
+        torch.cuda.synchronize()
+        ref = sk.output_block(B_one, g)
+        err = float(torch.linalg.norm(blk - ref) / torch.linalg.norm(ref))
+        out[grid] = (torch.equal(blk, ref), err, col.comm_words(),
+                     LAUNCHES["sketch_fwd"], blk.device.type)
+    return out
