@@ -129,6 +129,31 @@ then Alg. 1 (paper §4.2), with the card freed by the main process first:
                   and prints each call's wall time (gloo through host
                   memory, not an interconnect time) and its peak memory.
 
+then the 1-D Alg. 2 (paper §5.3), the same way:
+
+ 13. alg2       — four ranks spawned on cuda:0 over gloo (the
+                  reduce-scatter and the all-to-all take CUDA tensors),
+                  each holding phases 1-5's A; r = 512, Omega seed 7:
+                  ``nystrom_auto`` (it must choose no_redist: n/r = 64 >
+                  P = 4), ``nystrom_no_redist`` and ``nystrom_redist``.
+                  Each rank holds B bitwise to the one-device B's rows
+                  (No-Redist) or columns (Redist: the all-to-all is a
+                  layout move), C within f32_tol(n) of the one-device
+                  ``sketch_t_block(B, 7, 512)``'s rows or columns, its
+                  words received exactly ((1 - 1/P)·r² = 196,608 and
+                  (1 - 1/P)·n·r/P = 3,145,728, below the formula's n·r/P =
+                  4,194,304: the gap is printed) and its launches (one
+                  sketch_fwd, one sketch_t, no gen_omega a run); rank 0
+                  gathers each variant's pair and its Nystrom relative
+                  error must be <= 1e-4.  Then each rank times sketch_t at
+                  its two second-stage shapes (8192x512 -> 512x512 at row
+                  i·8192, 32768x128 -> 512x128) and sketch_fwd at its
+                  first stage (8192x32768 -> 512), four ranks sharing the
+                  card, beside their plain versions, ``torch.matmul`` and
+                  their bounds, with sketch_t's splits, Omega scratch and
+                  work bytes; rank 0 alone splits each sketch_t call's
+                  device time into its draw, product and reduce.
+
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and the exit code is non-zero; without a CUDA card it exits 1 and prints no
@@ -166,7 +191,10 @@ S_N1, S_N2, S_R, S_KMAX = 16384, 8192, 128, 256
 ALG1_WORLD = 4
 ALG1_GRIDS = [(4, 1, 1), (2, 2, 1), (1, 2, 2), (1, 1, 4)]   # auto: the first
 ALG1_COMM_GRID = (2, 2, 1)
-ALG1_TIMEOUT_S = 600
+# phase 13: the 1-D Alg. 2 on four ranks of one card, at phase 1-5's A
+ALG2_WORLD = 4
+ALG2_VARIANTS = ("no_redist", "redist")
+RANKS_TIMEOUT_S = 600
 SERVE_ARGS = ["--workload", "sketch", "--streams", "128", "--updates", "4",
               "--n1", str(S_N1), "--n2", str(S_N2), "--r", str(S_R),
               "--max-rows", str(S_KMAX), "--window", "64", "--depth", "256"]
@@ -1105,23 +1133,86 @@ def profile_step(step, state, batch):
               f"{key[:100]}")
 
 
-# -- phase 12: Alg. 1 on four ranks of one card -------------------------------
+# -- phases 12-13: four ranks of one card -------------------------------------
 
-def alg1_rank(rank, world, store, queue, sass, mhz):
-    """Phase 12, one rank (a spawned process): its result or its error goes
-    to ``queue``."""
+def rank_entry(fn, rank, world, store, queue, args):
+    """One rank of a spawned phase (a process of its own): joins the gloo
+    group at the ``file://`` store on cuda:0, runs ``fn(rank, world,
+    *args)`` and puts its result or its error on ``queue``."""
+    import datetime
     import traceback
+
+    import torch.distributed as dist
     try:
-        queue.put((rank, _alg1_rank(rank, world, store, sass, mhz), None))
+        sys.path.insert(0, str(ROOT / "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", world_size=world,
+            rank=rank, timeout=datetime.timedelta(seconds=RANKS_TIMEOUT_S))
+        try:
+            res = fn(rank, world, *args)
+        finally:
+            dist.destroy_process_group()
+        queue.put((rank, res, None))
     except BaseException:  # noqa: BLE001 — reported to the parent, which fails
         queue.put((rank, None, traceback.format_exc()))
 
 
-def _alg1_rank(rank, world, store, sass, mhz):
-    import datetime
+def spawn_ranks(phase: int, fn, world: int, args=()):
+    """``[fn(rank, world, *args) for rank in range(world)]``, each rank a
+    spawned process of one gloo group on cuda:0 (NCCL refuses two ranks
+    on one card), meeting at a ``file://`` store in a fresh temporary
+    directory.  Any rank's failure, or a rank that has not answered in
+    ``RANKS_TIMEOUT_S``, fails the phase; every process is joined or
+    killed."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_phase{phase}_")
+    store = str(pathlib.Path(tmp) / "store")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=rank_entry,
+                         args=(fn, r, world, store, queue, tuple(args)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = [None] * world
+    try:
+        for _ in range(world):
+            rank, res, err = queue.get(timeout=RANKS_TIMEOUT_S)
+            check(err is None, f"phase {phase}, rank {rank} failed:\n{err}")
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(all(p.exitcode == 0 for p in procs),
+          f"phase {phase} ranks exited {[p.exitcode for p in procs]}")
+    print(f"[phase {phase}] spawned, ran and joined in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return results
 
+
+def same_matrix(A, rank: int, world: int) -> None:
+    """Every rank must hold the same A: the sums of its bits agree."""
     import torch.distributed as dist
-    sys.path.insert(0, str(ROOT / "src"))
+    bits = torch.tensor([int(A.view(torch.int32).sum(dtype=torch.int64))])
+    every = [torch.zeros_like(bits) for _ in range(world)]
+    dist.all_gather(every, bits)
+    check(all(torch.equal(b, bits) for b in every),
+          f"rank {rank}: the ranks' A differ")
+
+
+def _alg1_rank(rank, world, sass, mhz):
+    """Phase 12, one rank."""
+    import torch.distributed as dist
     from repro_torch.core import sketch as sk
     from repro_torch.core.grid import alg1_bandwidth_words
     from repro_torch.core.sketch import _omega_tile_torch
@@ -1131,171 +1222,156 @@ def _alg1_rank(rank, world, store, sass, mhz):
     from repro_torch.parallel import collectives as col
     from repro_torch.plan.model import alg1_communicating_cost
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    dist.init_process_group(
-        "gloo", init_method=f"file://{store}", world_size=world, rank=rank,
-        timeout=datetime.timedelta(seconds=ALG1_TIMEOUT_S))
     lines = []
 
     def say(msg):
         lines.append(f"[alg1] rank {rank}: {msg}")
 
-    try:
-        A = make_matrix(dev)
-        # every rank must hold the same A: the sums of its bits agree
-        bits = torch.tensor([int(A.view(torch.int32).sum(
-            dtype=torch.int64))])
-        every = [torch.zeros_like(bits) for _ in range(world)]
-        dist.all_gather(every, bits)
-        check(all(torch.equal(b, bits) for b in every),
-              f"rank {rank}: the ranks' A differ")
-        # the check: the one-device port's B (sketch_fwd on the card)
-        B_one = local.sketch_block(A, SEED, R)
-        torch.cuda.synchronize()
-        groups = {grid: sk.make_grid_groups(*grid) for grid in ALG1_GRIDS}
-        runs, launches = {}, {"sketch_fwd": 0, "gen_omega": 0}
+    A = make_matrix(dev)
+    same_matrix(A, rank, world)
+    # the check: the one-device port's B (sketch_fwd on the card)
+    B_one = local.sketch_block(A, SEED, R)
+    torch.cuda.synchronize()
+    groups = {grid: sk.make_grid_groups(*grid) for grid in ALG1_GRIDS}
+    runs, launches = {}, {"sketch_fwd": 0, "gen_omega": 0}
 
-        def drive(name, grid, fn, comm_words, compare_grid=None):
-            g = groups[grid]
-            dist.barrier()
-            reset_launches()
-            col.reset_comm()
-            t0 = time.perf_counter()
-            blk = fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = {k: LAUNCHES[k] for k in launches}
-            words = col.comm_words()
-            for k in launches:
-                launches[k] += counts[k]
-            ref = sk.output_block(B_one, g)
-            p1, p2, p3 = grid
-            check(tuple(blk.shape) == tuple(ref.shape)
-                  and bool(torch.isfinite(blk).all()),
-                  f"rank {rank}: {name}: block {tuple(blk.shape)}")
-            err = rel_fro(blk, ref)
-            if p2 == 1 and p3 == 1:
-                check(torch.equal(blk, ref),
-                      f"rank {rank}: {name}: block not bitwise the "
-                      f"one-device B (rel_fro {err:.3e})")
-                held = "bitwise"
-            else:
-                tol = f32_tol(N // p2)
-                check(err <= tol, f"rank {rank}: {name}: rel_fro {err:.3e} "
-                                  f"> {tol:.1e}")
-                held = f"rel_fro {err:.3e} <= f32_tol(n2/p2) {tol:.1e}"
-            check(words == comm_words,
-                  f"rank {rank}: {name}: {words} words received, the "
-                  f"formula says {comm_words}")
-            say(f"{name} on {grid}: block {tuple(blk.shape)} {held}; words "
-                f"received {words} == {comm_words:.0f}; launches {counts}; "
-                f"wall {wall:.4f} s")
-            runs[name] = {"grid": list(grid), "words": words,
-                          "formula_words": comm_words, "rel_fro": err,
-                          "bitwise": held == "bitwise", "wall_s": wall,
-                          "launches": counts}
-            return counts, words
-
-        counts, _ = drive(
-            "auto", ALG1_GRIDS[0],
-            lambda: _auto_checked(sk.rand_matmul_auto(A, SEED, R)),
-            alg1_bandwidth_words(N, N, R, *ALG1_GRIDS[0]))
-        check(counts["sketch_fwd"] == 1, f"rank {rank}: auto launched "
-                                         f"sketch_fwd {counts['sketch_fwd']}")
-        for grid in ALG1_GRIDS:
-            blk_in = sk.input_block(A, groups[grid])
-            counts, _ = drive(
-                str(grid), grid,
-                lambda: sk.rand_matmul(blk_in, SEED, R, groups[grid]),
-                alg1_bandwidth_words(N, N, R, *grid))
-            check(counts["sketch_fwd"] == 1 and counts["gen_omega"] == 0,
-                  f"rank {rank}: {grid} launched {counts}")
-            del blk_in
-        blk_in = sk.input_block(A, groups[ALG1_COMM_GRID])
-        counts, words = drive(
-            "communicating", ALG1_COMM_GRID,
-            lambda: sk.rand_matmul_communicating(blk_in, SEED, R,
-                                                 groups[ALG1_COMM_GRID]),
-            alg1_communicating_cost(N, N, R, ALG1_COMM_GRID).words)
-        check(counts["gen_omega"] == 1 and counts["sketch_fwd"] == 0,
-              f"rank {rank}: communicating launched {counts}")
-        check(words > runs[str(ALG1_COMM_GRID)]["words"],
-              f"rank {rank}: communicating moved no more words than Alg. 1")
-        del blk_in
-        torch.cuda.empty_cache()
-
-        # the local kernels at this rank's shapes, four ranks sharing the
-        # card: sketch_fwd on its gathered panel, gen_omega on its Omega rows
-        calls = {"sketch_fwd": {}, "gen_omega": {}}
-        for grid in ALG1_GRIDS:
-            p1, p2, p3 = grid
-            i, j, k = groups[grid].coords
-            m, K, cols = N // p1, N // p2, R // p3
-            row0, col0 = j * K, k * cols
-            key = f"{m}x{K}->{cols} at ({row0},{col0})"
-            a_ij = A[i * m:(i + 1) * m, row0:row0 + K].contiguous()
-            om = _omega_tile_torch(SEED, 0, row0, col0, K, cols, "normal", 0,
-                                   None, None, dev)
-            got = local.sketch_block(a_ij, SEED, cols, row0=row0, col0=col0)
-            plain = local._sketch_block_torch(a_ij, SEED, cols, row0=row0,
-                                              col0=col0)
-            err, abs_err = rel_fro(got, plain), max_abs(got, plain)
-            check(err <= f32_tol(K), f"rank {rank}: sketch_fwd {key}: "
-                                     f"rel_fro {err:.3e} vs plain")
-            ms = time_ms(lambda: local.sketch_block(a_ij, SEED, cols,
-                                                    row0=row0, col0=col0))
-            plain_ms = time_ms(lambda: local._sketch_block_torch(
-                a_ij, SEED, cols, row0=row0, col0=col0), reps=3)
-            lib_ms = time_ms(lambda: torch.matmul(a_ij, om))
-            bms, by = bound_ms(2.0 * m * K * cols, 4.0 * (m * K + m * cols))
-            calls["sketch_fwd"][key] = {
-                "grids": calls["sketch_fwd"].get(key, {}).get("grids", [])
-                + [list(grid)], "ms": ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
-                "max_abs_err": abs_err, "rel_fro": err}
-            del a_ij, om, got, plain
-        own = N // math.prod(ALG1_COMM_GRID)
-        row0 = rank * own
-        key = f"{own}x{R} at row {row0}"
-        got = gen_omega_cuda(SEED, 0, row0, 0, own, R, "normal", 0,
-                             device=dev)
-        plain = _omega_tile_torch(SEED, 0, row0, 0, own, R, "normal", 0,
-                                  None, None, dev)
-        check(torch.equal(got, plain), f"rank {rank}: gen_omega {key} not "
-                                       f"bitwise its plain version")
-        ops_ms = omega_ops_bound_ms(sass, own * R, mhz)[0]
-        bytes_ms = bound_ms(0.0, 4.0 * own * R)[0]
-        calls["gen_omega"][key] = {
-            "ms": time_ms(lambda: gen_omega_cuda(SEED, 0, row0, 0, own, R,
-                                                 "normal", 0, device=dev)),
-            "plain_ms": time_ms(lambda: _omega_tile_torch(
-                SEED, 0, row0, 0, own, R, "normal", 0, None, None, dev),
-                reps=3),
-            "library_ms": None, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "max_abs_err": 0.0}
-        for name, by_shape in calls.items():
-            for key, c in by_shape.items():
-                lib = c["library_ms"]
-                say(f"local kernel {name} {key} (four ranks share one "
-                    f"card): {c['ms']:.3f} ms (plain {c['plain_ms']:.3f}, "
-                    f"library {'none' if lib is None else f'{lib:.3f}'}, "
-                    f"bound {c['bound_ms']:.3f} ms by {c['bound_by']}), "
-                    f"max_abs_err {c['max_abs_err']:.3e}")
-        say("wall time per call (gloo through host memory, not an "
-            "interconnect time): " + ", ".join(
-                f"{n} {r['wall_s']:.4f} s" for n, r in runs.items()))
-        peak = torch.cuda.max_memory_allocated()
-        say(f"peak memory {peak / 2 ** 30:.2f} GiB "
-            f"(torch.cuda.max_memory_allocated)")
+    def drive(name, grid, fn, comm_words, compare_grid=None):
+        g = groups[grid]
         dist.barrier()
-        return {"lines": lines, "runs": runs, "launches": launches,
-                "calls": calls, "peak_gib": peak / 2 ** 30}
-    finally:
-        dist.destroy_process_group()
+        reset_launches()
+        col.reset_comm()
+        t0 = time.perf_counter()
+        blk = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: LAUNCHES[k] for k in launches}
+        words = col.comm_words()
+        for k in launches:
+            launches[k] += counts[k]
+        ref = sk.output_block(B_one, g)
+        p1, p2, p3 = grid
+        check(tuple(blk.shape) == tuple(ref.shape)
+              and bool(torch.isfinite(blk).all()),
+              f"rank {rank}: {name}: block {tuple(blk.shape)}")
+        err = rel_fro(blk, ref)
+        if p2 == 1 and p3 == 1:
+            check(torch.equal(blk, ref),
+                  f"rank {rank}: {name}: block not bitwise the "
+                  f"one-device B (rel_fro {err:.3e})")
+            held = "bitwise"
+        else:
+            tol = f32_tol(N // p2)
+            check(err <= tol, f"rank {rank}: {name}: rel_fro {err:.3e} "
+                              f"> {tol:.1e}")
+            held = f"rel_fro {err:.3e} <= f32_tol(n2/p2) {tol:.1e}"
+        check(words == comm_words,
+              f"rank {rank}: {name}: {words} words received, the "
+              f"formula says {comm_words}")
+        say(f"{name} on {grid}: block {tuple(blk.shape)} {held}; words "
+            f"received {words} == {comm_words:.0f}; launches {counts}; "
+            f"wall {wall:.4f} s")
+        runs[name] = {"grid": list(grid), "words": words,
+                      "formula_words": comm_words, "rel_fro": err,
+                      "bitwise": held == "bitwise", "wall_s": wall,
+                      "launches": counts}
+        return counts, words
+
+    counts, _ = drive(
+        "auto", ALG1_GRIDS[0],
+        lambda: _auto_checked(sk.rand_matmul_auto(A, SEED, R)),
+        alg1_bandwidth_words(N, N, R, *ALG1_GRIDS[0]))
+    check(counts["sketch_fwd"] == 1, f"rank {rank}: auto launched "
+                                     f"sketch_fwd {counts['sketch_fwd']}")
+    for grid in ALG1_GRIDS:
+        blk_in = sk.input_block(A, groups[grid])
+        counts, _ = drive(
+            str(grid), grid,
+            lambda: sk.rand_matmul(blk_in, SEED, R, groups[grid]),
+            alg1_bandwidth_words(N, N, R, *grid))
+        check(counts["sketch_fwd"] == 1 and counts["gen_omega"] == 0,
+              f"rank {rank}: {grid} launched {counts}")
+        del blk_in
+    blk_in = sk.input_block(A, groups[ALG1_COMM_GRID])
+    counts, words = drive(
+        "communicating", ALG1_COMM_GRID,
+        lambda: sk.rand_matmul_communicating(blk_in, SEED, R,
+                                             groups[ALG1_COMM_GRID]),
+        alg1_communicating_cost(N, N, R, ALG1_COMM_GRID).words)
+    check(counts["gen_omega"] == 1 and counts["sketch_fwd"] == 0,
+          f"rank {rank}: communicating launched {counts}")
+    check(words > runs[str(ALG1_COMM_GRID)]["words"],
+          f"rank {rank}: communicating moved no more words than Alg. 1")
+    del blk_in
+    torch.cuda.empty_cache()
+
+    # the local kernels at this rank's shapes, four ranks sharing the
+    # card: sketch_fwd on its gathered panel, gen_omega on its Omega rows
+    calls = {"sketch_fwd": {}, "gen_omega": {}}
+    for grid in ALG1_GRIDS:
+        p1, p2, p3 = grid
+        i, j, k = groups[grid].coords
+        m, K, cols = N // p1, N // p2, R // p3
+        row0, col0 = j * K, k * cols
+        key = f"{m}x{K}->{cols} at ({row0},{col0})"
+        a_ij = A[i * m:(i + 1) * m, row0:row0 + K].contiguous()
+        om = _omega_tile_torch(SEED, 0, row0, col0, K, cols, "normal", 0,
+                               None, None, dev)
+        got = local.sketch_block(a_ij, SEED, cols, row0=row0, col0=col0)
+        plain = local._sketch_block_torch(a_ij, SEED, cols, row0=row0,
+                                          col0=col0)
+        err, abs_err = rel_fro(got, plain), max_abs(got, plain)
+        check(err <= f32_tol(K), f"rank {rank}: sketch_fwd {key}: "
+                                 f"rel_fro {err:.3e} vs plain")
+        ms = time_ms(lambda: local.sketch_block(a_ij, SEED, cols,
+                                                row0=row0, col0=col0))
+        plain_ms = time_ms(lambda: local._sketch_block_torch(
+            a_ij, SEED, cols, row0=row0, col0=col0), reps=3)
+        lib_ms = time_ms(lambda: torch.matmul(a_ij, om))
+        bms, by = bound_ms(2.0 * m * K * cols, 4.0 * (m * K + m * cols))
+        calls["sketch_fwd"][key] = {
+            "grids": calls["sketch_fwd"].get(key, {}).get("grids", [])
+            + [list(grid)], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": abs_err, "rel_fro": err}
+        del a_ij, om, got, plain
+    own = N // math.prod(ALG1_COMM_GRID)
+    row0 = rank * own
+    key = f"{own}x{R} at row {row0}"
+    got = gen_omega_cuda(SEED, 0, row0, 0, own, R, "normal", 0,
+                         device=dev)
+    plain = _omega_tile_torch(SEED, 0, row0, 0, own, R, "normal", 0,
+                              None, None, dev)
+    check(torch.equal(got, plain), f"rank {rank}: gen_omega {key} not "
+                                   f"bitwise its plain version")
+    ops_ms = omega_ops_bound_ms(sass, own * R, mhz)[0]
+    bytes_ms = bound_ms(0.0, 4.0 * own * R)[0]
+    calls["gen_omega"][key] = {
+        "ms": time_ms(lambda: gen_omega_cuda(SEED, 0, row0, 0, own, R,
+                                             "normal", 0, device=dev)),
+        "plain_ms": time_ms(lambda: _omega_tile_torch(
+            SEED, 0, row0, 0, own, R, "normal", 0, None, None, dev),
+            reps=3),
+        "library_ms": None, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "max_abs_err": 0.0}
+    for name, by_shape in calls.items():
+        for key, c in by_shape.items():
+            lib = c["library_ms"]
+            say(f"local kernel {name} {key} (four ranks share one "
+                f"card): {c['ms']:.3f} ms (plain {c['plain_ms']:.3f}, "
+                f"library {'none' if lib is None else f'{lib:.3f}'}, "
+                f"bound {c['bound_ms']:.3f} ms by {c['bound_by']}), "
+                f"max_abs_err {c['max_abs_err']:.3e}")
+    say("wall time per call (gloo through host memory, not an "
+        "interconnect time): " + ", ".join(
+            f"{n} {r['wall_s']:.4f} s" for n, r in runs.items()))
+    peak = torch.cuda.max_memory_allocated()
+    say(f"peak memory {peak / 2 ** 30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    dist.barrier()
+    return {"lines": lines, "runs": runs, "launches": launches,
+            "calls": calls, "peak_gib": peak / 2 ** 30}
 
 
 def _auto_checked(res):
@@ -1307,47 +1383,231 @@ def _auto_checked(res):
 
 
 def phase_alg1(sass, mhz):
-    """Phase 12: Alg. 1 on ALG1_WORLD ranks of one card over gloo (one
-    H100 here; NCCL refuses two ranks on one card), each rank a spawned
-    process holding phase 1-5's A.  Any rank's failure fails the phase."""
-    import multiprocessing as mp
-    import shutil
-    import tempfile
-    ctx = mp.get_context("spawn")
-    queue = ctx.Queue()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_alg1_")
-    store = str(pathlib.Path(tmp) / "store")
+    """Phase 12: Alg. 1 on ALG1_WORLD ranks of one card over gloo, each
+    rank holding phase 1-5's A."""
     print(f"[alg1] {ALG1_WORLD} ranks on cuda:0 over gloo (the collectives "
           f"take CUDA tensors; gloo stages them through host memory "
           f"itself): A {N}x{N} f32, r = {R}, grids auto "
           f"{ALG1_GRIDS}, communicating {ALG1_COMM_GRID}")
-    t0 = time.perf_counter()
-    procs = [ctx.Process(target=alg1_rank,
-                         args=(r, ALG1_WORLD, store, queue, sass, mhz))
-             for r in range(ALG1_WORLD)]
-    for p in procs:
-        p.start()
-    results = [None] * ALG1_WORLD
-    try:
-        for _ in range(ALG1_WORLD):
-            rank, res, err = queue.get(timeout=ALG1_TIMEOUT_S)
-            check(err is None, f"phase 12, rank {rank} failed:\n{err}")
-            results[rank] = res
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=10)
-        shutil.rmtree(tmp, ignore_errors=True)
-    check(all(p.exitcode == 0 for p in procs),
-          f"phase 12 ranks exited {[p.exitcode for p in procs]}")
-    print(f"[alg1] spawned, ran and joined in {time.perf_counter() - t0:.1f} "
-          f"s")
+    results = spawn_ranks(12, _alg1_rank, ALG1_WORLD, (sass, mhz))
     for res in results:
         for line in res["lines"]:
             print(line)
     for name in ("sketch_fwd", "gen_omega"):
+        n = [res["launches"][name] for res in results]
+        check(all(x > 0 for x in n), f"{name} not launched on every rank: "
+                                     f"{n}")
+    return results
+
+
+def _alg2_rank(rank, world, sass, mhz):
+    """Phase 13, one rank."""
+    import torch.distributed as dist
+    from repro_torch.core import nystrom as nys
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.grid import alg2_bandwidth_words
+    from repro_torch.core.sketch import _omega_tile_torch
+    from repro_torch.kernels import local
+    from repro_torch.kernels.sketch_matmul import (
+        LAUNCHES, reset_launches, sketch_t_scratch_bytes, sketch_t_splits)
+    from repro_torch.parallel import collectives as col
+
+    dev = torch.device("cuda", 0)
+    P, p = world, (world, 1, 1)
+    lines = []
+
+    def say(msg):
+        lines.append(f"[alg2] rank {rank}: {msg}")
+
+    A = make_matrix(dev)
+    same_matrix(A, rank, world)
+    # the check: the one-device port's pair (sketch_fwd, then sketch_t)
+    B_one = local.sketch_block(A, SEED, R)
+    C_one = local.sketch_t_block(B_one, SEED, R)
+    torch.cuda.synchronize()
+    g = sk.make_grid_groups(*p)
+    # words received: No-Redist's reduce-scatter is the formula on
+    # (P,1,1) twice; Redist's all-to-all keeps 1/P of its n·r/P words, so
+    # it receives less than the formula's n·r/P term
+    words = {"no_redist": (P - 1) * R * R // P,
+             "redist": (P - 1) * N * R // P ** 2}
+    formula = {"no_redist": alg2_bandwidth_words(N, R, p, p),
+               "redist": alg2_bandwidth_words(N, R, p, (1, 1, P))}
+    check(words["no_redist"] == formula["no_redist"]
+          and words["redist"] < formula["redist"] == N * R / P,
+          f"the word counts {words} against the formula {formula}")
+    names = ("sketch_fwd", "sketch_t", "gen_omega")
+    runs, launches, pairs = {}, dict.fromkeys(names, 0), {}
+
+    def drive(name, variant, fn):
+        dist.barrier()
+        reset_launches()
+        col.reset_comm()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        B, C = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: LAUNCHES[k] for k in names}
+        got = col.comm_words()
+        peak = torch.cuda.max_memory_allocated()
+        for k in names:
+            launches[k] += counts[k]
+        B_ref = nys.nystrom_block(B_one, g, variant)
+        C_ref = nys.nystrom_block(C_one, g, variant)
+        check(B.shape == B_ref.shape and C.shape == C_ref.shape
+              and bool(torch.isfinite(B).all() and torch.isfinite(C).all()),
+              f"rank {rank}: {name}: B {tuple(B.shape)}, C {tuple(C.shape)}")
+        where = "rows" if variant == "no_redist" else "columns"
+        check(torch.equal(B, B_ref), f"rank {rank}: {name}: B is not "
+                                     f"bitwise the one-device B's {where}")
+        err, tol = rel_fro(C, C_ref), f32_tol(N)
+        check(err <= tol, f"rank {rank}: {name}: C rel_fro {err:.3e} > "
+                          f"f32_tol(n) {tol:.1e}")
+        check(got == words[variant],
+              f"rank {rank}: {name}: {got} words received, not "
+              f"{words[variant]}")
+        check(counts == {"sketch_fwd": 1, "sketch_t": 1, "gen_omega": 0},
+              f"rank {rank}: {name} launched {counts}")
+        say(f"{name} ({variant}): B {tuple(B.shape)} bitwise the one-device "
+            f"B's {where}; C {tuple(C.shape)} rel_fro {err:.3e} <= "
+            f"f32_tol(n) {tol:.1e}; words received {got} (formula "
+            f"{formula[variant]:.0f}, gap {formula[variant] - got:.0f}); "
+            f"launches {counts}; wall {wall:.4f} s; peak "
+            f"{peak / 2 ** 30:.2f} GiB")
+        runs[name] = {"variant": variant, "words": got,
+                      "formula_words": formula[variant], "c_rel_fro": err,
+                      "wall_s": wall, "peak_gib": peak / 2 ** 30,
+                      "launches": counts}
+        pairs[name] = (B, C)
+
+    def auto():
+        B, C, ga, variant = nys.nystrom_auto(A, SEED, R)
+        check((variant, ga.shape) == ("no_redist", p),
+              f"nystrom_auto chose {variant} on {ga.shape}, not no_redist "
+              f"(n/r = {N // R} > P = {P})")
+        return B, C
+
+    drive("auto", "no_redist", auto)
+    blk_in = sk.input_block(A, g)
+    for variant in ALG2_VARIANTS:
+        fn = {"no_redist": nys.nystrom_no_redist,
+              "redist": nys.nystrom_redist}[variant]
+        drive(variant, variant, lambda: fn(blk_in, SEED, R, g))
+    check(torch.equal(pairs["auto"][0], pairs["no_redist"][0])
+          and torch.equal(pairs["auto"][1], pairs["no_redist"][1]),
+          f"rank {rank}: auto and no_redist differ")
+    del B_one, C_one
+    # each variant's pair, gathered (uncounted), reconstructs A on rank 0
+    rel = {}
+    for variant in ALG2_VARIANTS:
+        B, C = pairs[variant]
+        B_full = nys.nystrom_gather(B, g, variant)
+        C_full = nys.nystrom_gather(C, g, variant)
+        if rank == 0:
+            rel[variant] = float(nys.relative_error(A, B_full, C_full,
+                                                    rcond=NYSTROM_RCOND))
+            check(math.isfinite(rel[variant]) and rel[variant] <= 1e-4,
+                  f"{variant}: Nystrom relative error {rel[variant]}")
+            say(f"{variant}: Nystrom relative error ||A - B C+ B^T||/||A|| "
+                f"= {rel[variant]:.3e} at rcond {NYSTROM_RCOND:g}")
+        del B_full, C_full
+    dist.barrier()
+    torch.cuda.empty_cache()
+
+    # the local kernels at this rank's shapes, four ranks sharing the card;
+    # the device time of each sketch_t call's draw, product and reduce on
+    # rank 0 alone (the other ranks wait)
+    calls = {"sketch_t": {}, "sketch_fwd": {}}
+    stage2 = (("no_redist", pairs["no_redist"][0], g.coords[0] * (N // P)),
+              ("redist", pairs["redist"][0], 0))
+    for variant, Bb, row0 in stage2:
+        K, c = Bb.shape
+        om = _omega_tile_torch(SEED, 0, row0, 0, K, R, "normal", 0, None,
+                               None, dev)
+
+        def kernel():
+            return local.sketch_t_block(Bb, SEED, R, row0=row0)
+
+        def plain_fn():
+            return local._sketch_t_block_torch(Bb, SEED, R, row0=row0)
+
+        got, plain = kernel(), plain_fn()
+        err, abs_err = rel_fro(got, plain), max_abs(got, plain)
+        check(err <= f32_tol(K), f"rank {rank}: sketch_t ({variant}) "
+                                 f"rel_fro {err:.3e} vs plain")
+        bms, by = bound_ms(2.0 * R * K * c, 4.0 * (K * c + R * c))
+        splits = sketch_t_splits(R, c, K)
+        calls["sketch_t"][variant] = {
+            "shape": f"{K}x{c} -> {R}x{c} at row0 {row0}",
+            "ms": time_ms(kernel), "plain_ms": time_ms(plain_fn, reps=3),
+            "library_ms": time_ms(lambda: torch.matmul(om.T, Bb)),
+            "bound_ms": bms, "bound_by": by,
+            "draw_bound_ms": omega_ops_bound_ms(sass, K * R, mhz)[0],
+            "splits": splits, "scratch_bytes": sketch_t_scratch_bytes(R, K),
+            "work_bytes": 4 * splits * R * c if splits > 1 else 0,
+            "max_abs_err": abs_err, "rel_fro": err}
+        dist.barrier()
+        if rank == 0:
+            calls["sketch_t"][variant]["device_ms"] = kernel_parts(
+                kernel, "sketch_t_gemm_kernel")
+        dist.barrier()
+        del om, got, plain
+    m = N // P
+    om = _omega_tile_torch(SEED, 0, 0, 0, N, R, "normal", 0, None, None,
+                           dev)
+    got = local.sketch_block(blk_in, SEED, R)
+    plain = local._sketch_block_torch(blk_in, SEED, R)
+    err = rel_fro(got, plain)
+    check(err <= f32_tol(N), f"rank {rank}: sketch_fwd rel_fro {err:.3e} "
+                             f"vs plain")
+    bms, by = bound_ms(2.0 * m * N * R, 4.0 * (m * N + m * R))
+    calls["sketch_fwd"]["first_stage"] = {
+        "shape": f"{m}x{N} -> {m}x{R}",
+        "ms": time_ms(lambda: local.sketch_block(blk_in, SEED, R)),
+        "plain_ms": time_ms(lambda: local._sketch_block_torch(blk_in, SEED,
+                                                             R), reps=3),
+        "library_ms": time_ms(lambda: torch.matmul(blk_in, om)),
+        "bound_ms": bms, "bound_by": by, "max_abs_err": max_abs(got, plain),
+        "rel_fro": err}
+    del om, got, plain
+    for name, by_call in calls.items():
+        for call, rec in by_call.items():
+            extra = ""
+            if name == "sketch_t":
+                extra = (f"; {rec['splits']} splits, Omega scratch "
+                         f"{rec['scratch_bytes'] / 2 ** 20:.0f} MiB, work "
+                         f"{rec['work_bytes'] / 2 ** 20:.0f} MiB; draw bound "
+                         f"{rec['draw_bound_ms']:.4f} ms (SASS)")
+                if "device_ms" in rec:
+                    extra += (f"; on the device, rank 0 alone "
+                              f"(torch.profiler): "
+                              f"{parts_text(rec['device_ms'])}")
+            say(f"local kernel {name} ({call}) {rec['shape']} (four ranks "
+                f"share the card): {rec['ms']:.4f} ms (plain "
+                f"{rec['plain_ms']:.3f}, library {rec['library_ms']:.4f}, "
+                f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}), "
+                f"max_abs_err {rec['max_abs_err']:.3e}{extra}")
+    say("wall time per call (gloo through host memory, not an "
+        "interconnect time): " + ", ".join(
+            f"{n} {r['wall_s']:.4f} s" for n, r in runs.items()))
+    dist.barrier()
+    return {"lines": lines, "runs": runs, "launches": launches,
+            "calls": calls, "relative_error": rel}
+
+
+def phase_alg2(sass, mhz):
+    """Phase 13: the 1-D Alg. 2 on ALG2_WORLD ranks of one card over gloo,
+    each rank holding phase 1-5's A."""
+    print(f"[alg2] {ALG2_WORLD} ranks on cuda:0 over gloo (the "
+          f"reduce-scatter and the all-to-all take CUDA tensors; gloo "
+          f"stages them through host memory itself): A {N}x{N} f32, r = "
+          f"{R}, nystrom_auto, then {', '.join(ALG2_VARIANTS)}")
+    results = spawn_ranks(13, _alg2_rank, ALG2_WORLD, (sass, mhz))
+    for res in results:
+        for line in res["lines"]:
+            print(line)
+    for name in ("sketch_fwd", "sketch_t"):
         n = [res["launches"][name] for res in results]
         check(all(x > 0 for x in n), f"{name} not launched on every rank: "
                                      f"{n}")
@@ -1632,6 +1892,8 @@ def main() -> int:
           f"card")
     alg1 = phase_alg1(sass, mhz)
     print(f"[phases] 12 done at {time.perf_counter() - t_start:.1f} s")
+    alg2 = phase_alg2(sass, mhz)
+    print(f"[phases] 13 done at {time.perf_counter() - t_start:.1f} s")
 
     total = [sum(gemm_times[c][i] for c in "abc") for i in range(3)]
     bound3 = sum(gemm_times[c][3][0] for c in "abc")
@@ -1681,6 +1943,13 @@ def main() -> int:
             kernels[-1]["alg1"] = {
                 "launches": [res["launches"][name] for res in alg1],
                 "calls": [res["calls"][name] for res in alg1]}
+        if name in ("sketch_fwd", "sketch_t"):
+            # phase 13: each rank's launches over its three Alg. 2 runs
+            # (counts reset just before each run), and its local calls
+            # timed with four ranks sharing the card
+            kernels[-1]["alg2"] = {
+                "launches": [res["launches"][name] for res in alg2],
+                "calls": [res["calls"][name] for res in alg2]}
         if name in ("sketch_t", "sketch_fwd"):
             # ms, plain_ms, library_ms and bound_ms are those of sketch_t's
             # W update and of sketch_fwd's one-shot; each of the main

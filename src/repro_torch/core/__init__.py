@@ -1,5 +1,6 @@
 """Core: Omega draws at global coordinates, the one-device oracles, the
-communication bounds and grids, and Alg. 1 on torch.distributed."""
+communication bounds and grids, and Alg. 1 and the 1-D Alg. 2 on
+torch.distributed."""
 from . import kinds, rng, sketch, nystrom, lower_bounds, grid  # noqa: F401
 
 from .kinds import (  # noqa: F401
@@ -12,7 +13,9 @@ from .sketch import (  # noqa: F401
     sparse_omega_map, sparse_omega_rows,
 )
 from .nystrom import (  # noqa: F401
-    nystrom_reference, reconstruct, relative_error,
+    nystrom_auto, nystrom_block, nystrom_gather, nystrom_no_redist,
+    nystrom_redist, nystrom_reference, nystrom_second_stage_no_redist,
+    nystrom_second_stage_redist, reconstruct, relative_error,
 )
 from .lower_bounds import (  # noqa: F401
     gemm_lower_bound, matmul_lower_bound, matmul_regime, nystrom_lower_bound,

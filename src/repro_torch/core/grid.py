@@ -328,11 +328,11 @@ def two_grid_shared_mesh(p: Tuple[int, int, int],
                          q: Tuple[int, int, int],
                          devices=None):
     """One set of process groups serving both grids of a two-grid Alg. 2
-    run: not ported yet (ROADMAP.md Queue 1, item 5)."""
+    run: not ported yet (ROADMAP.md Queue 1, item 5b)."""
     raise NotImplementedError(
         "two_grid_shared_mesh: the process groups serving both grids of a "
         "two-grid Alg. 2 run are not ported yet (ROADMAP.md Queue 1, "
-        "item 5); two_grid_axis_split gives the refinement")
+        "item 5b); two_grid_axis_split gives the refinement")
 
 
 def _snap_1d(n: int, P: int) -> Tuple[int, int, int]:

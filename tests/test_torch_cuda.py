@@ -601,3 +601,27 @@ def test_alg1_four_ranks_on_one_card_match_the_one_device_sketch(dev):
                 assert bitwise and words == 0, (rank, err)
             else:
                 assert err <= 16 * np.sqrt(n2 // 2) * 2.0 ** -24, (rank, err)
+
+
+def test_alg2_1d_four_ranks_on_one_card(dev):
+    """The 1-D Alg. 2 on 4 gloo ranks that share cuda:0 (n = 1024, r =
+    64): B is bitwise the one-device card sketch's rows (No-Redist: the
+    same kernel on the same rows) or columns (Redist: the all-to-all is a
+    layout move); C within 16·sqrt(n)·2**-24 relative Frobenius of the
+    one-device ``sketch_t``; words received exactly (1 - 1/P)·r² and
+    (1 - 1/P)·n·r/P; one sketch_fwd and one sketch_t launch a run, no
+    gen_omega, and the result on the card."""
+    from torch_dist_helper import alg2_card_worker, run_workers
+    n, r, P = 1024, 64, 4
+    ranks = run_workers(alg2_card_worker, P, n, r, 7)
+    words = {"no_redist": (P - 1) * r * r // P,
+             "redist": (P - 1) * n * r // P ** 2}
+    for rank, res in enumerate(ranks):
+        for variant, want in words.items():
+            bitwise, err, got, launches, where = res[variant]
+            assert where == ("cuda", "cuda"), (rank, variant)
+            assert bitwise, (rank, variant)
+            assert err <= 16 * np.sqrt(n) * 2.0 ** -24, (rank, variant, err)
+            assert got == want, (rank, variant, got)
+            assert launches == {"sketch_fwd": 1, "sketch_t": 1,
+                                "gen_omega": 0}, (rank, variant, launches)

@@ -164,3 +164,119 @@ def alg1_card_worker(rank, world, n1, n2, r, seed, grids):
         out[grid] = (torch.equal(blk, ref), err, col.comm_words(),
                      LAUNCHES["sketch_fwd"], blk.device.type)
     return out
+
+
+def alg2_worker(rank, world, cases, seed, kinds, stage_cases, subgrid):
+    """One rank of the 1-D Alg. 2 cases on the CPU.  ``cases`` maps a
+    name to a symmetric numpy A and r: both variants with every kind of
+    ``kinds``, ``nystrom_auto`` and the first stage alone on each; the
+    second stages alone on each ``(B, r, salt)`` of ``stage_cases``; both
+    variants of the first case on a ``subgrid`` of ``(subgrid, 1, 1)``
+    ranks; the all-to-all on exact values.  Returns numpy blocks, their
+    gathers and the words this rank received, by kind."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import nystrom as nys
+    from repro_torch.core import sketch as sk
+    from repro_torch.parallel import collectives as col
+
+    def arr(t):
+        return None if t is None else t.numpy()
+
+    def comm():
+        return {k: dict(v) for k, v in col.COMM.items()}
+
+    fns = {"no_redist": nys.nystrom_no_redist, "redist": nys.nystrom_redist}
+    g = sk.make_grid_groups(world, 1, 1)
+    out = {"coords": g.coords, "alg2": {}, "auto": {}, "first": {},
+           "stage": {}, "sub": {}}
+    for name, (A, r) in cases.items():
+        At = torch.from_numpy(np.array(A))
+        blk_in = sk.input_block(At, g)
+        for variant, fn in fns.items():
+            for kind in kinds:
+                col.reset_comm()
+                B, C = fn(blk_in, seed, r, g, kind=kind)
+                words = comm()
+                out["alg2"][(name, variant, kind)] = (
+                    arr(B), arr(C), words, arr(nys.nystrom_gather(B, g,
+                                                                  variant)),
+                    arr(nys.nystrom_gather(C, g, variant)))
+        col.reset_comm()
+        B, C, ga, variant = nys.nystrom_auto(At, seed, r)
+        out["auto"][name] = (variant, ga.shape, arr(B), arr(C), comm())
+        col.reset_comm()
+        B = nys._sketch_rows_1d(blk_in, seed, r, g, "normal")
+        out["first"][name] = (arr(B), col.comm_words())
+    for name, (B, r, salt) in stage_cases.items():
+        b_blk = sk.input_block(torch.from_numpy(np.array(B)), g)
+        col.reset_comm()
+        C = nys.nystrom_second_stage_no_redist(b_blk, seed, r, g, salt=salt)
+        out["stage"][(name, "no_redist")] = (
+            None, arr(nys.nystrom_gather(C, g, "no_redist")), comm())
+        col.reset_comm()
+        Bk, Ck = nys.nystrom_second_stage_redist(b_blk, seed, r, g,
+                                                 salt=salt)
+        out["stage"][(name, "redist")] = (
+            arr(nys.nystrom_gather(Bk, g, "redist")),
+            arr(nys.nystrom_gather(Ck, g, "redist")), comm())
+    name = next(iter(cases))
+    A, r = cases[name]
+    gs = sk.make_grid_groups(subgrid, 1, 1)
+    for variant, fn in fns.items():
+        col.reset_comm()
+        B, C = fn(sk.input_block(torch.from_numpy(np.array(A)), gs), seed,
+                  r, gs)
+        out["sub"][variant] = (gs.coords, comm(),
+                               arr(nys.nystrom_gather(B, gs, variant)),
+                               arr(nys.nystrom_gather(C, gs, variant)))
+    # the all-to-all alone, on exact values: rank q holds 100·q + arange
+    x = (torch.arange(2 * 3 * world, dtype=torch.float32)
+         .reshape(2, 3 * world) + 100.0 * rank)
+    col.reset_comm()
+    out["a2a"] = (col.all_to_all(x, None, world).numpy(), comm())
+    col.reset_comm()
+    one = col.all_to_all(x, None, 1)
+    out["a2a_one"] = (one is x, comm())
+    return out
+
+
+def alg2_card_worker(rank, world, n, r, seed):
+    """One rank of the 1-D Alg. 2 on cuda:0 (every rank shares the one
+    card): a symmetric A drawn on the card from a seeded generator, both
+    variants against the one-device card sketch (``sketch_block``) and
+    ``sketch_t_block`` of it.  Returns, per variant, (B bitwise, C
+    rel_fro, words received, launches, B and C devices)."""
+    import torch
+
+    from repro_torch.core import nystrom as nys
+    from repro_torch.core import sketch as sk
+    from repro_torch.kernels import (LAUNCHES, reset_launches, sketch_block,
+                                     sketch_t_block)
+    from repro_torch.parallel import collectives as col
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    G = torch.randn(n, n, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    A = (G + G.T) / 2
+    B_one = sketch_block(A, seed, r)
+    C_one = sketch_t_block(B_one, seed, r)
+    g = sk.make_grid_groups(world, 1, 1)
+    out = {}
+    for variant, fn in (("no_redist", nys.nystrom_no_redist),
+                        ("redist", nys.nystrom_redist)):
+        blk_in = sk.input_block(A, g)
+        col.reset_comm()
+        reset_launches()
+        B, C = fn(blk_in, seed, r, g)
+        torch.cuda.synchronize()
+        launches = {k: LAUNCHES[k] for k in ("sketch_fwd", "sketch_t",
+                                             "gen_omega")}
+        C_ref = nys.nystrom_block(C_one, g, variant)
+        err = float(torch.linalg.norm(C - C_ref) / torch.linalg.norm(C_ref))
+        out[variant] = (torch.equal(B, nys.nystrom_block(B_one, g, variant)),
+                        err, col.comm_words(), launches,
+                        (B.device.type, C.device.type))
+    return out
