@@ -154,6 +154,38 @@ then the 1-D Alg. 2 (paper §5.3), the same way:
                   work bytes; rank 0 alone splits each sketch_t call's
                   device time into its draw, product and reduce.
 
+then the two-grid Alg. 2 (paper §5.3 approach 1), the same way:
+
+ 14. two-grid   — four ranks spawned on cuda:0 over gloo (the Redistribute
+                  of B is one uneven ``all_to_all_single`` of CUDA
+                  tensors), each holding phases 1-5's A; Omega seed 7:
+                  ``nystrom_auto(variant="bound_driven")`` at r = 512 (it
+                  must pick ((4,1,1), (1,1,4)), and B and C must be
+                  bitwise phase 13's ``nystrom_redist`` blocks),
+                  ``nystrom_two_grid`` on (4,1,1) -> (1,2,2), (4,1,1) ->
+                  (2,1,2) and (2,2,1) -> (4,1,1), ``nystrom_two_grid_fused``
+                  on the first (bitwise ``nystrom_two_grid``),
+                  ``nystrom_general`` on (2,2,1) with its axes permuted to
+                  q = (1,2,2), ``nystrom_second_stage_two_grid_fused`` from
+                  the one-device B's row blocks under salt 3, and
+                  ``nystrom_auto(variant="bound_driven")`` at r = 2 (it
+                  must pick the regime-2 pair ((4,1,1), (2,1,2)); the 1-D
+                  variants must refuse).  Each rank holds B bitwise to the
+                  one-device B's q-block where p = (4,1,1) (within
+                  f32_tol(n) elsewhere), C within f32_tol(n) of the
+                  one-device C's block, its words received exactly by kind
+                  (the Redistribute: its q-block less what it held), one
+                  sketch_fwd and one sketch_t a run (none of sketch_fwd for
+                  the second stage alone) and no gen_omega; rank 0's
+                  Nystrom error of the r = 512 pair must be <= 1e-4.  Then
+                  each rank times the runs' collectives alone (the
+                  Redistribute from (4,1,1) to three q-layouts, the q2
+                  all-gather of (1,2,2), the p2 reduce-scatter of
+                  (2,2,1)), and sketch_t at the new second-stage shapes
+                  (32768x256 -> 256x256; 16384x256 -> 512x256 at row
+                  i·16384; 16384x1 -> 2x1) and sketch_fwd on its narrow
+                  path (8192x32768 -> 2) as phase 13 does.
+
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and the exit code is non-zero; without a CUDA card it exits 1 and prints no
@@ -194,6 +226,21 @@ ALG1_COMM_GRID = (2, 2, 1)
 # phase 13: the 1-D Alg. 2 on four ranks of one card, at phase 1-5's A
 ALG2_WORLD = 4
 ALG2_VARIANTS = ("no_redist", "redist")
+# phase 14: the two-grid Alg. 2 on four ranks of one card, at phase 1-5's A
+TG_WORLD = 4
+TG_R2 = 2                       # regime 2 (r < P): the 1-D variants refuse
+TG_SALT = 3
+TG_PAIRS = [((4, 1, 1), (1, 2, 2)), ((4, 1, 1), (2, 1, 2)),
+            ((2, 2, 1), (4, 1, 1))]
+TG_FUSED = ((4, 1, 1), (1, 2, 2))
+TG_GENERAL = ((2, 2, 1), (2, 1, 0))      # q-axes (p3, p2, p1): q = (1, 2, 2)
+# words each rank receives at n = 32768, P = 4, by (p, q, r): (the
+# Redistribute's, all of them), worked out with the reference's functions
+TG_WORDS = {((4, 1, 1), (1, 1, 4), 512): (3145728, 3145728),
+            ((4, 1, 1), (1, 2, 2), 512): (3145728, 7340032),
+            ((4, 1, 1), (2, 1, 2), 512): (2097152, 2162688),
+            ((2, 2, 1), (4, 1, 1), 512): (0, 4390912),
+            ((4, 1, 1), (2, 1, 2), 2): (8192, 8193)}
 RANKS_TIMEOUT_S = 600
 SERVE_ARGS = ["--workload", "sketch", "--streams", "128", "--updates", "4",
               "--n1", str(S_N1), "--n2", str(S_N2), "--r", str(S_R),
@@ -1614,6 +1661,380 @@ def phase_alg2(sass, mhz):
     return results
 
 
+def _coords(rank: int, shape) -> tuple:
+    """Row-major coordinates of ``rank`` on a grid of ``shape``."""
+    return tuple(int(c) for c in np.unravel_index(rank, shape))
+
+
+def two_grid_words(n, r, p, q, pc, qc, stage1=True) -> dict:
+    """Words the rank at p-coordinates ``pc`` and q-coordinates ``qc``
+    receives in one two-grid run, by kind (its second stage alone when
+    ``stage1`` is False): Alg. 1's on p, its q-block of B (rows over q1,
+    columns over (q3, q2)) less what its p-block (rows over (p1, p2),
+    columns over p3) held, the q2 all-gather, the q1 reduce-scatter."""
+    p1, p2, p3 = p
+    q1, q2, q3 = q
+    P = p1 * p2 * p3
+    i, j, k = pc
+    iq, jq, kq = qc
+    held_r = ((i * p2 + j) * (n // (p1 * p2)), n // (p1 * p2))
+    held_c = (k * (r // p3), r // p3)
+    rows, cols = n // q1, r // (q2 * q3)
+    want_r, want_c = (iq * rows, rows), ((kq * q2 + jq) * cols, cols)
+
+    def span(a, b):
+        return max(0, min(a[0] + a[1], b[0] + b[1]) - max(a[0], b[0]))
+
+    words = {"all_gather": (q2 - 1) * n * r // (q1 * q2 * q3),
+             "reduce_scatter": (q1 - 1) * r * r // (q1 * q2 * q3),
+             "all_to_all": 0,
+             "redistribute": rows * cols - span(held_r, want_r)
+             * span(held_c, want_c)}
+    if stage1:
+        words["all_gather"] += (p3 - 1) * n * n // P
+        words["reduce_scatter"] += (p2 - 1) * n * r // P
+    return words
+
+
+def _two_grid_rank(rank, world, sass, mhz):
+    """Phase 14, one rank."""
+    import torch.distributed as dist
+    from repro_torch.core import nystrom as nys
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.grid import select_two_grid_executable
+    from repro_torch.core.sketch import _omega_tile_torch
+    from repro_torch.kernels import local
+    from repro_torch.kernels.sketch_matmul import (
+        LAUNCHES, reset_launches, sketch_t_scratch_bytes, sketch_t_splits)
+    from repro_torch.parallel import collectives as col
+    from repro_torch.plan.model import fused_redistribute_words
+
+    dev = torch.device("cuda", 0)
+    P = world
+    lines = []
+
+    def say(msg):
+        lines.append(f"[two-grid] rank {rank}: {msg}")
+
+    A = make_matrix(dev)
+    same_matrix(A, rank, world)
+    # the check: the one-device port's pairs (sketch_fwd, then sketch_t),
+    # and C of B under the second stages' salt
+    one = {r: local.sketch_block(A, SEED, r) for r in (R, TG_R2)}
+    C_one = {r: local.sketch_t_block(B, SEED, r) for r, B in one.items()}
+    C_salt = local.sketch_t_block(one[R], SEED, R, salt=TG_SALT)
+    torch.cuda.synchronize()
+    g1 = sk.make_grid_groups(P, 1, 1)
+    names = ("sketch_fwd", "sketch_t", "gen_omega")
+    runs, launches, outs = {}, dict.fromkeys(names, 0), {}
+
+    def drive(name, p, q, r, fn, gq, qc, fwd=1, C_full=None):
+        dist.barrier()
+        reset_launches()
+        col.reset_comm()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        B, C = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: LAUNCHES[k] for k in names}
+        words = {k: v["words"] for k, v in col.COMM.items()}
+        peak = torch.cuda.max_memory_allocated()
+        for k in names:
+            launches[k] += counts[k]
+        B_ref = nys.two_grid_block(one[r], gq, "B")
+        C_ref = nys.two_grid_block(C_one[r] if C_full is None else C_full,
+                                   gq, "C")
+        check(B.shape == B_ref.shape and C.shape == C_ref.shape
+              and bool(torch.isfinite(B).all() and torch.isfinite(C).all()),
+              f"rank {rank}: {name}: B {tuple(B.shape)}, "
+              f"C {tuple(C.shape)}")
+        err_b, tol = rel_fro(B, B_ref), f32_tol(N)
+        if p == (P, 1, 1):
+            check(torch.equal(B, B_ref), f"rank {rank}: {name}: B is not "
+                                         f"bitwise the one-device B's "
+                                         f"q-block (rel_fro {err_b:.3e})")
+            held = "bitwise"
+        else:
+            check(err_b <= tol, f"rank {rank}: {name}: B rel_fro "
+                                f"{err_b:.3e} > f32_tol(n) {tol:.1e}")
+            held = f"rel_fro {err_b:.3e}"
+        err_c = rel_fro(C, C_ref)
+        check(err_c <= tol, f"rank {rank}: {name}: C rel_fro {err_c:.3e} > "
+                            f"f32_tol(n) {tol:.1e}")
+        want = two_grid_words(N, r, p, q, _coords(rank, p), qc,
+                              stage1=fwd > 0)
+        check(words == want, f"rank {rank}: {name}: words received "
+                             f"{words}, not {want}")
+        table = TG_WORDS.get((p, q, r))
+        if table is not None and fwd:
+            check((want["redistribute"], sum(want.values())) == table,
+                  f"rank {rank}: {name}: {want} against the table {table}")
+        if gq.order is None:
+            check(words["redistribute"]
+                  <= fused_redistribute_words(N, r, p, q),
+                  f"rank {rank}: {name}: Redistribute above the "
+                  f"reference's min-cut")
+        check(counts == {"sketch_fwd": fwd, "sketch_t": 1, "gen_omega": 0},
+              f"rank {rank}: {name} launched {counts}")
+        say(f"{name}: p {p} -> q {q}, r = {r}: B {tuple(B.shape)} {held} "
+            f"the one-device B's q-block; C {tuple(C.shape)} rel_fro "
+            f"{err_c:.3e} <= f32_tol(n) {tol:.1e}; words received "
+            f"{sum(words.values())} ({words}); launches {counts}; wall "
+            f"{wall:.4f} s; peak {peak / 2 ** 30:.2f} GiB")
+        runs[name] = {"p": list(p), "q": list(q), "r": r, "words": words,
+                      "b_rel_fro": err_b, "c_rel_fro": err_c,
+                      "b_bitwise": held == "bitwise", "wall_s": wall,
+                      "peak_gib": peak / 2 ** 30, "launches": counts}
+        outs[name] = (B, C)
+
+    def auto(r, q):
+        def fn():
+            B, C, gq, variant = nys.nystrom_auto(A, SEED, r,
+                                                 variant="bound_driven")
+            check((variant, gq.shape) == ("bound_driven", q),
+                  f"nystrom_auto at r = {r} ran {variant} on {gq.shape}")
+            return B, C
+        return fn
+
+    # bound-driven at r = 512: regime 1's pair, which is the 1-D Redist
+    p, q = (P, 1, 1), (1, 1, P)
+    check(select_two_grid_executable(N, R, P) == (p, q, True),
+          f"bound-driven pair at r = {R}: "
+          f"{select_two_grid_executable(N, R, P)}")
+    gq = sk.make_grid_groups(*q)
+    drive("auto", p, q, R, auto(R, q), gq, _coords(rank, q))
+    B_x, C_x = nys.nystrom_redist(sk.input_block(A, g1), SEED, R, g1)
+    check(torch.equal(outs["auto"][0], B_x)
+          and torch.equal(outs["auto"][1], C_x),
+          f"rank {rank}: bound-driven (4,1,1) -> (1,1,4) is not bitwise "
+          f"nystrom_redist")
+    say("bound-driven at r = 512 picked ((4,1,1), (1,1,4)); B and C "
+        "bitwise phase 13's nystrom_redist blocks")
+    del B_x, C_x
+    # B and C gathered (uncounted) reconstruct A on rank 0
+    rel = {}
+    B_full = nys.two_grid_gather(outs["auto"][0], gq, "B")
+    C_full = nys.two_grid_gather(outs["auto"][1], gq, "C")
+    if rank == 0:
+        rel["auto"] = float(nys.relative_error(A, B_full, C_full,
+                                               rcond=NYSTROM_RCOND))
+        check(math.isfinite(rel["auto"]) and rel["auto"] <= 1e-4,
+              f"bound-driven: Nystrom relative error {rel['auto']}")
+        say(f"bound-driven: Nystrom relative error ||A - B C+ B^T||/||A|| "
+            f"= {rel['auto']:.3e} at rcond {NYSTROM_RCOND:g}")
+    del B_full, C_full
+    torch.cuda.empty_cache()
+    for p, q in TG_PAIRS:
+        blk = sk.input_block(A, sk.make_grid_groups(*p))
+        drive(f"{p}->{q}", p, q, R,
+              lambda: nys.nystrom_two_grid(blk, SEED, R, p=p, q=q),
+              sk.make_grid_groups(*q), _coords(rank, q))
+        del blk
+    p, q = TG_FUSED
+    blk = sk.input_block(A, sk.make_grid_groups(*p))
+    drive("fused", p, q, R,
+          lambda: nys.nystrom_two_grid_fused(blk, SEED, R, p=p, q=q),
+          sk.make_grid_groups(*q), _coords(rank, q))
+    check(all(torch.equal(a, b) for a, b in zip(outs["fused"],
+                                                outs[f"{p}->{q}"])),
+          f"rank {rank}: nystrom_two_grid_fused differs from "
+          f"nystrom_two_grid on {p} -> {q}")
+    del blk
+    p, perm = TG_GENERAL
+    g = sk.make_grid_groups(*p)
+    gq = nys.permuted_grid_groups(g, perm)
+    blk = sk.input_block(A, g)
+    pc = _coords(rank, p)
+    drive("general", p, gq.shape, R,
+          lambda: nys.nystrom_general(blk, SEED, R, g, q_perm=perm), gq,
+          tuple(pc[a] for a in perm))
+    del blk
+    # the streamed-finalize form: the one-device B's row blocks, a salt
+    p, q = (P, 1, 1), (1, 2, 2)
+    rows = nys.nystrom_block(one[R], g1, "no_redist")
+    drive("stage2_fused", p, q, R,
+          lambda: nys.nystrom_second_stage_two_grid_fused(
+              rows, SEED, R, q, salt=TG_SALT),
+          sk.make_grid_groups(*q), _coords(rank, q), fwd=0, C_full=C_salt)
+    # regime 2: r = 2 < P; only the two-grid pair runs
+    p, q = (P, 1, 1), (2, 1, 2)
+    check(select_two_grid_executable(N, TG_R2, P)[:2] == (p, q),
+          f"bound-driven pair at r = {TG_R2}: "
+          f"{select_two_grid_executable(N, TG_R2, P)}")
+    drive("auto_r2", p, q, TG_R2, auto(TG_R2, q), sk.make_grid_groups(*q),
+          _coords(rank, q))
+    refused = []
+    for variant, fn in (("no_redist", nys.nystrom_no_redist),
+                        ("redist", nys.nystrom_redist)):
+        try:
+            fn(sk.input_block(A, g1), SEED, TG_R2, g1)
+        except ValueError as e:
+            refused.append(f"{variant}: {e}")
+        else:
+            check(False, f"rank {rank}: {variant} ran at r = {TG_R2} < P")
+    say(f"regime 2 (r = {TG_R2}) picked {(p, q)}; the 1-D variants refuse "
+        f"({'; '.join(refused)})")
+    outs.clear()
+    dist.barrier()
+    torch.cuda.empty_cache()
+
+    # the collectives of the runs above alone, at their shapes: median of
+    # three host-clock times between barriers, each ending in a synchronize
+    def timed(fn):
+        times = []
+        for _ in range(3):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    comm_s = {}
+    rows = rows.contiguous()
+    src = [nys._b_p_rect(g1.coords_of(d), g1.shape, N, R) for d in range(P)]
+    for q in ((1, 1, P), (1, 2, 2), (2, 1, 2)):
+        gq = sk.make_grid_groups(*q)
+        dst = [nys._q_rect(gq.coords_of(d), q, "B", N, R) for d in range(P)]
+        comm_s[f"redistribute (4,1,1)->{q}"] = timed(
+            lambda: col.redistribute(rows, src, dst, rank, gq.grid_group))
+    gq = sk.make_grid_groups(1, 2, 2)
+    b_q = nys.two_grid_block(one[R], gq, "B").contiguous()
+    comm_s["all_gather of B over q2 = 2, q = (1,2,2)"] = timed(
+        lambda: col.all_gather(b_q, 1, gq.p2_group, 2))
+    g = sk.make_grid_groups(2, 2, 1)
+    part = one[R][:N // 2].contiguous()
+    comm_s["reduce_scatter of B over p2 = 2, p = (2,2,1)"] = timed(
+        lambda: col.reduce_scatter(part, g.p2_group, 2))
+    del rows, b_q, part
+    say("collectives alone (gloo through host memory, CUDA tensors): "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in comm_s.items()))
+
+    # sketch_t at the new second-stage shapes and sketch_fwd on its narrow
+    # path, four ranks sharing the card; rank 0 alone splits the device
+    # time into draw, product and reduce (the other ranks wait)
+    calls = {"sketch_t": {}, "sketch_fwd": {}}
+    i, j, k = _coords(rank, (1, 2, 2))
+    i2, _, k2 = _coords(rank, (2, 1, 2))
+    half = N // 2
+    w = R // 2
+    shapes = {
+        "q=(1,2,2)": (one[R][:, k * w:(k + 1) * w], w, 0, j * w),
+        "q=(2,1,2)": (one[R][i2 * half:(i2 + 1) * half,
+                             k2 * w:(k2 + 1) * w], R, i2 * half, 0),
+        "q=(2,1,2), r=2": (one[TG_R2][i2 * half:(i2 + 1) * half,
+                                      k2:k2 + 1], TG_R2, i2 * half, 0)}
+    for call, (view, cols, row0, col0) in shapes.items():
+        Bb = view.contiguous()
+        K, c = Bb.shape
+        om = _omega_tile_torch(SEED, 0, row0, col0, K, cols, "normal", 0,
+                               None, None, dev)
+
+        def kernel():
+            return local.sketch_t_block(Bb, SEED, cols, row0=row0,
+                                        col0=col0)
+
+        def plain_fn():
+            return local._sketch_t_block_torch(Bb, SEED, cols, row0=row0,
+                                               col0=col0)
+
+        got, plain = kernel(), plain_fn()
+        err, abs_err = rel_fro(got, plain), max_abs(got, plain)
+        check(err <= f32_tol(K), f"rank {rank}: sketch_t ({call}) rel_fro "
+                                 f"{err:.3e} vs plain")
+        bms, by = bound_ms(2.0 * cols * K * c, 4.0 * (K * c + cols * c))
+        splits = sketch_t_splits(cols, c, K)
+        calls["sketch_t"][call] = {
+            "shape": f"{K}x{c} -> {cols}x{c} at ({row0},{col0})",
+            "ms": time_ms(kernel), "plain_ms": time_ms(plain_fn, reps=3),
+            "library_ms": time_ms(lambda: torch.matmul(om.T, Bb)),
+            "bound_ms": bms, "bound_by": by,
+            "draw_bound_ms": omega_ops_bound_ms(sass, K * cols, mhz)[0],
+            "splits": splits,
+            "scratch_bytes": sketch_t_scratch_bytes(cols, K),
+            "work_bytes": 4 * splits * cols * c if splits > 1 else 0,
+            "max_abs_err": abs_err, "rel_fro": err}
+        dist.barrier()
+        if rank == 0:
+            calls["sketch_t"][call]["device_ms"] = kernel_parts(
+                kernel, "sketch_t_gemm_kernel")
+        dist.barrier()
+        del Bb, om, got, plain
+    blk_in = sk.input_block(A, g1)
+    m = blk_in.shape[0]
+    om = _omega_tile_torch(SEED, 0, 0, 0, N, TG_R2, "normal", 0, None, None,
+                           dev)
+
+    def fwd_kernel():
+        return local.sketch_block(blk_in, SEED, TG_R2)
+
+    got = fwd_kernel()
+    plain = local._sketch_block_torch(blk_in, SEED, TG_R2)
+    err = rel_fro(got, plain)
+    check(err <= f32_tol(N), f"rank {rank}: narrow sketch_fwd rel_fro "
+                             f"{err:.3e} vs plain")
+    bms, by = bound_ms(2.0 * m * N * TG_R2, 4.0 * (m * N + m * TG_R2))
+    calls["sketch_fwd"]["regime 2"] = {
+        "shape": f"{m}x{N} -> {m}x{TG_R2}", "ms": time_ms(fwd_kernel),
+        "plain_ms": time_ms(lambda: local._sketch_block_torch(
+            blk_in, SEED, TG_R2), reps=3),
+        "library_ms": time_ms(lambda: torch.matmul(blk_in, om)),
+        "bound_ms": bms, "bound_by": by, "max_abs_err": max_abs(got, plain),
+        "rel_fro": err}
+    dist.barrier()
+    if rank == 0:
+        calls["sketch_fwd"]["regime 2"]["device_ms"] = kernel_parts(
+            fwd_kernel, "sketch_fwd_narrow_kernel")
+    dist.barrier()
+    del om, got, plain
+    for name, by_call in calls.items():
+        for call, rec in by_call.items():
+            extra = ""
+            if name == "sketch_t":
+                extra = (f"; {rec['splits']} splits, Omega scratch "
+                         f"{rec['scratch_bytes'] / 2 ** 20:.2f} MiB, work "
+                         f"{rec['work_bytes'] / 2 ** 20:.2f} MiB; draw "
+                         f"bound {rec['draw_bound_ms']:.4f} ms (SASS)")
+            if "device_ms" in rec:
+                extra += (f"; on the device, rank 0 alone "
+                          f"(torch.profiler): {parts_text(rec['device_ms'])}")
+            say(f"local kernel {name} ({call}) {rec['shape']} (four ranks "
+                f"share the card): {rec['ms']:.4f} ms (plain "
+                f"{rec['plain_ms']:.3f}, library {rec['library_ms']:.4f}, "
+                f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}), "
+                f"max_abs_err {rec['max_abs_err']:.3e}{extra}")
+    say("wall time per call (gloo through host memory, not an "
+        "interconnect time): " + ", ".join(
+            f"{n} {r['wall_s']:.4f} s" for n, r in runs.items()))
+    dist.barrier()
+    return {"lines": lines, "runs": runs, "launches": launches,
+            "calls": calls, "relative_error": rel, "collectives_s": comm_s}
+
+
+def phase_two_grid(sass, mhz):
+    """Phase 14: the two-grid Alg. 2 on TG_WORLD ranks of one card over
+    gloo, each rank holding phase 1-5's A."""
+    print(f"[two-grid] {TG_WORLD} ranks on cuda:0 over gloo (the "
+          f"Redistribute is an uneven all_to_all_single of CUDA tensors; "
+          f"gloo stages them through host memory itself): A {N}x{N} f32, "
+          f"r = {R} and {TG_R2}: nystrom_auto(variant='bound_driven'), "
+          f"nystrom_two_grid on {TG_PAIRS}, nystrom_two_grid_fused on "
+          f"{TG_FUSED}, nystrom_general on {TG_GENERAL[0]} with its axes "
+          f"permuted {TG_GENERAL[1]}, nystrom_second_stage_two_grid_fused "
+          f"(salt {TG_SALT})")
+    results = spawn_ranks(14, _two_grid_rank, TG_WORLD, (sass, mhz))
+    for res in results:
+        for line in res["lines"]:
+            print(line)
+    for name in ("sketch_fwd", "sketch_t"):
+        n = [res["launches"][name] for res in results]
+        check(all(x > 0 for x in n), f"{name} not launched on every rank: "
+                                     f"{n}")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1894,6 +2315,8 @@ def main() -> int:
     print(f"[phases] 12 done at {time.perf_counter() - t_start:.1f} s")
     alg2 = phase_alg2(sass, mhz)
     print(f"[phases] 13 done at {time.perf_counter() - t_start:.1f} s")
+    two_grid = phase_two_grid(sass, mhz)
+    print(f"[phases] 14 done at {time.perf_counter() - t_start:.1f} s")
 
     total = [sum(gemm_times[c][i] for c in "abc") for i in range(3)]
     bound3 = sum(gemm_times[c][3][0] for c in "abc")
@@ -1950,6 +2373,10 @@ def main() -> int:
             kernels[-1]["alg2"] = {
                 "launches": [res["launches"][name] for res in alg2],
                 "calls": [res["calls"][name] for res in alg2]}
+            # phase 14: the same for the two-grid Alg. 2's seven runs
+            kernels[-1]["alg2_two_grid"] = {
+                "launches": [res["launches"][name] for res in two_grid],
+                "calls": [res["calls"][name] for res in two_grid]}
         if name in ("sketch_t", "sketch_fwd"):
             # ms, plain_ms, library_ms and bound_ms are those of sketch_t's
             # W update and of sketch_fwd's one-shot; each of the main

@@ -14,14 +14,14 @@ Theorem 3.
 
 The port's copy of ``repro.core.grid`` (pure ``math``; importing
 ``repro.core`` pulls in jax).  ``two_grid_shared_mesh`` builds a JAX mesh
-in the reference; its torch counterpart (process groups serving both grids
-of Alg. 2) is not ported yet and raises.
+in the reference; here it gives the same axis groups over one row-major
+order of process ranks, and holds no mesh.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Iterable, Tuple
+from typing import Iterable, Optional, Tuple
 
 from .lower_bounds import matmul_regime, nystrom_regime
 
@@ -324,15 +324,51 @@ def two_grid_axis_split(p: Tuple[int, int, int],
     return sizes, groups(p), groups(q)
 
 
+@dataclass(frozen=True)
+class TwoGridSharedMesh:
+    """One rank order serving both grids of a two-grid Alg. 2 run.
+
+    ``sizes`` are the axes of the common row-major refinement, named
+    ``g0, g1, ...``; ``p_axes`` / ``q_axes`` are 3-tuples of (possibly
+    empty) tuples of those names whose size products are (p1, p2, p3) /
+    (q1, q2, q3).  Grouped row-major over process ranks ``0 .. P-1``, they
+    give each rank the coordinates ``make_grid_groups(*p)`` and
+    ``make_grid_groups(*q)`` give it (the reference holds a jax ``Mesh``
+    of these axes; the port holds none)."""
+    sizes: Tuple[int, ...]
+    p: Tuple[int, int, int]
+    q: Tuple[int, int, int]
+    p_axes: Tuple[Tuple[str, ...], Tuple[str, ...], Tuple[str, ...]]
+    q_axes: Tuple[Tuple[str, ...], Tuple[str, ...], Tuple[str, ...]]
+
+
 def two_grid_shared_mesh(p: Tuple[int, int, int],
                          q: Tuple[int, int, int],
-                         devices=None):
-    """One set of process groups serving both grids of a two-grid Alg. 2
-    run: not ported yet (ROADMAP.md Queue 1, item 5b)."""
-    raise NotImplementedError(
-        "two_grid_shared_mesh: the process groups serving both grids of a "
-        "two-grid Alg. 2 run are not ported yet (ROADMAP.md Queue 1, "
-        "item 5b); two_grid_axis_split gives the refinement")
+                         world: Optional[int] = None):
+    """The rank order that serves BOTH grids, or ``None``.
+
+    ``None`` exactly where the reference's is: no single row-major
+    assignment of ranks refines both factorizations
+    (``two_grid_axis_split``).  ``world`` is the number of ranks there
+    are (default: the default process group's size); a P above it raises
+    the reference's ``ValueError``."""
+    split = two_grid_axis_split(p, q)
+    if split is None:
+        return None
+    sizes, pg, qg = split
+    if world is None:
+        import torch.distributed as dist
+        world = dist.get_world_size()
+    P = p[0] * p[1] * p[2]
+    if world < P:
+        raise ValueError(f"grids {p}/{q} need {P} devices, have {world}")
+    names = tuple(f"g{i}" for i in range(len(sizes)))
+
+    def to_names(idxs):
+        return tuple(tuple(names[i] for i in grp) for grp in idxs)
+
+    return TwoGridSharedMesh(sizes=sizes, p=tuple(p), q=tuple(q),
+                             p_axes=to_names(pg), q_axes=to_names(qg))
 
 
 def _snap_1d(n: int, P: int) -> Tuple[int, int, int]:

@@ -1,5 +1,5 @@
-"""Nystrom approximation (paper §5): the one-device oracle and the 1-D
-Alg. 2 on torch.distributed.
+"""Nystrom approximation (paper §5): the one-device oracle and Alg. 2 on
+torch.distributed.
 
 For a symmetric A (n x n): B = A·Omega (n x r), C = Omega^T·B (r x r), and
 Ã = B · C† · B^T.  The two 1-D variants of §5.3 run on P ranks in a
@@ -15,21 +15,41 @@ of A (``input_block``):
     received) and C's column block is local.  B and C come out as column
     blocks.
 
-The second stages take any row-sharded B and a ``salt``, so a streamed
-accumulator can finalize through them.  On the card the first stage is
-the ``sketch_fwd`` kernel and the second ``sketch_t``; the dense Omega is
-never formed and never moves.  The distributed entry points run where the
-caller's tensors lie.  The two-grid variants are not ported yet
-(ROADMAP.md Queue 1, item 5b).
+The two-grid Alg. 2 (§5.3 approach 1) runs stage 1, Alg. 1, on a
+(p1, p2, p3) grid and stage 2 on a (q1, q2, q3) grid over the same ranks:
+
+  * ``nystrom_two_grid`` / ``nystrom_two_grid_fused`` — independent
+    factorizations of P, both row-major over ranks 0 .. P-1 (the form
+    Theorem 3's bound-driven grids take); ``nystrom_auto(variant=
+    "bound_driven")`` picks the pair (``select_two_grid_executable``);
+  * ``nystrom_general`` — the q-grid is the p-grid's axes permuted;
+  * ``nystrom_second_stage_two_grid`` / ``_fused`` — stage 2 alone from a
+    B in a p-layout (default (P, 1, 1): a streamed accumulator's row
+    blocks) under a ``salt``.
+
+Between the stages the §5.2 Redistribute moves B from its stage-1 layout
+P((p1, p2), p3) to P(q1, (q3, q2)) by one counted uneven all-to-all
+(``parallel.collectives.redistribute``); stage 2 all-gathers B over q2,
+sketches C's partial and reduce-scatters it over q1.  B comes out in the
+q-layout and C in P((q2, q1), q3) (``two_grid_block``).
+
+The second stages take a ``salt``, so a streamed accumulator can finalize
+through them.  On the card the first stage is the ``sketch_fwd`` kernel
+and the second ``sketch_t``; the dense Omega is never formed and never
+moves.  The distributed entry points run where the caller's tensors lie.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
-from .sketch import (GridGroups, _dense_only, input_block, make_grid_groups,
-                     omega_tile, validate_kind)
+from repro_torch.obs import trace as obs_trace
+
+from .sketch import (GridGroups, _dense_only, grid_ordered, input_block,
+                     make_grid_groups, omega_tile, rand_matmul,
+                     validate_kind)
 
 
 def nystrom_reference(A: torch.Tensor, seed, r: int, kind: str = "normal"):
@@ -165,28 +185,39 @@ def nystrom_redist(A_blk: Optional[torch.Tensor], seed, r: int,
 def nystrom_auto(A: torch.Tensor, seed, r: int, variant: str = "auto",
                  P_procs: Optional[int] = None, kind: str = "normal",
                  plan=None):
-    """The 1-D Alg. 2 on the first ``P_procs`` ranks (default: the world),
-    from the full A that every rank holds.
+    """Alg. 2 on the first ``P_procs`` ranks (default: the world), from the
+    full A that every rank holds.
 
     variant:
       * ``"auto"`` — the paper's empirical rule: redist iff P > n/r;
-      * ``"no_redist"`` / ``"redist"`` — explicit.
-    Returns ``(B_blk, C_blk, GridGroups, variant)``: row blocks for
-    no_redist, column blocks for redist (None past the grid)."""
+      * ``"no_redist"`` / ``"redist"`` — explicit, on (P, 1, 1);
+      * ``"bound_driven"`` — the two-grid Alg. 2 on the Theorem-3 (p, q)
+        pair, snapped to the min-words executable pair when the ideal
+        grids do not divide (``select_two_grid_executable``), through
+        :func:`nystrom_two_grid_fused`.
+    Returns ``(B_blk, C_blk, GridGroups, variant)``: row blocks on
+    (P, 1, 1) for no_redist, column blocks for redist, the q-layouts on
+    the q-grid for bound_driven (None past the grid)."""
     import torch.distributed as dist
     _dense_only(kind)
     if plan is not None or variant == "plan":
         raise NotImplementedError(
             "variant='plan' / plan= need plan_nystrom, which is not ported "
-            "(ROADMAP.md Queue 1, item 7); pass variant='auto' or a 1-D "
-            "variant")
-    if variant == "bound_driven":
-        raise NotImplementedError(
-            "variant='bound_driven' needs the two-grid Alg. 2, which is not "
-            "ported (ROADMAP.md Queue 1, item 5b); pass variant='auto' or a "
-            "1-D variant")
+            "(ROADMAP.md Queue 1, item 7); pass variant='auto', "
+            "'bound_driven' or a 1-D variant")
     P = P_procs or dist.get_world_size()
     n = A.shape[0]
+    if variant == "bound_driven":
+        from .grid import select_two_grid_executable
+        got = select_two_grid_executable(n, r, P)
+        if got is None:
+            raise ValueError(f"no (p, q) factorization pair of P={P} "
+                             f"divides (n={n}, r={r}); pad the shape or "
+                             f"change P")
+        p, q, _exact = got
+        B, C = nystrom_two_grid_fused(input_block(A, make_grid_groups(*p)),
+                                      seed, r, p=p, q=q, kind=kind)
+        return B, C, make_grid_groups(*q), "bound_driven"
     if variant == "auto":
         variant = "redist" if P > max(1, n // max(r, 1)) else "no_redist"
     fn = {"no_redist": nystrom_no_redist,
@@ -221,3 +252,283 @@ def nystrom_gather(blk: Optional[torch.Tensor], g: GridGroups,
     from repro_torch.parallel.collectives import gather_blocks
     blocks = gather_blocks(blk, g.grid_group, g.size)
     return torch.cat(tuple(blocks), dim=_BLOCK_DIM[variant])
+
+
+# ---------------------------------------------------------------------------
+# The two-grid Alg. 2 (§5.3 approach 1): stage 1 on a (p1, p2, p3) grid,
+# stage 2 on a (q1, q2, q3) grid over the same ranks, the §5.2
+# Redistribute of B between them
+# ---------------------------------------------------------------------------
+
+def _b_p_rect(coords, p, n: int, r: int):
+    """B's block at p-coordinates (i, j, k) in stage 1's layout
+    P((p1, p2), p3), as (row0, rows, col0, cols)."""
+    p1, p2, p3 = p
+    i, j, k = coords
+    rows, cols = n // (p1 * p2), r // p3
+    return (i * p2 + j) * rows, rows, k * cols, cols
+
+
+def _q_rect(coords, q, part: str, n: int, m: int):
+    """The block at q-coordinates (i', j', k') of an (n, m) B in stage 2's
+    layout P(q1, (q3, q2)) (``part`` "B": columns (q3, q2)-major) or of
+    an (n, m) C in P((q2, q1), q3) (``part`` "C")."""
+    q1, q2, q3 = q
+    i, j, k = coords
+    if part == "B":
+        rows, cols = n // q1, m // (q2 * q3)
+        return i * rows, rows, (k * q2 + j) * cols, cols
+    if part == "C":
+        rows, cols = n // (q1 * q2), m // q3
+        return (j * q1 + i) * rows, rows, k * cols, cols
+    raise ValueError(f"part must be 'B' or 'C'; got {part!r}")
+
+
+def _second_stage(B_blk: torch.Tensor, seed, r: int, gp: GridGroups,
+                  gq: GridGroups, n: int, kind: str, salt: int):
+    """(B in the q-layout, C in P((q2, q1), q3)) from this rank's block of
+    B in gp's layout: the Redistribute, the all-gather over q2, the local
+    ``sketch_t_block`` of Omega[i'·n/q1:, j'·r/q2:]ᵀ·B[i', k'], the
+    reduce-scatter over q1."""
+    from repro_torch.kernels.local import sketch_t_block
+    from repro_torch.parallel.collectives import (all_gather, redistribute,
+                                                  reduce_scatter)
+    q1, q2, _ = gq.shape
+    ranks = range(gq.size)
+    src = [_b_p_rect(gp.coords_of(d), gp.shape, n, r) for d in ranks]
+    dst = [_q_rect(gq.coords_of(d), gq.shape, "B", n, r) for d in ranks]
+    b_q = redistribute(B_blk, src, dst, gq.rank, gq.grid_group)
+    i, j, _ = gq.coords
+    b_ik = all_gather(b_q, 1, gq.p2_group, q2)
+    om_rows, om_cols = n // q1, r // q2
+    c_part = sketch_t_block(b_ik, seed, om_cols, row0=i * om_rows,
+                            col0=j * om_cols, kind=kind, salt=salt)
+    return b_q, reduce_scatter(c_part, gq.p1_group, q1)
+
+
+def _same_P(p, q) -> None:
+    if math.prod(p) != math.prod(q):
+        raise ValueError(f"grids must factor the same P: {p} vs {q}")
+
+
+def _stage2_checked(B_blk: Optional[torch.Tensor], r: int, q, p):
+    """The p- and q-grids of a second stage (every rank makes both), and
+    B's n from this rank's block; the reference's checks, in its order.
+    (gp, gq, None) past the grid."""
+    q = tuple(int(x) for x in q)
+    p = (math.prod(q), 1, 1) if p is None else tuple(int(x) for x in p)
+    _same_P(p, q)
+    gp, gq = make_grid_groups(*p), make_grid_groups(*q)
+    if gp.coords is None:
+        return gp, gq, None
+    rows, cols = B_blk.shape
+    n = rows * p[0] * p[1]
+    if cols * p[2] != r:
+        raise ValueError(f"B must be (n, r); got {(n, cols * p[2])} with "
+                         f"r={r}")
+    q1, q2, q3 = q
+    if n % q1 or r % (q1 * q2) or r % (q2 * q3):
+        raise ValueError(f"(n={n}, r={r}) not divisible by q-grid "
+                         f"({q1},{q2},{q3}): needs q1 | n, q1*q2 | r, "
+                         f"q2*q3 | r")
+    return gp, gq, n
+
+
+def nystrom_second_stage_two_grid(B_blk: Optional[torch.Tensor], seed,
+                                  r: int, q: Tuple[int, int, int],
+                                  p: Optional[Tuple[int, int, int]] = None,
+                                  kind: str = "normal", salt: int = 0):
+    """Stage 2 of Alg. 2 on the (q1, q2, q3) grid from this rank's block
+    of B in the p-layout P((p1, p2), p3) (``p`` default (P, 1, 1): a
+    streamed accumulator's row blocks): the §5.2 Redistribute to
+    P(q1, (q3, q2)), then, as Alg. 1 with the grid's roles shifted, the
+    all-gather of B over q2, Omega_{i'j'} drawn at its global offsets, the
+    local product and the reduce-scatter of C over q1.
+
+    Returns (B's block in P(q1, (q3, q2)), C's block in P((q2, q1), q3));
+    (None, None) past the grid.  Words received: this rank's q-block less
+    what it held of it, + (1 - 1/q2)·n·r/(q1·q3)
+    + (1 - 1/q1)·r²/(q2·q3)."""
+    _dense_only(kind)
+    gp, gq, n = _stage2_checked(B_blk, r, q, p)
+    if n is None:
+        return None, None
+    return _second_stage(B_blk, seed, r, gp, gq, n, kind, salt)
+
+
+def nystrom_second_stage_two_grid_fused(
+        B_blk: Optional[torch.Tensor], seed, r: int,
+        q: Tuple[int, int, int], p: Optional[Tuple[int, int, int]] = None,
+        kind: str = "normal", salt: int = 0):
+    """:func:`nystrom_second_stage_two_grid` under the reference's fused
+    contract and trace span (``"nystrom.stage2_two_grid_fused"``).
+
+    The reference compiles the Redistribute and stage 2 into one program
+    over the shared mesh of (p, q).  Here both grids always share one rank
+    order, so the Redistribute of every (p, q) pair is the same one
+    all-to-all and the two forms run one program; where
+    ``two_grid_shared_mesh`` is None this takes the reference's fallback
+    call, :func:`nystrom_second_stage_two_grid`."""
+    _dense_only(kind)
+    from .grid import two_grid_shared_mesh
+    gp, gq, n = _stage2_checked(B_blk, r, q, p)
+    if n is None:
+        return None, None
+    if two_grid_shared_mesh(gp.shape, gq.shape) is None:
+        return nystrom_second_stage_two_grid(B_blk, seed, r, gq.shape,
+                                             p=gp.shape, kind=kind,
+                                             salt=salt)
+    with obs_trace.span("nystrom.stage2_two_grid_fused", cat="nystrom",
+                        n=n, r=r, p=list(gp.shape), q=list(gq.shape)):
+        return _second_stage(B_blk, seed, r, gp, gq, n, kind, salt)
+
+
+def _two_grid_checked(name: str, A_blk: Optional[torch.Tensor], r: int,
+                      p, q, kind: str):
+    """The p- and q-grids of a two-grid run (every rank makes both) and
+    A's n from this rank's block; the reference's checks, in its order.
+    (gp, gq, None) past the grid."""
+    if p is None or q is None:
+        raise ValueError(f"{name} needs explicit p and q grids (use "
+                         f"nystrom_auto(variant='bound_driven') to pick "
+                         f"them from the bound)")
+    _dense_only(kind)
+    from .grid import alg2_two_grid_executable
+    p = tuple(int(x) for x in p)
+    q = tuple(int(x) for x in q)
+    _same_P(p, q)
+    gp, gq = make_grid_groups(*p), make_grid_groups(*q)
+    if gp.coords is None:
+        return gp, gq, None
+    rows, cols = A_blk.shape
+    shape = (rows * p[0], cols * p[1] * p[2])
+    n = shape[0]
+    if shape[1] != n:
+        raise ValueError(f"Nyström needs a square A; got {shape}")
+    if not alg2_two_grid_executable(n, r, p, q):
+        raise ValueError(f"(n={n}, r={r}) not divisible by grids p={p}, "
+                         f"q={q} (see alg2_two_grid_executable)")
+    return gp, gq, n
+
+
+def nystrom_two_grid(A_blk: Optional[torch.Tensor], seed, r: int,
+                     p: Tuple[int, int, int] = None,
+                     q: Tuple[int, int, int] = None, kind: str = "normal"):
+    """Alg. 2 with stage 1 on grid ``p`` and stage 2 on grid ``q`` (§5.3),
+    two factorizations of the same P, each row-major over ranks 0 .. P-1.
+
+    in : this rank's block of A, ``input_block(A, make_grid_groups(*p))``
+    out: (B's block in P(q1, (q3, q2)), C's block in P((q2, q1), q3)) on
+         the q-grid (``two_grid_block``); (None, None) past the grid.
+    Stage 1 is :func:`rand_matmul`; B is then redistributed to the
+    q-layout (the §5.2 Redistribute, one uneven all-to-all, at most n·r/P
+    words a rank when p != q, none when the layouts coincide) and stage 2
+    runs on the q-grid."""
+    gp, gq, n = _two_grid_checked("nystrom_two_grid", A_blk, r, p, q, kind)
+    if n is None:
+        return None, None
+    B = rand_matmul(A_blk, seed, r, gp, kind=kind)
+    return _second_stage(B, seed, r, gp, gq, n, kind, 0)
+
+
+def nystrom_two_grid_fused(A_blk: Optional[torch.Tensor], seed, r: int,
+                           p: Tuple[int, int, int] = None,
+                           q: Tuple[int, int, int] = None,
+                           kind: str = "normal"):
+    """:func:`nystrom_two_grid` under the reference's fused contract and
+    trace span (``"nystrom.two_grid_fused"``).
+
+    The reference compiles both stages and the Redistribute into one
+    program over the shared mesh of (p, q) instead of a cross-mesh
+    transfer.  Here both grids always share one rank order, so the
+    Redistribute of every (p, q) pair is the same one all-to-all and the
+    two forms run one program; where ``two_grid_shared_mesh`` is None this
+    takes the reference's fallback call, :func:`nystrom_two_grid`."""
+    from .grid import two_grid_shared_mesh
+    gp, gq, n = _two_grid_checked("nystrom_two_grid_fused", A_blk, r, p, q,
+                                  kind)
+    if n is None:
+        return None, None
+    if two_grid_shared_mesh(gp.shape, gq.shape) is None:
+        return nystrom_two_grid(A_blk, seed, r, p=gp.shape, q=gq.shape,
+                                kind=kind)
+    with obs_trace.span("nystrom.two_grid_fused", cat="nystrom", n=n, r=r,
+                        p=list(gp.shape), q=list(gq.shape)):
+        B = rand_matmul(A_blk, seed, r, gp, kind=kind)
+        return _second_stage(B, seed, r, gp, gq, n, kind, 0)
+
+
+def permuted_grid_groups(g: GridGroups,
+                         q_perm: Optional[Tuple[int, int, int]] = None
+                         ) -> GridGroups:
+    """The q-grid of :func:`nystrom_general`: q-axis m is ``g``'s axis
+    ``q_perm[m]`` (default (0, 1, 2)), over the same ranks.  Collective
+    over the world, as ``make_grid_groups``."""
+    q_perm = (0, 1, 2) if q_perm is None else tuple(int(a) for a in q_perm)
+    if sorted(q_perm) != [0, 1, 2]:
+        raise ValueError(f"q_perm must permute the axes (0, 1, 2); got "
+                         f"{q_perm}")
+    q = tuple(g.shape[a] for a in q_perm)
+    order = []
+    for f in range(g.size):
+        qc = (f // (q[1] * q[2]), f // q[2] % q[1], f % q[2])
+        pc = [0, 0, 0]
+        for m, a in enumerate(q_perm):
+            pc[a] = qc[m]
+        flat = (pc[0] * g.shape[1] + pc[1]) * g.shape[2] + pc[2]
+        order.append(flat if g.order is None else g.order[flat])
+    return make_grid_groups(*q, order=tuple(order))
+
+
+def nystrom_general(A_blk: Optional[torch.Tensor], seed, r: int,
+                    g: GridGroups,
+                    q_perm: Optional[Tuple[int, int, int]] = None,
+                    kind: str = "normal"):
+    """Alg. 2 with stage 2 on the p-grid ``g``'s axes permuted: q-axis m
+    is p-axis ``q_perm[m]`` (default (0, 1, 2): q = p), so the rank at
+    p-coordinates c has q-coordinates (c[q_perm[0]], c[q_perm[1]],
+    c[q_perm[2]]) (the reference's ``q_axes`` over one mesh).  In and out
+    as :func:`nystrom_two_grid`, on the permuted q-grid; (None, None)
+    past the grid."""
+    _dense_only(kind)
+    gq = permuted_grid_groups(g, q_perm)
+    if g.coords is None:
+        return None, None
+    n = A_blk.shape[0] * g.shape[0]
+    q1, q2, q3 = gq.shape
+    if n % q1 or r % (q2 * q3) or r % q2 or r % q3:
+        raise ValueError(f"(n={n}, r={r}) not divisible by q-grid "
+                         f"({q1},{q2},{q3})")
+    B = rand_matmul(A_blk, seed, r, g, kind=kind)
+    return _second_stage(B, seed, r, g, gq, n, kind, 0)
+
+
+def two_grid_block(X: torch.Tensor, g: GridGroups,
+                   part: str) -> Optional[torch.Tensor]:
+    """This rank's block of a full B (``part`` "B", layout P(q1, (q3, q2)))
+    or C (``part`` "C", layout P((q2, q1), q3)) on the q-grid ``g`` (a
+    view; None past the grid)."""
+    if g.coords is None:
+        return None
+    r0, rows, c0, cols = _q_rect(g.coords, g.shape, part, *X.shape)
+    return X[r0:r0 + rows, c0:c0 + cols]
+
+
+def two_grid_gather(blk: Optional[torch.Tensor], g: GridGroups,
+                    part: str) -> Optional[torch.Tensor]:
+    """The full B or C from every grid rank's :func:`two_grid_block` (for
+    tests and checks; its words are not counted).  None past the grid."""
+    if g.coords is None:
+        return None
+    from repro_torch.parallel.collectives import gather_blocks
+    q1, q2, q3 = g.shape
+    rows, cols = blk.shape
+    full = ((rows * q1, cols * q2 * q3) if part == "B"
+            else (rows * q1 * q2, cols * q3))
+    out = blk.new_empty(full)
+    blocks = grid_ordered(gather_blocks(blk, g.grid_group, g.size), g)
+    for f in range(g.size):
+        coords = (f // (q2 * q3), f // q3 % q2, f % q3)
+        r0, _, c0, _ = _q_rect(coords, g.shape, part, *full)
+        out[r0:r0 + rows, c0:c0 + cols] = blocks[f]
+    return out

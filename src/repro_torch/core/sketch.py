@@ -169,10 +169,12 @@ def sketch_reference(A: torch.Tensor, seed, r: int, kind: str = "normal",
 class GridGroups:
     """This rank's place on a (p1, p2, p3) grid and its fiber groups.
 
-    Grid rank ``(i·p2 + j)·p3 + k`` is process rank ``(i·p2 + j)·p3 + k``
-    (the reference's ``np.reshape(devices[:P], (p1, p2, p3))``).
-    ``coords`` is None on a rank past the grid, which holds no block.
-    ``p2_group`` joins the ranks that differ only in j (None when
+    Grid rank ``(i·p2 + j)·p3 + k`` is process rank ``order[(i·p2 + j)·p3
+    + k]``; ``order`` None is the row-major map, process rank ``(i·p2 +
+    j)·p3 + k`` (the reference's ``np.reshape(devices[:P], (p1, p2,
+    p3))``).  ``coords`` is None on a rank past the grid, which holds no
+    block.  ``p1_group`` joins the ranks that differ only in i (None when
+    p1 == 1), ``p2_group`` those that differ only in j (None when
     p2 == 1), ``p3_group`` those that differ only in k (None when
     p3 == 1), ``grid_group`` the grid's P ranks (None when it is the whole
     world: the default group)."""
@@ -182,55 +184,83 @@ class GridGroups:
     p2_group: Any = None
     p3_group: Any = None
     grid_group: Any = None
+    p1_group: Any = None
+    order: Optional[Tuple[int, ...]] = None
 
     @property
     def size(self) -> int:
         return self.shape[0] * self.shape[1] * self.shape[2]
 
+    def coords_of(self, rank: int) -> Tuple[int, int, int]:
+        """The grid coordinates of process ``rank`` (one of the grid's)."""
+        flat = rank if self.order is None else self.order.index(rank)
+        _, p2, p3 = self.shape
+        return flat // (p2 * p3), flat // p3 % p2, flat % p3
+
 
 _GRID_GROUPS: dict = {}
 
 
-def make_grid_groups(p1: int, p2: int, p3: int) -> GridGroups:
+def make_grid_groups(p1: int, p2: int, p3: int,
+                     order: Optional[Tuple[int, ...]] = None) -> GridGroups:
     """This rank's :class:`GridGroups` of a (p1, p2, p3) grid over the
     first p1·p2·p3 ranks of the default process group (the counterpart of
-    ``make_grid_mesh``).
+    ``make_grid_mesh``).  ``order`` lists the process rank at each grid
+    rank, row-major (default: ``range(P)``); a permuted grid keeps every
+    fiber in increasing rank order, which is the order gloo gives a
+    group's members.
 
     Every rank of the world must call it with the same shapes in the same
     order: ``torch.distributed.new_group`` is collective over the world,
     and every rank creates every fiber's group, in (i, k) order for the
-    p2 fibers, then (i, j) order for the p3 fibers.  The result is cached
-    per shape for the life of the default group."""
+    p2 fibers, then (i, j) order for the p3 fibers, then (j, k) order for
+    the p1 fibers.  The result is cached per shape and order for the life
+    of the default group."""
     import torch.distributed as dist
     shape = (int(p1), int(p2), int(p3))
+    P = math.prod(shape)
+    if order is not None:
+        order = tuple(int(x) for x in order)
+        if sorted(order) != list(range(P)):
+            raise ValueError(f"order {order} is not a permutation of the "
+                             f"grid's {P} ranks")
+        if order == tuple(range(P)):
+            order = None
+    key = (shape, order)
     world = dist.group.WORLD
-    cached = _GRID_GROUPS.get(shape)
+    cached = _GRID_GROUPS.get(key)
     if cached is not None and cached[0] is world:
         return cached[1]
-    P, nworld, rank = math.prod(shape), dist.get_world_size(), dist.get_rank()
+    nworld, rank = dist.get_world_size(), dist.get_rank()
     if P > nworld:
         raise ValueError(f"grid {p1}x{p2}x{p3} needs {P} devices, have "
                          f"{nworld}")
 
-    def flat(i, j, k):
-        return (i * p2 + j) * p3 + k
+    def proc(i, j, k):
+        flat = (i * p2 + j) * p3 + k
+        return flat if order is None else order[flat]
 
-    mine = {}
-    fibers = ([("p2", [flat(i, j, k) for j in range(p2)])
+    fibers = ([("p2", [proc(i, j, k) for j in range(p2)])
                for i in range(p1) for k in range(p3)] if p2 > 1 else [])
-    fibers += ([("p3", [flat(i, j, k) for k in range(p3)])
+    fibers += ([("p3", [proc(i, j, k) for k in range(p3)])
                 for i in range(p1) for j in range(p2)] if p3 > 1 else [])
+    fibers += ([("p1", [proc(i, j, k) for i in range(p1)])
+                for j in range(p2) for k in range(p3)] if p1 > 1 else [])
+    for axis, ranks in fibers:
+        if ranks != sorted(ranks):
+            raise ValueError(f"order {order}: a {axis} fiber {ranks} is not "
+                             f"in increasing rank order")
+    mine = {}
     for axis, ranks in fibers:
         group = dist.new_group(ranks)
         if rank in ranks:
             mine[axis] = group
     grid = dist.new_group(list(range(P))) if P < nworld else None
-    coords = None
+    g = GridGroups(shape, rank, None, mine.get("p2"), mine.get("p3"),
+                   grid if rank < P else None, mine.get("p1"), order)
     if rank < P:
-        coords = (rank // (p2 * p3), rank // p3 % p2, rank % p3)
-    g = GridGroups(shape, rank, coords, mine.get("p2"), mine.get("p3"),
-                   grid if rank < P else None)
-    _GRID_GROUPS[shape] = (world, g)
+        g = dataclasses.replace(g, coords=g.coords_of(rank))
+    _GRID_GROUPS[key] = (world, g)
     return g
 
 
@@ -274,6 +304,12 @@ def output_block(B: torch.Tensor, g: GridGroups) -> Optional[torch.Tensor]:
     return B[r0:r0 + rows, k * cols:(k + 1) * cols]
 
 
+def grid_ordered(blocks: torch.Tensor, g: GridGroups) -> torch.Tensor:
+    """Blocks stacked by process rank (``gather_blocks``) restacked by
+    grid rank (row-major coordinates)."""
+    return blocks if g.order is None else blocks[list(g.order)]
+
+
 def gather_output(B_blk: Optional[torch.Tensor],
                   g: GridGroups) -> Optional[torch.Tensor]:
     """The full B from every grid rank's output block (for tests and
@@ -283,7 +319,7 @@ def gather_output(B_blk: Optional[torch.Tensor],
     from repro_torch.parallel.collectives import gather_blocks
     p1, p2, p3 = g.shape
     rows, cols = B_blk.shape
-    blocks = gather_blocks(B_blk, g.grid_group, g.size)
+    blocks = grid_ordered(gather_blocks(B_blk, g.grid_group, g.size), g)
     return (blocks.view(p1 * p2, p3, rows, cols).permute(0, 2, 1, 3)
             .reshape(p1 * p2 * rows, p3 * cols))
 

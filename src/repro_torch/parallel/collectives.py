@@ -14,7 +14,13 @@
                                            (n, r/g) column block
                                            (``jax.lax.all_to_all(...,
                                            split_axis=1, concat_axis=0,
-                                           tiled=True)``).
+                                           tiled=True)``);
+  * ``redistribute(x, src, dst, rank, group)`` — the §5.2 Redistribute:
+                                           a matrix held in one block
+                                           layout re-laid out in another
+                                           over the same ranks, by one
+                                           uneven all-to-all (the
+                                           reference's resharding).
 
 ``torch.distributed``'s flat all-gather concatenates along dim 0, so a
 gather along another dim lands in a ``(size, *x.shape)`` buffer and is
@@ -31,8 +37,11 @@ collective.  Summed over Alg. 1's two collectives that is
 ``core.grid.alg1_bandwidth_words`` on every grid; the 1-D No-Redist
 Alg. 2 receives ``alg2_bandwidth_words(n, r, (P,1,1), (P,1,1))``, and
 the Redist all-to-all ``(1 - 1/P)·n·r/P``, below the formula's ``n·r/P``
-term.  (The reference's HLO audit counts each collective's per-device
-operand instead; the two agree only for groups of 2.)
+term.  A Redistribute receives this rank's destination block less what
+it already held: the maximum over ranks is the reference's
+``fused_redistribute_words``.  (The reference's HLO audit counts each
+collective's per-device operand instead; the two agree only for groups
+of 2.)
 
 The library never picks a process-group backend: the caller runs
 ``torch.distributed.init_process_group``.  gloo takes CUDA tensors and
@@ -43,7 +52,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-KINDS = ("all_gather", "reduce_scatter", "all_to_all")
+KINDS = ("all_gather", "reduce_scatter", "all_to_all", "redistribute")
 
 # The flat (dim-0) collectives under this torch's name for them: newer
 # releases call them ``*_single`` and deprecate the ``*_tensor`` names,
@@ -128,3 +137,71 @@ def all_to_all(x: torch.Tensor, group, size: int) -> torch.Tensor:
     # every chunk has the same size; one of them stays on this rank
     _count("all_to_all", out, send[0])
     return out.view(size * rows, cols // size)
+
+
+def _overlap(a, b):
+    """The intersection of two (row0, rows, col0, cols) rectangles, or
+    None when it is empty."""
+    r0, c0 = max(a[0], b[0]), max(a[2], b[2])
+    r1 = min(a[0] + a[1], b[0] + b[1])
+    c1 = min(a[2] + a[3], b[2] + b[3])
+    if r1 <= r0 or c1 <= c0:
+        return None
+    return r0, r1 - r0, c0, c1 - c0
+
+
+def _piece(x: torch.Tensor, at, rect) -> torch.Tensor:
+    """The view of ``x`` (a block placed at ``at``) covering ``rect``."""
+    return x[rect[0] - at[0]:rect[0] - at[0] + rect[1],
+             rect[2] - at[2]:rect[2] - at[2] + rect[3]]
+
+
+def redistribute(x: torch.Tensor, src, dst, rank: int,
+                 group) -> torch.Tensor:
+    """This rank's block of a matrix in the layout ``dst``, from its block
+    ``x`` in the layout ``src``.
+
+    ``src[d]`` and ``dst[d]`` are the ``(row0, rows, col0, cols)``
+    rectangles of the matrix that group rank ``d`` holds before and after;
+    every rank passes the same lists.  Between two ranks the piece to move
+    is the intersection of the sender's source block with the receiver's
+    destination block: the pieces are packed in destination order, moved
+    by one ``all_to_all_single`` with uneven splits, and unpacked.  What a
+    rank already holds of its destination block is copied in place and
+    never sent.  A layout move: exact.  ``x`` itself when no rank's block
+    changes."""
+    if list(src) == list(dst):
+        return x
+    size, me = len(src), src[rank]
+    if tuple(x.shape) != (me[1], me[3]):
+        raise ValueError(f"redistribute: block of shape {tuple(x.shape)}, "
+                         f"the layout gives rank {rank} {me[1]}x{me[3]}")
+    want = dst[rank]
+    out = torch.empty((want[1], want[3]), dtype=x.dtype, device=x.device)
+    sends, send_sizes, recvs, recv_sizes = [], [], [], []
+    for d in range(size):
+        give = None if d == rank else _overlap(me, dst[d])
+        take = None if d == rank else _overlap(src[d], want)
+        send_sizes.append(0 if give is None else give[1] * give[3])
+        recv_sizes.append(0 if take is None else take[1] * take[3])
+        if give is not None:
+            sends.append(_piece(x, me, give).reshape(-1))
+        recvs.append(take)
+    send = (torch.cat(sends) if sends
+            else torch.empty(0, dtype=x.dtype, device=x.device))
+    recv = torch.empty(sum(recv_sizes), dtype=x.dtype, device=x.device)
+    dist.all_to_all_single(recv, send, output_split_sizes=recv_sizes,
+                           input_split_sizes=send_sizes, group=group)
+    own = _overlap(me, want)
+    if own is not None:
+        _piece(out, want, own).copy_(_piece(x, me, own))
+    at = 0
+    for take, n in zip(recvs, recv_sizes):
+        if take is not None:
+            _piece(out, want, take).copy_(
+                recv[at:at + n].view(take[1], take[3]))
+        at += n
+    COMM["redistribute"]["calls"] += 1
+    COMM["redistribute"]["words"] += out.numel() - (
+        0 if own is None else own[1] * own[3])
+    return out

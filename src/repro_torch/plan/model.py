@@ -1,5 +1,6 @@
-"""Cost model of Alg. 1 and of the data-parallel gradient exchange (the
-parts of the reference's ``plan/model.py`` that the port runs).
+"""Cost model of Alg. 1, of Alg. 2 (the §5.2 Redistribute and the two-grid
+variants) and of the data-parallel gradient exchange (the parts of the
+reference's ``plan/model.py`` that the port runs).
 
 Counts only: words moved over the interconnect, latency hops, local FLOPs
 and device-memory words.  The reference also prices seconds on TPU
@@ -13,8 +14,10 @@ import dataclasses
 import math
 from typing import Tuple
 
-from repro_torch.core.grid import alg1_bandwidth_words, alg1_latency_hops
-from repro_torch.kernels.sketch_matmul import sketch_fwd_scratch_bytes
+from repro_torch.core.grid import (alg1_bandwidth_words, alg1_latency_hops,
+                                   alg2_bandwidth_words)
+from repro_torch.kernels.sketch_matmul import (sketch_fwd_scratch_bytes,
+                                               sketch_t_scratch_bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +59,91 @@ def alg1_communicating_cost(n1: int, n2: int, r: int,
     return dataclasses.replace(
         base, words=base.words + (1.0 - 1.0 / P) * n2 * r,
         messages=base.messages + math.log2(max(P, 1)))
+
+
+def redistribute_words(n: int, r: int, p: Tuple[int, int, int],
+                       q: Tuple[int, int, int]) -> float:
+    """Per-processor words of the §5.2 Redistribute of B between the
+    stage-1 and stage-2 grids as the reference prices it: zero when
+    q == p, else the all-to-all bound n·r/P (the ``p != q`` term of
+    ``alg2_bandwidth_words``).  Where p == q but the layouts P((p1, p2),
+    p3) and P(q1, (q3, q2)) differ (e.g. (1, 2, 2)), B still moves; what
+    moves is :func:`fused_redistribute_words`."""
+    if tuple(p) == tuple(q):
+        return 0.0
+    P = p[0] * p[1] * p[2]
+    return n * r / P
+
+
+def fused_redistribute_words(n: int, r: int, p: Tuple[int, int, int],
+                             q: Tuple[int, int, int]) -> float:
+    """The most words any rank receives in the Redistribute of B from
+    P((p1, p2), p3) to P(q1, (q3, q2)), both grids row-major over the
+    same ranks: a rank keeps what its two blocks share and receives the
+    rest, ``max over ranks of (q-block words) - (overlap words)``.  At
+    most n·r/P; ``parallel.collectives.redistribute`` counts each rank's
+    own term."""
+    p1, p2, p3 = p
+    q1, q2, q3 = q
+    P = p1 * p2 * p3
+    pr, pc = n / (p1 * p2), r / p3            # p-layout shard extents
+    qr, qc = n / q1, r / (q2 * q3)            # q-layout shard extents
+    worst = 0.0
+    for d in range(P):
+        rb, cb = divmod(d, p3)                # p-coords of rank d
+        iq, rem = divmod(d, q2 * q3)          # q-coords of rank d
+        jq, kq = divmod(rem, q3)
+        col_blk = kq * q2 + jq                # cols sharded (q3, q2)-major
+        ov_r = max(0.0, min(rb * pr + pr, iq * qr + qr)
+                   - max(rb * pr, iq * qr))
+        ov_c = max(0.0, min(cb * pc + pc, col_blk * qc + qc)
+                   - max(cb * pc, col_blk * qc))
+        worst = max(worst, qr * qc - ov_r * ov_c)
+    return worst
+
+
+def alg2_cost(n: int, r: int, p: Tuple[int, int, int],
+              q: Tuple[int, int, int]) -> Cost:
+    """Alg. 2 on grids (p, q): words is ``alg2_bandwidth_words`` exactly
+    and messages the reference's count.
+
+    Device-memory words price the port's local bodies: stage 1 as
+    :func:`alg1_cost` (``sketch_fwd``), stage 2's ``sketch_t`` reading the
+    gathered (n/q1, r/q3) block of B, drawing its (n/q1 x r/q2) Omega
+    block into a scratch (``sketch_t_scratch_bytes``) that it writes and
+    reads once, and writing the (r/q2, r/q3) partial of C (the
+    reference's fused Pallas bodies keep Omega out of HBM; these do
+    not)."""
+    p1, p2, p3 = p
+    q1, q2, q3 = q
+    P = p1 * p2 * p3
+    scratch = sketch_t_scratch_bytes(r // q2, n // q1) / 4
+    hbm = (alg1_cost(n, n, r, p).hbm_words + n * r / (q1 * q3)
+           + 2.0 * scratch + r * r / (q2 * q3))
+    msgs = alg1_latency_hops(p2, p3) + math.log2(max(p1, 1))
+    if tuple(p) != tuple(q):
+        msgs += math.log2(max(P, 1))  # the all-to-all redistribution
+    return Cost(words=alg2_bandwidth_words(n, r, p, q), messages=msgs,
+                flops=(2.0 * n * n * r + 2.0 * n * r * r) / P,
+                hbm_words=hbm)
+
+
+def alg2_fused_cost(n: int, r: int, p: Tuple[int, int, int],
+                    q: Tuple[int, int, int]) -> Cost:
+    """Alg. 2 with the Redistribute priced at what moves: the words of
+    :func:`alg2_cost` with its n·r/P term replaced by
+    :func:`fused_redistribute_words`, and its log2(P) hops by one
+    collective (the reference's ``alg2_fused_cost``; the port runs every
+    pair this way)."""
+    _, p2, p3 = p
+    base = alg2_cost(n, r, p, q)
+    cross = redistribute_words(n, r, p, q)
+    fused = fused_redistribute_words(n, r, p, q)
+    msgs = alg1_latency_hops(p2, p3) + math.log2(max(p[0], 1))
+    if fused > 0.0:
+        msgs += 1.0                   # one resharding collective
+    return dataclasses.replace(base, words=base.words - cross + fused,
+                               messages=msgs)
 
 
 def grad_allreduce_cost(m: int, n: int, world: int) -> Cost:

@@ -625,3 +625,55 @@ def test_alg2_1d_four_ranks_on_one_card(dev):
             assert got == want, (rank, variant, got)
             assert launches == {"sketch_fwd": 1, "sketch_t": 1,
                                 "gen_omega": 0}, (rank, variant, launches)
+
+
+def _two_grid_words(n, r, p, q, rank):
+    """Words ``rank`` receives in one two-grid run, by kind: Alg. 1's on
+    p, its q-block less what its p-block held, the q2 all-gather and the
+    q1 reduce-scatter."""
+    p1, p2, p3 = p
+    q1, q2, q3 = q
+    i, j, k = np.unravel_index(rank, p)
+    iq, jq, kq = np.unravel_index(rank, q)
+    held = np.zeros((n, r), bool)
+    rows, cols = n // (p1 * p2), r // p3
+    held[(i * p2 + j) * rows:(i * p2 + j + 1) * rows,
+         k * cols:(k + 1) * cols] = True
+    want = np.zeros((n, r), bool)
+    rows, cols = n // q1, r // (q2 * q3)
+    want[iq * rows:(iq + 1) * rows,
+         (kq * q2 + jq) * cols:(kq * q2 + jq + 1) * cols] = True
+    return {"all_gather": (p3 - 1) * n * n // (p1 * p2 * p3)
+            + (q2 - 1) * n * r // (q1 * q2 * q3),
+            "reduce_scatter": (p2 - 1) * n * r // (p1 * p2 * p3)
+            + (q1 - 1) * r * r // (q1 * q2 * q3),
+            "all_to_all": 0,
+            "redistribute": int(want.sum() - (want & held).sum())}
+
+
+def test_alg2_two_grid_four_ranks_on_one_card(dev):
+    """The two-grid Alg. 2 on 4 gloo ranks that share cuda:0 (n = 1024,
+    r = 64, and the regime-2 pair at r = 2), the Redistribute an uneven
+    all-to-all of CUDA tensors: B bitwise the one-device card sketch's
+    q-block where p = (4, 1, 1) (the same kernel on the same rows, then a
+    layout move), within 16·sqrt(n)·2**-24 relative Frobenius elsewhere;
+    C within that of the one-device ``sketch_t``'s block; words received
+    exactly, by kind; one sketch_fwd and one sketch_t launch a run, no
+    gen_omega, and the result on the card."""
+    from torch_dist_helper import run_workers, two_grid_card_worker
+    n, P = 1024, 4
+    runs = [((4, 1, 1), (1, 1, 4), 64), ((4, 1, 1), (1, 2, 2), 64),
+            ((4, 1, 1), (2, 1, 2), 64), ((2, 2, 1), (4, 1, 1), 64),
+            ((4, 1, 1), (2, 1, 2), 2)]
+    ranks = run_workers(two_grid_card_worker, P, n, 7, runs)
+    tol = 16 * np.sqrt(n) * 2.0 ** -24
+    for rank, res in enumerate(ranks):
+        for p, q, r in runs:
+            bitwise, err_b, err_c, words, launches, where = res[(p, q, r)]
+            what = (rank, p, q, r)
+            assert where == ("cuda", "cuda"), what
+            assert bitwise if p == (4, 1, 1) else err_b <= tol, what
+            assert err_c <= tol, (what, err_c)
+            assert words == _two_grid_words(n, r, p, q, rank), (what, words)
+            assert launches == {"sketch_fwd": 1, "sketch_t": 1,
+                                "gen_omega": 0}, (what, launches)

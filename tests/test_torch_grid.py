@@ -9,6 +9,8 @@ and ``tests/test_grid.py`` and the paper's scales, every regime, the case
 boundaries, and P from 1 to 4096 (30000 for Theorem 3) in steps.
 """
 import dataclasses
+import math
+import re
 
 import pytest
 
@@ -200,8 +202,96 @@ def test_two_grid_axis_split_equals_reference(P):
 
 
 def test_two_grid_shared_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tgrid.two_grid_shared_mesh((2, 1, 1), (1, 1, 2))
+    """Ported: None where no row-major rank order serves both grids (the
+    reference's None cases), the reference's ValueError where P exceeds
+    the ranks there are, and the axis groups of both grids otherwise."""
+    assert tgrid.two_grid_shared_mesh((2, 3, 1), (3, 2, 1), world=6) is None
+    assert tgrid.two_grid_shared_mesh((2, 3, 1), (3, 2, 1), world=1) is None
+    assert jgrid.two_grid_shared_mesh((2, 3, 1), (3, 2, 1)) is None
+    with pytest.raises(ValueError,
+                       match=re.escape("grids (4, 1, 1)/(1, 2, 2) need 4 "
+                                       "devices, have 2")):
+        tgrid.two_grid_shared_mesh((4, 1, 1), (1, 2, 2), world=2)
+    with pytest.raises(ValueError,
+                       match=re.escape("grids (2, 1, 1)/(1, 1, 2) need 2 "
+                                       "devices, have 1")):
+        jgrid.two_grid_shared_mesh((2, 1, 1), (1, 1, 2))
+    shared = tgrid.two_grid_shared_mesh((4, 1, 1), (1, 2, 2), world=4)
+    assert shared == tgrid.TwoGridSharedMesh(
+        sizes=(2, 2), p=(4, 1, 1), q=(1, 2, 2),
+        p_axes=(("g0", "g1"), (), ()), q_axes=((), ("g0",), ("g1",)))
+
+
+def _names(idxs):
+    return tuple(tuple(f"g{i}" for i in grp) for grp in idxs)
+
+
+@pytest.mark.parametrize("P", list(range(1, 13)) + [16, 64])
+def test_two_grid_shared_mesh_follows_the_reference_split(P):
+    """For every pair of factorizations of P: None exactly where the
+    reference's ``two_grid_axis_split`` is None (where its
+    ``two_grid_shared_mesh`` is None), else the split's axis sizes and
+    its p / q groups under the reference's axis names; at P = 1 the whole
+    reference object's groups, on its one device."""
+    facs = list(tgrid.factorizations_3d(P))
+    for p in facs:
+        for q in facs:
+            split = jgrid.two_grid_axis_split(p, q)
+            got = tgrid.two_grid_shared_mesh(p, q, world=P)
+            if split is None:
+                assert got is None, (p, q)
+                continue
+            sizes, pg, qg = split
+            assert (got.sizes, got.p, got.q) == (sizes, p, q), (p, q)
+            assert (got.p_axes, got.q_axes) == (_names(pg), _names(qg))
+            for dims, axes in ((p, got.p_axes), (q, got.q_axes)):
+                assert tuple(math.prod(sizes[int(a[1:])] for a in grp)
+                             for grp in axes) == dims
+    if P == 1:
+        ref = jgrid.two_grid_shared_mesh((1, 1, 1), (1, 1, 1))
+        got = tgrid.two_grid_shared_mesh((1, 1, 1), (1, 1, 1), world=1)
+        assert (got.p_axes, got.q_axes) == (ref.p_axes, ref.q_axes)
+        assert got.sizes == tuple(ref.mesh.shape.values())
+
+
+ALG2_COST_SHAPES = [(64, 16), (64, 2), (4096, 256), (48, 12), (32768, 512),
+                    (32768, 2)]
+
+
+@pytest.mark.parametrize("P", list(range(1, 13)) + [16, 64])
+def test_alg2_costs_price_the_reference_words(P):
+    """``redistribute_words``, ``fused_redistribute_words`` and the words,
+    hops and FLOPs of ``alg2_cost`` / ``alg2_fused_cost`` equal the
+    reference's on every pair of factorizations of P."""
+    facs = list(tgrid.factorizations_3d(P))
+    for n, r in ALG2_COST_SHAPES:
+        for p in facs:
+            for q in facs:
+                for fn in ("redistribute_words", "fused_redistribute_words"):
+                    assert (getattr(tmodel, fn)(n, r, p, q)
+                            == getattr(jmodel, fn)(n, r, p, q)), (fn, p, q)
+                for fn in ("alg2_cost", "alg2_fused_cost"):
+                    t = getattr(tmodel, fn)(n, r, p, q)
+                    j = getattr(jmodel, fn)(n, r, p, q)
+                    assert (t.words, t.messages, t.flops) == (
+                        j.words, j.messages, j.flops), (fn, p, q)
+
+
+def test_alg2_cost_prices_the_port_scratches():
+    """Device-memory words: stage 1 as ``alg1_cost`` (the ``sketch_fwd``
+    Omega scratch), then stage 2's gathered B block read, its (n/q1) x
+    ceil4(r/q2) Omega scratch written and read, its C partial written —
+    not the reference's zero-Omega Pallas pricing."""
+    n, r, p, q = 32768, 512, (4, 1, 1), (1, 2, 2)
+    c = tmodel.alg2_cost(n, r, p, q)
+    stage2 = n * r / 2 + 2 * n * 256 + 256 * 256
+    assert c.hbm_words == tmodel.alg1_cost(n, n, r, p).hbm_words + stage2
+    assert tmodel.alg2_fused_cost(n, r, p, q).hbm_words == c.hbm_words
+    # r = 2: the scratch pads r/q2 = 2 columns to 4
+    c2 = tmodel.alg2_cost(n, 2, (4, 1, 1), (2, 1, 2))
+    assert c2.hbm_words == (tmodel.alg1_cost(n, n, 2, (4, 1, 1)).hbm_words
+                            + n * 2 / 4 + 2 * (n // 2) * 4 + 2 * 2 / 2)
+    assert c.hbm_words != jmodel.alg2_cost(n, r, p, q).hbm_words
 
 
 @pytest.mark.parametrize("shape", MATMUL_SHAPES, ids=str)

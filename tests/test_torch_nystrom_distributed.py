@@ -382,8 +382,13 @@ def test_alg2_sparse_kinds_are_not_ported(kind):
 
 
 def test_bound_driven_needs_the_two_grid_variants():
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        nys.nystrom_auto(torch.zeros(64, 64), SEED, 16,
+    """The two-grid variants run the bound-driven pair; where no pair of
+    factorizations of P divides the shape (n = 63 over P = 4) it is
+    refused with the reference's message, before any group is made."""
+    msg = re.escape("no (p, q) factorization pair of P=4 divides (n=63, "
+                    "r=16); pad the shape or change P")
+    with pytest.raises(ValueError, match=f"^{msg}$"):
+        nys.nystrom_auto(torch.zeros(63, 63), SEED, 16,
                          variant="bound_driven", P_procs=WORLD)
 
 

@@ -280,3 +280,197 @@ def alg2_card_worker(rank, world, n, r, seed):
                         err, col.comm_words(), launches,
                         (B.device.type, C.device.type))
     return out
+
+
+def two_grid_worker(rank, world, spec):
+    """One rank of the two-grid Alg. 2 cases on the CPU.  ``spec`` holds
+    ``seed``, ``kinds``, ``cases`` (name -> symmetric numpy A and r),
+    ``pairs`` (name -> (p, q) pairs: ``nystrom_two_grid`` with every kind,
+    ``nystrom_two_grid_fused`` with the first; per name also
+    ``nystrom_auto(variant="bound_driven")`` and, where P divides r, the
+    1-D variants), ``stage`` (name -> numpy B, r, salt and (p, q) pairs:
+    both second stages from B's p-layout blocks), ``general`` (name, p
+    and q_perm tuples), ``subgrid`` (p, q on fewer ranks than the
+    world), ``layout`` (an (n, r) and (p, q) pairs for ``redistribute``
+    alone on exact values) and ``errors`` (name -> call arguments that
+    must raise).  Returns numpy blocks (None
+    past a grid), their gathers, each q-grid's coordinates and the words
+    this rank received, by kind."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import nystrom as nys
+    from repro_torch.core import sketch as sk
+    from repro_torch.parallel import collectives as col
+
+    def arr(t):
+        return None if t is None else t.numpy()
+
+    def comm():
+        return {k: dict(v) for k, v in col.COMM.items()}
+
+    def result(B, C, gq):
+        return {"B": arr(B), "C": arr(C), "words": comm(),
+                "coords": gq.coords, "q": gq.shape,
+                "B_full": arr(nys.two_grid_gather(B, gq, "B")),
+                "C_full": arr(nys.two_grid_gather(C, gq, "C"))}
+
+    seed = spec["seed"]
+    out = {"two_grid": {}, "fused": {}, "stage": {}, "general": {},
+           "auto": {}, "one_d": {}, "sub": {}, "layout": {}, "errors": {}}
+    for name, (A, r) in spec["cases"].items():
+        At = torch.from_numpy(np.array(A))
+        for p, q in spec["pairs"][name]:
+            blk = sk.input_block(At, sk.make_grid_groups(*p))
+            gq = sk.make_grid_groups(*q)
+            for kind in spec["kinds"]:
+                col.reset_comm()
+                B, C = nys.nystrom_two_grid(blk, seed, r, p=p, q=q,
+                                            kind=kind)
+                out["two_grid"][(name, p, q, kind)] = result(B, C, gq)
+            col.reset_comm()
+            B, C = nys.nystrom_two_grid_fused(blk, seed, r, p=p, q=q)
+            out["fused"][(name, p, q)] = result(B, C, gq)
+        col.reset_comm()
+        B, C, gq, variant = nys.nystrom_auto(At, seed, r,
+                                             variant="bound_driven")
+        out["auto"][name] = (variant, result(B, C, gq))
+        if r % world == 0:
+            g = sk.make_grid_groups(world, 1, 1)
+            for variant, fn in (("no_redist", nys.nystrom_no_redist),
+                                ("redist", nys.nystrom_redist)):
+                B, C = fn(sk.input_block(At, g), seed, r, g)
+                out["one_d"][(name, variant)] = (arr(B), arr(C))
+    for name, (B_np, r, salt, pairs) in spec["stage"].items():
+        Bt = torch.from_numpy(np.array(B_np))
+        for p, q in pairs:
+            gp, gq = sk.make_grid_groups(*p), sk.make_grid_groups(*q)
+            b_blk = sk.output_block(Bt, gp)
+            for fused, fn in ((False, nys.nystrom_second_stage_two_grid),
+                              (True,
+                               nys.nystrom_second_stage_two_grid_fused)):
+                col.reset_comm()
+                B, C = fn(b_blk, seed, r, q, p=p, salt=salt)
+                out["stage"][(name, p, q, fused)] = result(B, C, gq)
+    for name, p, perm in spec["general"]:
+        A, r = spec["cases"][name]
+        g = sk.make_grid_groups(*p)
+        blk = sk.input_block(torch.from_numpy(np.array(A)), g)
+        col.reset_comm()
+        B, C = nys.nystrom_general(blk, seed, r, g, q_perm=perm)
+        q = tuple(p[a] for a in perm)
+        gq = sk.make_grid_groups(*q, order=_perm_order(p, perm))
+        out["general"][(name, p, perm)] = result(B, C, gq)
+    name, p, q = spec["subgrid"]
+    A, r = spec["cases"][name]
+    At = torch.from_numpy(np.array(A))
+    gq = sk.make_grid_groups(*q)
+    for fused, fn in ((False, nys.nystrom_two_grid),
+                      (True, nys.nystrom_two_grid_fused)):
+        col.reset_comm()
+        B, C = fn(sk.input_block(At, sk.make_grid_groups(*p)), seed, r,
+                  p=p, q=q)
+        out["sub"][fused] = result(B, C, gq)
+    # the Redistribute alone, on exact values: B[a, b] = a·r + b
+    (n, r), pairs = spec["layout"]
+    full = torch.arange(n * r, dtype=torch.float32).reshape(n, r)
+    for p, q in pairs:
+        gp, gq = sk.make_grid_groups(*p), sk.make_grid_groups(*q)
+        src = [nys._b_p_rect(gp.coords_of(d), p, n, r) for d in range(world)]
+        dst = [nys._q_rect(gq.coords_of(d), q, "B", n, r)
+               for d in range(world)]
+        col.reset_comm()
+        got = col.redistribute(sk.output_block(full, gp).contiguous(), src,
+                               dst, rank, None)
+        out["layout"][(p, q)] = (got.numpy(), comm(), gq.coords)
+    for key, call in spec["errors"].items():
+        try:
+            _error_call(call, seed)
+        except (ValueError, NotImplementedError) as e:
+            out["errors"][key] = (type(e).__name__, str(e))
+        else:
+            out["errors"][key] = None
+    return out
+
+
+def _perm_order(p, perm):
+    """The process rank at each q-grid rank when q-axis m is p-axis
+    ``perm[m]`` of the row-major p-grid (an independent copy of
+    ``nystrom_general``'s map)."""
+    import itertools
+    q = [p[a] for a in perm]
+    order = []
+    for qc in itertools.product(*(range(x) for x in q)):
+        pc = [0, 0, 0]
+        for m, a in enumerate(perm):
+            pc[a] = qc[m]
+        order.append((pc[0] * p[1] + pc[1]) * p[2] + pc[2])
+    return tuple(order)
+
+
+def _error_call(call, seed):
+    """Run one refused call of ``two_grid_worker``'s ``errors``."""
+    import torch
+
+    from repro_torch.core import nystrom as nys
+    from repro_torch.core import sketch as sk
+    fn, shape, r, p, q = call
+    x = torch.zeros(shape)
+    if fn == "two_grid":
+        nys.nystrom_two_grid(sk.input_block(x, sk.make_grid_groups(*p)),
+                             seed, r, p=p, q=q)
+    elif fn == "two_grid_fused":
+        nys.nystrom_two_grid_fused(
+            sk.input_block(x, sk.make_grid_groups(*p)), seed, r, p=p, q=q)
+    elif fn in ("stage", "stage_fused"):
+        stage = (nys.nystrom_second_stage_two_grid if fn == "stage"
+                 else nys.nystrom_second_stage_two_grid_fused)
+        stage(sk.output_block(x, sk.make_grid_groups(*p)), seed, r, q, p=p)
+    elif fn == "general":
+        g = sk.make_grid_groups(*p)
+        nys.nystrom_general(sk.input_block(x, g), seed, r, g, q_perm=q)
+    else:
+        raise AssertionError(fn)
+
+
+def two_grid_card_worker(rank, world, n, seed, runs):
+    """One rank of the two-grid Alg. 2 on cuda:0 (every rank shares the
+    one card): a symmetric A drawn on the card from a seeded generator,
+    each ``(p, q, r)`` of ``runs`` through ``nystrom_two_grid`` against
+    the one-device card sketch (``sketch_block``) and ``sketch_t_block``
+    of it.  Returns, per run, (B bitwise, B rel_fro, C rel_fro, words
+    received by kind, launches, B and C devices)."""
+    import torch
+
+    from repro_torch.core import nystrom as nys
+    from repro_torch.core import sketch as sk
+    from repro_torch.kernels import (LAUNCHES, reset_launches, sketch_block,
+                                     sketch_t_block)
+    from repro_torch.parallel import collectives as col
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    G = torch.randn(n, n, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    A = (G + G.T) / 2
+    out = {}
+    for p, q, r in runs:
+        B_one = sketch_block(A, seed, r)
+        C_one = sketch_t_block(B_one, seed, r)
+        gq = sk.make_grid_groups(*q)
+        blk_in = sk.input_block(A, sk.make_grid_groups(*p))
+        col.reset_comm()
+        reset_launches()
+        B, C = nys.nystrom_two_grid(blk_in, seed, r, p=p, q=q)
+        torch.cuda.synchronize()
+        launches = {k: LAUNCHES[k] for k in ("sketch_fwd", "sketch_t",
+                                             "gen_omega")}
+        B_ref = nys.two_grid_block(B_one, gq, "B")
+        C_ref = nys.two_grid_block(C_one, gq, "C")
+        out[(p, q, r)] = (
+            torch.equal(B, B_ref),
+            float(torch.linalg.norm(B - B_ref) / torch.linalg.norm(B_ref)),
+            float(torch.linalg.norm(C - C_ref) / torch.linalg.norm(C_ref)),
+            {k: v["words"] for k, v in col.COMM.items()}, launches,
+            (B.device.type, C.device.type))
+    return out
