@@ -186,6 +186,39 @@ then the two-grid Alg. 2 (paper §5.3 approach 1), the same way:
                   i·16384; 16384x1 -> 2x1) and sketch_fwd on its narrow
                   path (8192x32768 -> 2) as phase 13 does.
 
+then distributed streaming (the paper's Alg. 1 once per update), the same
+way:
+
+ 15. stream-dist — four ranks spawned on cuda:0 over gloo (the co-range and
+                  dY all-reduces take CUDA tensors), each holding phases
+                  1-5's A; the stream is ``StreamConfig(n1 = n2 = 32768,
+                  r = 512, l = 1025, seed 7)``: (a) ``ShardedStreamingSketch``
+                  on (4,1,1) fed phase 4's eight 4096-row slabs out of
+                  order through ``update_rows``: the Y block bitwise this
+                  rank's ``rand_matmul`` block (itself bitwise the
+                  one-device B's rows), W bitwise a one-device
+                  ``StreamingSketch`` fed the same slabs, 0 words; (b) the
+                  same slabs on (2,2,1) and (1,2,2): words received exactly
+                  ``stream_update_cost(4096, ...).words`` a slab, the
+                  gathered Y and W within f32_tol(n) of (a)'s, and on
+                  (2,2,1) Y bitwise (c)'s; (c) ``update(A)`` once on
+                  (2,2,1): the Y block bitwise ``rand_matmul``'s, words
+                  Alg. 1's plus the co-range all-reduce; (d) the streamed
+                  Nystrom from (a)'s Y, ``auto``, ``no_redist``, ``redist``
+                  and ``bound_driven``: B bitwise the one-device B's block,
+                  B and C bitwise the same second stage on the one-shot
+                  blocks, words exactly the second stages'; (e) ``save`` on
+                  (4,1,1), ``restore`` on (2,2,1), bitwise; (f)
+                  ``make_sketch_service(grid=(4,1,1), max_resident=1)``
+                  with two streams: eviction and restore bitwise, and
+                  ``nystrom(sid, "redist")`` bitwise (d)'s.  Every rank
+                  launches sketch_fwd, sketch_t and fold_rows (counts reset
+                  just before each run); then each rank times the three
+                  kernels at the phase's shapes (a (4,1,1) slab's dY, its W
+                  update, the shard fold, held bitwise to its plain
+                  version) beside their plain versions and one library
+                  call each.
+
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and the exit code is non-zero; without a CUDA card it exits 1 and prints no
@@ -241,6 +274,12 @@ TG_WORDS = {((4, 1, 1), (1, 1, 4), 512): (3145728, 3145728),
             ((4, 1, 1), (2, 1, 2), 512): (2097152, 2162688),
             ((2, 2, 1), (4, 1, 1), 512): (0, 4390912),
             ((4, 1, 1), (2, 1, 2), 2): (8192, 8193)}
+# phase 15: distributed streaming on four ranks of one card, at phase 1-5's A
+SD_WORLD = 4
+SD_ORDER = (3, 0, 6, 1, 5, 7, 2, 4)      # phase 4's eight slabs, out of order
+SD_GRIDS = [(2, 2, 1), (1, 2, 2)]        # (b); (a) runs on (4, 1, 1)
+SD_VARIANTS = ("auto", "no_redist", "redist", "bound_driven")
+SD_SEEDS = (SEED, SEED + 1)              # (f)'s two streams
 RANKS_TIMEOUT_S = 600
 SERVE_ARGS = ["--workload", "sketch", "--streams", "128", "--updates", "4",
               "--n1", str(S_N1), "--n2", str(S_N2), "--r", str(S_R),
@@ -1687,7 +1726,7 @@ def two_grid_words(n, r, p, q, pc, qc, stage1=True) -> dict:
 
     words = {"all_gather": (q2 - 1) * n * r // (q1 * q2 * q3),
              "reduce_scatter": (q1 - 1) * r * r // (q1 * q2 * q3),
-             "all_to_all": 0,
+             "all_reduce": 0, "all_to_all": 0,
              "redistribute": rows * cols - span(held_r, want_r)
              * span(held_c, want_c)}
     if stage1:
@@ -2035,6 +2074,327 @@ def phase_two_grid(sass, mhz):
     return results
 
 
+def _stream_dist_rank(rank, world, ckdir):
+    """Phase 15, one rank."""
+    import torch.distributed as dist
+    from repro_torch.core import nystrom as nys
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.grid import (alg1_bandwidth_words,
+                                       select_two_grid_executable)
+    from repro_torch.core.sketch import _omega_tile_torch
+    from repro_torch.kernels import local
+    from repro_torch.kernels.sketch_matmul import LAUNCHES, reset_launches
+    from repro_torch.parallel import collectives as col
+    from repro_torch.plan.model import stream_update_cost
+    from repro_torch.serve import make_sketch_service
+    from repro_torch.stream import (ShardedStreamingSketch, StreamConfig,
+                                    StreamingSketch)
+    from repro_torch.stream import distributed as sd
+
+    dev = torch.device("cuda", 0)
+    P = world
+    lines = []
+
+    def say(msg):
+        lines.append(f"[stream-dist] rank {rank}: {msg}")
+
+    A = make_matrix(dev)
+    same_matrix(A, rank, world)
+    cfg = StreamConfig(N, N, r=R, seed=SEED)
+    L = cfg.sketch_l
+    names = ("sketch_fwd", "sketch_t", "fold_rows")
+    launches = dict.fromkeys(names, 0)
+    walls = {}
+    groups = {grid: sk.make_grid_groups(*grid)
+              for grid in [(P, 1, 1)] + SD_GRIDS}
+    g1, g221 = groups[(P, 1, 1)], groups[(2, 2, 1)]
+
+    def drive(name, fn):
+        """One run of the main path between barriers: counts reset just
+        before it and read just after."""
+        dist.barrier()
+        reset_launches()
+        col.reset_comm()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k in names:
+            launches[k] += LAUNCHES[k]
+        walls.setdefault(name, []).append(wall)
+        return out, col.comm_words()
+
+    def stream(grid):
+        st = ShardedStreamingSketch(cfg, groups[grid])
+        words = []
+        for s in SD_ORDER:
+            r0 = s * SLAB
+            words.append(drive(f"slab {grid}", lambda: st.update_rows(
+                r0, A[r0:r0 + SLAB]))[1])
+        return st, words
+
+    # (a) regime 1: the slabs out of order on (4,1,1)
+    st_a, words_a = stream((P, 1, 1))
+    B_one = local.sketch_block(A, SEED, R)
+    one_blk = sk.rand_matmul(sk.input_block(A, g1), SEED, R, g1)
+    check(torch.equal(one_blk, sk.output_block(B_one, g1)),
+          f"rank {rank}: rand_matmul's (4,1,1) block is not bitwise the "
+          f"one-device B's rows")
+    check(torch.equal(st_a.Y, one_blk), f"rank {rank}: (a) Y block is not "
+                                        f"bitwise rand_matmul's")
+    solo = StreamingSketch(cfg)
+    for s in SD_ORDER:
+        solo.update_rows(s * SLAB, A[s * SLAB:(s + 1) * SLAB])
+    check(torch.equal(st_a.W, solo.W), f"rank {rank}: (a) W is not bitwise "
+                                       f"the one-device stream's")
+    check(words_a == [0] * len(SD_ORDER), f"rank {rank}: (a) words {words_a}")
+    del solo
+    Y_a, W_a = sk.gather_output(st_a.Y, g1), sd.gather_corange(st_a.W, g1)
+    say(f"(a) (4,1,1), {len(SD_ORDER)} slabs of {SLAB} rows in the order "
+        f"{SD_ORDER}: Y block {tuple(st_a.Y.shape)} bitwise rand_matmul's "
+        f"(bitwise the one-device B's rows); W {tuple(st_a.W.shape)} "
+        f"bitwise a one-device StreamingSketch fed the same slabs; words "
+        f"received 0 a slab")
+
+    # (c) one full-shape update on (2,2,1)
+    st_c = ShardedStreamingSketch(cfg, g221)
+    _, words_c = drive("update (2,2,1)", lambda: st_c.update(A))
+    blk_c = sk.rand_matmul(sk.input_block(A, g221), SEED, R, g221)
+    check(torch.equal(st_c.Y, blk_c), f"rank {rank}: (c) Y block is not "
+                                      f"bitwise rand_matmul's on (2,2,1)")
+    want_c = (alg1_bandwidth_words(N, N, R, 2, 2, 1)
+              + 2.0 * (1.0 - 1.0 / 2) * L * N / 2)
+    check(words_c == want_c, f"rank {rank}: (c) {words_c} words received, "
+                             f"not {want_c:.0f}")
+    del blk_c
+    say(f"(c) update(A) on (2,2,1): Y block {tuple(st_c.Y.shape)} bitwise "
+        f"rand_matmul's; words received {words_c} == Alg. 1's "
+        f"{alg1_bandwidth_words(N, N, R, 2, 2, 1):.0f} + the co-range "
+        f"all-reduce {want_c - alg1_bandwidth_words(N, N, R, 2, 2, 1):.0f}")
+
+    # (b) the same slabs on (2,2,1) and (1,2,2)
+    for grid in SD_GRIDS:
+        st, words = stream(grid)
+        want = stream_update_cost(SLAB, N, R, L, grid=grid).words
+        check(words == [want] * len(SD_ORDER),
+              f"rank {rank}: (b) {grid} words {words}, not {want:.0f} a slab")
+        g = groups[grid]
+        err_y = rel_fro(sk.gather_output(st.Y, g), Y_a)
+        err_w = rel_fro(sd.gather_corange(st.W, g), W_a)
+        tol = f32_tol(N)
+        check(err_y <= tol and err_w <= tol,
+              f"rank {rank}: (b) {grid}: Y rel_fro {err_y:.3e}, W rel_fro "
+              f"{err_w:.3e} against (a)'s, tol {tol:.1e}")
+        same = ""
+        if grid == (2, 2, 1):
+            check(torch.equal(st.Y, st_c.Y), f"rank {rank}: (b) (2,2,1) Y "
+                                             f"is not bitwise (c)'s")
+            same = "; Y block bitwise (c)'s full-shape update"
+        say(f"(b) {grid}: words received {words[0]:.0f} a slab == "
+            f"stream_update_cost; Y rel_fro {err_y:.3e}, W rel_fro "
+            f"{err_w:.3e} against (a)'s (tol {tol:.1e}){same}")
+        del st
+    del st_c
+
+    # (d) the streamed Nystrom from (a)'s Y
+    q = select_two_grid_executable(N, R, P, p=(P, 1, 1))[1]
+    check(q == (1, 1, P), f"the bound-driven q-grid is {q}, not (1,1,{P})")
+    gq = sk.make_grid_groups(*q)
+    finals = {"auto": (P - 1) * R * R // P, "no_redist": (P - 1) * R * R // P,
+              "redist": (P - 1) * N * R // P ** 2,
+              "bound_driven": (P - 1) * N * R // P ** 2}
+    pairs = {}
+    for variant in SD_VARIANTS:
+        (B, C), words = drive(f"nystrom {variant}",
+                              lambda: st_a.nystrom(variant))
+        B1, C1 = sd.nystrom_finalize(one_blk, cfg, g1, variant)
+        check(torch.equal(B, B1) and torch.equal(C, C1),
+              f"rank {rank}: (d) {variant}: not bitwise the second stage on "
+              f"the one-shot blocks")
+        B_ref = (nys.two_grid_block(B_one, gq, "B")
+                 if variant == "bound_driven" else
+                 nys.nystrom_block(B_one, g1, "redist" if variant == "redist"
+                                   else "no_redist"))
+        check(torch.equal(B, B_ref), f"rank {rank}: (d) {variant}: B is not "
+                                     f"bitwise the one-device B's block")
+        check(words == finals[variant], f"rank {rank}: (d) {variant}: "
+                                        f"{words} words, not "
+                                        f"{finals[variant]}")
+        check(bool(torch.isfinite(C).all()), f"rank {rank}: (d) C")
+        pairs[variant] = (B, C)
+        say(f"(d) nystrom({variant!r}): B {tuple(B.shape)} bitwise the "
+            f"one-device B's block, B and C {tuple(C.shape)} bitwise the "
+            f"second stage on rand_matmul's blocks; words received {words}")
+        del B1, C1
+
+    # (e) save on (4,1,1), restore on (2,2,1)
+    path, _ = drive("save", lambda: st_a.save(ckdir))
+    st_e, _ = drive("restore",
+                    lambda: ShardedStreamingSketch.restore(ckdir, g221))
+    check(torch.equal(sk.gather_output(st_e.Y, g221), Y_a)
+          and torch.equal(sd.gather_corange(st_e.W, g221), W_a)
+          and st_e.num_updates == st_a.num_updates,
+          f"rank {rank}: (e) the restored stream differs")
+    say(f"(e) save on (4,1,1) ({path}), restore on (2,2,1): Y, W bitwise, "
+        f"num_updates {st_e.num_updates}")
+    del st_e, W_a
+
+    # (f) a grid service: two streams, one resident
+    svc = make_sketch_service(grid=(P, 1, 1), max_resident=1)
+    sids, kept = [], []
+    for seed in SD_SEEDS:
+        sid = svc.open(StreamConfig(N, N, r=R, seed=seed))
+        drive("service update", lambda: svc.update(sid, A))
+        sids.append(sid)
+        kept.append((svc.sketch(sid).clone(), svc.corange(sid).clone()))
+    check(svc.num_evicted == 1 and svc.num_resident == 1,
+          f"rank {rank}: (f) {svc.stats()}")
+    check(torch.equal(kept[0][0], one_blk) and not torch.equal(*(
+        k[0] for k in kept)), f"rank {rank}: (f) the streams' Y blocks")
+    (B, C), words = drive("service nystrom redist",
+                          lambda: svc.nystrom(sids[0], "redist"))
+    check(torch.equal(svc.sketch(sids[0]), kept[0][0])
+          and torch.equal(svc.corange(sids[0]), kept[0][1]),
+          f"rank {rank}: (f) the restored stream is not bitwise")
+    check(torch.equal(B, pairs["redist"][0])
+          and torch.equal(C, pairs["redist"][1]),
+          f"rank {rank}: (f) nystrom(sid, 'redist') is not bitwise (d)'s")
+    say(f"(f) make_sketch_service(grid=(4,1,1), max_resident=1), streams "
+        f"seeded {SD_SEEDS}: {svc.stats()}; the evicted stream restored "
+        f"bitwise; nystrom(sid, 'redist') bitwise (d)'s, {words} words")
+    del svc, kept, pairs, B, C, st_a, B_one, one_blk, Y_a
+    torch.cuda.empty_cache()
+
+    # the three kernels at this phase's shapes, four ranks sharing the card
+    calls = {}
+
+    def profiled(name, parts):
+        """Rank 0 alone splits the device time (the other ranks wait)."""
+        dist.barrier()
+        if rank == 0:
+            calls[name]["device_ms"] = parts()
+        dist.barrier()
+
+    H = A[:SLAB]
+    om = _omega_tile_torch(SEED, 0, 0, 0, N, R, "normal", 0, None, None, dev)
+
+    def fwd():
+        return local.sketch_block(H, SEED, R, out_dtype=torch.float32)
+
+    def fwd_plain():
+        return local._sketch_block_torch(H, SEED, R,
+                                         out_dtype=torch.float32)
+
+    got, ref = fwd(), fwd_plain()
+    err = rel_fro(got, ref)
+    check(err <= f32_tol(N), f"rank {rank}: sketch_fwd rel_fro {err:.3e}")
+    bms, by = bound_ms(2.0 * SLAB * N * R, 4.0 * (SLAB * N + SLAB * R))
+    calls["sketch_fwd"] = {
+        "shape": f"{SLAB}x{N} -> {SLAB}x{R} (a (4,1,1) slab's dY)",
+        "ms": time_ms(fwd), "plain_ms": time_ms(fwd_plain, reps=3),
+        "library_ms": time_ms(lambda: torch.matmul(H, om)),
+        "bound_ms": bms, "bound_by": by, "max_abs_err": max_abs(got, ref),
+        "rel_fro": err}
+    profiled("sketch_fwd", lambda: kernel_parts(fwd,
+                                                "sketch_fwd_gemm_kernel"))
+    del om
+    W = torch.zeros(L, N, device=dev)
+    psi = _omega_tile_torch(SEED, 0, 0, 0, SLAB, L, "normal", cfg.psi_salt,
+                            None, None, dev)
+
+    def wup():
+        return local.sketch_t_block(H, SEED, L, salt=cfg.psi_salt, acc=W)
+
+    def wup_plain():
+        return local._sketch_t_block_torch(H, SEED, L, salt=cfg.psi_salt,
+                                           acc=W)
+
+    got = local.sketch_t_block(H, SEED, L, salt=cfg.psi_salt)
+    ref = local._sketch_t_block_torch(H, SEED, L, salt=cfg.psi_salt)
+    err = rel_fro(got, ref)
+    check(err <= f32_tol(SLAB), f"rank {rank}: sketch_t rel_fro {err:.3e}")
+    bms, by = bound_ms(2.0 * SLAB * N * L, 4.0 * (SLAB * N + 2 * L * N))
+    calls["sketch_t"] = {
+        "shape": f"{SLAB}x{N} -> {L}x{N} += (a (4,1,1) slab's W update)",
+        "ms": time_ms(wup), "plain_ms": time_ms(wup_plain, reps=3),
+        "library_ms": time_ms(lambda: torch.addmm(W, psi.T, H)),
+        "bound_ms": bms, "bound_by": by, "max_abs_err": max_abs(got, ref),
+        "rel_fro": err}
+    profiled("sketch_t", lambda: kernel_parts(wup, "sketch_t_gemm_kernel"))
+    del W, psi, got, ref
+    m = N // P
+    gen = torch.Generator(device=dev).manual_seed(15)
+    Yf = torch.randn(m, R, generator=gen, device=dev)
+    dY = torch.randn(SLAB, R, generator=gen, device=dev)
+    start = m - SLAB            # the slab meets the shard's second half
+
+    def fold():
+        return local.fold_rows_block(Yf, dY, start, nvalid=SLAB)
+
+    ref = local._fold_rows_torch(Yf, dY, start, SLAB)
+    fold()
+    check(torch.equal(Yf, ref), f"rank {rank}: fold_rows is not bitwise its "
+                                f"plain version at the shard fold")
+    bms, by = bound_ms(0.0, 3.0 * 4 * SLAB * R)
+    calls["fold_rows"] = {
+        "shape": f"Y shard {m}x{R} += dY {SLAB}x{R} at start {start}",
+        "ms": time_ms(fold),
+        "plain_ms": time_ms(lambda: local._fold_rows_torch(Yf, dY, start,
+                                                           SLAB), reps=3),
+        "library_ms": time_ms(lambda: Yf.narrow(0, m - SLAB, SLAB)
+                              .add_(dY)),
+        "bound_ms": bms, "bound_by": by, "max_abs_err": 0.0}
+    # on the device back to back (Y's rows and dY, 16 MiB, stay in the
+    # L2), and with a 256 MiB read before each call
+    flush = torch.empty(64 * 2 ** 20, device=dev)
+    profiled("fold_rows", lambda: {
+        "fold": device_ms(fold, "fold_rows_kernel"),
+        "fold, L2 flushed": device_ms(fold, "fold_rows_kernel",
+                                      before=flush.sum)})
+    del flush
+    for name, c in calls.items():
+        dev_txt = ("" if "device_ms" not in c else
+                   f"; on the device, rank 0 alone (torch.profiler): "
+                   f"{parts_text(c['device_ms'])}")
+        say(f"local kernel {name} {c['shape']} (four ranks share the "
+            f"card): {c['ms']:.4f} ms (plain {c['plain_ms']:.3f}, library "
+            f"{c['library_ms']:.4f}, bound {c['bound_ms']:.4f} ms by "
+            f"{c['bound_by']}), max_abs_err {c['max_abs_err']:.3e}{dev_txt}")
+    say("wall time per run (gloo through host memory, not an interconnect "
+        "time): " + "; ".join(
+            f"{k} " + ", ".join(f"{w:.4f}" for w in v) + " s"
+            for k, v in walls.items()))
+    say(f"launches over the phase's runs: {launches}")
+    dist.barrier()
+    return {"lines": lines, "launches": launches, "calls": calls,
+            "walls": walls}
+
+
+def phase_stream_dist():
+    """Phase 15: distributed streaming on SD_WORLD ranks of one card over
+    gloo, each rank holding phase 1-5's A."""
+    import shutil
+    import tempfile
+    print(f"[stream-dist] {SD_WORLD} ranks on cuda:0 over gloo (the "
+          f"all-reduces take CUDA tensors): A {N}x{N} f32, r = {R}, "
+          f"l = {2 * R + 1}: update_rows of {len(SD_ORDER)} slabs of {SLAB} "
+          f"rows on (4,1,1) and {SD_GRIDS}, update on (2,2,1), the streamed "
+          f"Nystrom {SD_VARIANTS}, save / restore, a grid service")
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_phase15_")
+    try:
+        results = spawn_ranks(15, _stream_dist_rank, SD_WORLD, (ckdir,))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    for res in results:
+        for line in res["lines"]:
+            print(line)
+    for name in ("sketch_fwd", "sketch_t", "fold_rows"):
+        n = [res["launches"][name] for res in results]
+        check(all(x > 0 for x in n), f"{name} not launched on every rank: "
+                                     f"{n}")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2317,6 +2677,8 @@ def main() -> int:
     print(f"[phases] 13 done at {time.perf_counter() - t_start:.1f} s")
     two_grid = phase_two_grid(sass, mhz)
     print(f"[phases] 14 done at {time.perf_counter() - t_start:.1f} s")
+    stream_dist = phase_stream_dist()
+    print(f"[phases] 15 done at {time.perf_counter() - t_start:.1f} s")
 
     total = [sum(gemm_times[c][i] for c in "abc") for i in range(3)]
     bound3 = sum(gemm_times[c][3][0] for c in "abc")
@@ -2377,6 +2739,13 @@ def main() -> int:
             kernels[-1]["alg2_two_grid"] = {
                 "launches": [res["launches"][name] for res in two_grid],
                 "calls": [res["calls"][name] for res in two_grid]}
+        if name in ("sketch_fwd", "sketch_t", "fold_rows"):
+            # phase 15: each rank's launches over its distributed-stream
+            # runs (counts reset just before each run), and the kernel
+            # timed at the phase's shape with four ranks sharing the card
+            kernels[-1]["stream_dist"] = {
+                "launches": [res["launches"][name] for res in stream_dist],
+                "calls": [res["calls"][name] for res in stream_dist]}
         if name in ("sketch_t", "sketch_fwd"):
             # ms, plain_ms, library_ms and bound_ms are those of sketch_t's
             # W update and of sketch_fwd's one-shot; each of the main

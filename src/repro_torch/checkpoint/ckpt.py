@@ -1,12 +1,23 @@
-"""Atomic checkpoints of a train state (the port's own format; it does not
-read the reference's).
+"""Atomic checkpoints (the port's own format; it does not read the
+reference's), of a train state or of a tree of named tensors.
 
-Layout: ``<dir>/step_<N>/`` holding ``tensors.pt`` (every tensor of the
-state by name, on the CPU) and ``manifest.json`` (step, optimizer count,
-``extra``).  Everything is written into ``step_<N>.tmp``, fsynced, and
-published with one ``os.replace``, so a reader never sees a half-written
-step; ``latest_step`` reports only steps whose manifest and tensors load.
-``restore`` copies into the tensors of a live state, in place.
+Layout: ``<dir>/step_<N>/`` holding ``tensors.pt`` (every tensor by name,
+on the CPU) and ``manifest.json`` (step, ``extra``, the names, and for a
+train state its step and optimizer count).  Everything is written into
+``step_<N>.tmp``, fsynced, and published with one ``os.replace``, so a
+reader never sees a half-written step; ``latest_step`` reports only steps
+whose manifest and tensors load.
+
+Two forms share that writer:
+
+  * a train state: ``save(directory, step, state)``; ``restore`` copies
+    into the tensors of a live state, in place;
+  * a tree, ``{name: tensor}`` (the reference's ``ckpt.save`` of a
+    pytree): ``save(directory, step, tree)``; ``load_extra`` reads the
+    manifest's ``extra`` alone and ``restore_tree`` returns the tensors,
+    on the CPU, with ``extra``.  Tensors are stored whole (the caller
+    gathers a sharded one first), so a restore may lay them out on
+    another grid.
 """
 from __future__ import annotations
 
@@ -39,10 +50,10 @@ def _fsync_write(path: str, writer) -> None:
         os.fsync(f.fileno())
 
 
-def save(directory: str, step: int, state, extra: Optional[Dict] = None,
-         keep: int = 3) -> str:
-    """Atomically write ``state`` as step ``step``; returns its path and
-    keeps the newest ``keep`` steps."""
+def _write(directory: str, step: int, tensors: Dict[str, torch.Tensor],
+           manifest: Dict, keep: int) -> str:
+    """Atomically publish ``tensors`` and ``manifest`` as step ``step``;
+    keep the newest ``keep`` steps."""
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -50,10 +61,7 @@ def save(directory: str, step: int, state, extra: Optional[Dict] = None,
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     try:
-        tensors = {k: t.detach().cpu() for k, t in _named(state).items()}
-        manifest = {"step": int(step), "state_step": int(state.step),
-                    "count": int(state.opt.count), "extra": extra or {},
-                    "names": sorted(tensors)}
+        manifest = dict(manifest, step=int(step), names=sorted(tensors))
         _fsync_write(os.path.join(tmp, "tensors.pt"),
                      lambda f: torch.save(tensors, f))
         _fsync_write(os.path.join(tmp, "manifest.json"),
@@ -67,6 +75,22 @@ def save(directory: str, step: int, state, extra: Optional[Dict] = None,
     for _, d in _step_dirs(directory)[:-keep] if keep > 0 else []:
         shutil.rmtree(os.path.join(directory, d), ignore_errors=True)
     return final
+
+
+def save(directory: str, step: int, state, extra: Optional[Dict] = None,
+         keep: int = 3) -> str:
+    """Atomically write ``state`` as step ``step``; returns its path and
+    keeps the newest ``keep`` steps.  ``state`` is a train state or a
+    ``{name: tensor}`` dict (stored whole, on the CPU)."""
+    if isinstance(state, dict):
+        tensors = {str(k): t.detach().cpu() for k, t in state.items()}
+        return _write(directory, step, tensors, {"extra": extra or {}},
+                      keep)
+    tensors = {k: t.detach().cpu() for k, t in _named(state).items()}
+    return _write(directory, step, tensors,
+                  {"state_step": int(state.step),
+                   "count": int(state.opt.count), "extra": extra or {}},
+                  keep)
 
 
 def _step_dirs(directory: str) -> List[Tuple[int, str]]:
@@ -101,14 +125,43 @@ def latest_step(directory: str) -> Optional[int]:
     return None
 
 
+def _resolve(directory: str, step: Optional[int]) -> int:
+    step = latest_step(directory) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no loadable checkpoint in {directory}")
+    return step
+
+
+def load_extra(directory: str,
+               step: Optional[int] = None) -> Tuple[Dict, int]:
+    """``(extra, step)`` of checkpoint ``step`` (default: the newest that
+    loads), from its manifest alone: a stream reads its config here
+    before it allocates what it restores into."""
+    step = _resolve(directory, step)
+    with open(os.path.join(directory, f"step_{step:08d}",
+                           "manifest.json")) as f:
+        return json.load(f)["extra"], step
+
+
+def restore_tree(directory: str, step: Optional[int] = None
+                 ) -> Tuple[Dict[str, torch.Tensor], int, Dict]:
+    """``(tensors, step, extra)`` of checkpoint ``step`` (default: the
+    newest that loads): every stored tensor by name, on the CPU."""
+    step = _resolve(directory, step)
+    manifest, tensors = _load(os.path.join(directory, f"step_{step:08d}"))
+    return tensors, step, manifest["extra"]
+
+
 @torch.no_grad()
 def restore(directory: str, state, step: Optional[int] = None):
     """Copy checkpoint ``step`` (default: the newest that loads) into the
     tensors of ``state`` in place; returns ``(state, step, extra)``."""
-    step = latest_step(directory) if step is None else step
-    if step is None:
-        raise FileNotFoundError(f"no loadable checkpoint in {directory}")
+    step = _resolve(directory, step)
     manifest, tensors = _load(os.path.join(directory, f"step_{step:08d}"))
+    if "state_step" not in manifest:
+        raise ValueError(f"checkpoint step {step} in {directory} holds a "
+                         f"tree of tensors, not a train state; use "
+                         f"restore_tree")
     for name, t in _named(state).items():
         if name not in tensors:
             raise KeyError(f"checkpoint lacks {name!r}")

@@ -332,9 +332,10 @@ def _dense_only(kind: str) -> None:
     validate_kind(kind)
     if kind in SPARSE_KINDS:
         raise NotImplementedError(
-            f"kind {kind!r}: distributed sparse bodies are not ported "
-            f"(ROADMAP.md Queue 1, item 6) — use sketch_sparse_apply, or a "
-            f"dense kind here")
+            f"kind {kind!r}: distributed sparse bodies are deferred, as in "
+            f"the reference — use sketch_sparse_apply or a local "
+            f"StreamingSketch / SketchService for sparse kinds, or a dense "
+            f"kind here")
 
 
 def rand_matmul(A_blk: Optional[torch.Tensor], seed, r: int, g: GridGroups,

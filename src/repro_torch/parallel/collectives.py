@@ -15,6 +15,9 @@
                                            (``jax.lax.all_to_all(...,
                                            split_axis=1, concat_axis=0,
                                            tiled=True)``);
+  * ``all_reduce(x, group, size)``       — the group's sum of ``x`` on
+                                           every rank (``jax.lax.psum``
+                                           over one fiber);
   * ``redistribute(x, src, dst, rank, group)`` — the §5.2 Redistribute:
                                            a matrix held in one block
                                            layout re-laid out in another
@@ -39,9 +42,12 @@ Alg. 2 receives ``alg2_bandwidth_words(n, r, (P,1,1), (P,1,1))``, and
 the Redist all-to-all ``(1 - 1/P)·n·r/P``, below the formula's ``n·r/P``
 term.  A Redistribute receives this rank's destination block less what
 it already held: the maximum over ranks is the reference's
-``fused_redistribute_words``.  (The reference's HLO audit counts each
-collective's per-device operand instead; the two agree only for groups
-of 2.)
+``fused_redistribute_words``.  An all-reduce counts what a ring moves
+into a rank, ``2·(1 - 1/g)·numel(x)`` (a reduce-scatter, then an
+all-gather): the reference's price of the streaming co-range psum and of
+``stream_update_cost``'s all-reduce of dY.  (The reference's HLO audit
+counts each collective's per-device operand instead; the two agree only
+for groups of 2.)
 
 The library never picks a process-group backend: the caller runs
 ``torch.distributed.init_process_group``.  gloo takes CUDA tensors and
@@ -52,7 +58,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-KINDS = ("all_gather", "reduce_scatter", "all_to_all", "redistribute")
+KINDS = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all",
+         "redistribute")
 
 # The flat (dim-0) collectives under this torch's name for them: newer
 # releases call them ``*_single`` and deprecate the ``*_tensor`` names,
@@ -117,6 +124,19 @@ def reduce_scatter(x: torch.Tensor, group, size: int) -> torch.Tensor:
                       device=x.device)
     _reduce_scatter_flat(out, x, group=group)
     _count("reduce_scatter", x, out)
+    return out
+
+
+def all_reduce(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """The group's sum of ``x``, on every rank of the group (a new
+    tensor); ``x`` itself when ``size == 1`` or ``group`` is None."""
+    if size == 1 or group is None:
+        return x
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    COMM["all_reduce"]["calls"] += 1
+    words, rem = divmod(2 * (size - 1) * out.numel(), size)
+    COMM["all_reduce"]["words"] += words if rem == 0 else words + rem / size
     return out
 
 

@@ -1,6 +1,7 @@
 """Cost model of Alg. 1, of Alg. 2 (the §5.2 Redistribute and the two-grid
-variants) and of the data-parallel gradient exchange (the parts of the
-reference's ``plan/model.py`` that the port runs).
+variants), of one sharded row-slab stream update and of the data-parallel
+gradient exchange (the parts of the reference's ``plan/model.py`` that the
+port runs).
 
 Counts only: words moved over the interconnect, latency hops, local FLOPs
 and device-memory words.  The reference also prices seconds on TPU
@@ -144,6 +145,45 @@ def alg2_fused_cost(n: int, r: int, p: Tuple[int, int, int],
         msgs += 1.0                   # one resharding collective
     return dataclasses.replace(base, words=base.words - cross + fused,
                                messages=msgs)
+
+
+def stream_update_cost(k: int, n2: int, r: int, l: int,
+                       grid: Tuple[int, int, int] = (1, 1, 1),
+                       corange: bool = True) -> Cost:
+    """One ``ShardedStreamingSketch.update_rows`` of a (k, n2) slab on
+    (p1, p2, p3): ``words`` and ``messages`` are the reference's exactly.
+
+    The slab is replicated over p1 and column-split over (p2, p3): one
+    all-gather of it over p3 ((1 - 1/p3)·k·n2/p2 words), one all-reduce
+    of the (k, r/p3) dY partial over p2 (2·(1 - 1/p2)·k·r/p3), and W's
+    update is local (W is replicated over p1).  Zero words on (1, 1, 1)
+    and on every regime-1 grid (P, 1, 1).
+
+    Device-memory words price the port's bodies as :func:`alg1_cost`
+    does: ``sketch_fwd`` reads the gathered (k, n2/p2) panel, writes and
+    reads its (n2/p2 x r/p3) Omega scratch (``sketch_fwd_scratch_bytes``)
+    and writes dY; the fold reads dY and the Y rows it meets (at most k)
+    and writes those rows; with the co-range, ``sketch_t`` reads the
+    local (k, n2/(p2·p3)) block, writes and reads its (k x l) Psi scratch
+    (``sketch_t_scratch_bytes``) and reads and writes W's block."""
+    p1, p2, p3 = grid
+    words = 0.0
+    msgs = 0.0
+    if p3 > 1:
+        words += (1.0 - 1.0 / p3) * k * n2 / p2
+        msgs += math.log2(p3)
+    if p2 > 1:
+        words += 2.0 * (1.0 - 1.0 / p2) * k * r / p3   # all-reduce of dY
+        msgs += 2.0 * math.log2(p2)
+    cols = n2 / (p2 * p3)
+    flops = 2.0 * k * n2 * r / (p2 * p3)
+    scratch = sketch_fwd_scratch_bytes(r // p3, n2 // p2) / 4
+    hbm = k * n2 / p2 + 2.0 * scratch + 4.0 * k * r / p3
+    if corange:
+        flops += 2.0 * k * n2 * l / (p2 * p3)
+        hbm += (k * cols + 2.0 * sketch_t_scratch_bytes(l, k) / 4
+                + 2.0 * l * cols)
+    return Cost(words=words, messages=msgs, flops=flops, hbm_words=hbm)
 
 
 def grad_allreduce_cost(m: int, n: int, world: int) -> Cost:

@@ -1,13 +1,18 @@
-"""Streaming one-pass sketches on one device: (Y = A·Omega, W = Psi·A)
-with Omega/Psi regenerated by the fused kernels.
+"""Streaming one-pass sketches: (Y = A·Omega, W = Psi·A) with Omega/Psi
+regenerated by the fused kernels, on one device or sharded over a grid of
+ranks.
 
   state.py        — StreamConfig + StreamingSketch (row/col/additive
-                    ingest, in place), the solo and lane-batched row-slab
-                    updates the service runs
+                    ingest, in place; save / restore), the solo and
+                    lane-batched row-slab updates the service runs
+  distributed.py  — ShardedStreamingSketch: the (Y, W) state sharded over
+                    a (p1, p2, p3) grid of torch.distributed ranks (Alg. 1
+                    per update), its checkpoints and streamed Nystrom
+                    finalize
   reconstruct.py  — one-pass fixed-rank A ~= Q·(Psi Q)†·W (Tropp et al.)
-  service.py      — SketchService: many concurrent streams on one card,
-                    ragged multi-tenant ingest, QoS + LRU admission with
-                    eviction to host memory
+  service.py      — SketchService: many concurrent streams on one card
+                    (ragged multi-tenant ingest) or sharded over a grid,
+                    QoS + LRU admission with eviction to host memory
   ingest.py       — IngestQueue: bounded async request queue with
                     backpressure, retries and poison-lane excision
   wal.py          — WriteAheadLog: journal of accepted updates; replay
@@ -21,6 +26,9 @@ from .state import (  # noqa: F401
 )
 from .reconstruct import (  # noqa: F401
     LowRank, lstsq_svd, one_pass_reconstruct, reconstruction_error,
+)
+from .distributed import (  # noqa: F401
+    ShardedStreamingSketch, corange_update, nystrom_finalize,
 )
 from .service import QOS_CLASSES, SketchService  # noqa: F401
 from .ingest import IngestQueue, WorkerDied  # noqa: F401

@@ -1,5 +1,5 @@
-"""Batched sketch service: many concurrent streams on one card (the port of
-the reference's ``stream/service.py``, local mode).
+"""Batched sketch service: many concurrent streams on one card, or sharded
+over a grid of ranks (the port of the reference's ``stream/service.py``).
 
 Each client stream owns its own (Y, W) accumulators on the device plus a
 Philox key pair; opening stream number 1000 costs two allocations, not a
@@ -30,11 +30,22 @@ Admission/eviction: streams carry a QoS class (``pinned`` > ``standard`` >
 beyond the budget evicts the coldest non-pinned resident — its (Y, W) is
 copied to host memory and restored bitwise on next touch.
 
-Not in this slice (each raises ``NotImplementedError``): a ``mesh`` (the
-sharded streams of ``ShardedStreamingSketch``, ROADMAP Queue 1 item 6),
-``spill_dir`` (needs
-``checkpoint/ckpt.py``, item 9), ``reshard`` (``stream/elastic.py``, item
-9) and the sparse-payload updates (``SparseRows``, item 6).
+Two placement modes:
+
+  * ``mesh=None`` — local mode, as above.
+  * ``mesh=make_grid_groups(p1, p2, p3)`` — grid mode.  Every rank of the
+    grid runs the same service calls; each stream's state is this rank's
+    blocks (``stream.distributed``: Y in Alg. 1's output layout, W in
+    P(None, (p2, p3))), and ``update`` takes full-shape deltas only,
+    running ``ShardedStreamingSketch.update``'s body with the stream's
+    key pair (Alg. 1's collectives plus the co-range all-reduce, counted
+    in ``parallel.collectives.COMM``).  ``nystrom`` runs the Alg. 2 second
+    stages on a (P, 1, 1) grid; eviction copies each rank's own blocks.
+    The lane-batched updates are local-mode only.
+
+Not in this slice (each raises ``NotImplementedError``): ``spill_dir``
+(ROADMAP Queue 1 item 9), ``reshard`` (``stream/elastic.py``, item 9) and
+the sparse-payload updates (``SparseRows``, item 6b).
 """
 from __future__ import annotations
 
@@ -45,10 +56,13 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.sketch import resolve_device, seed_keys
+from repro_torch.core.sketch import gather_output, resolve_device, seed_keys
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
+from .distributed import (_grid_of, check_divisible, gather_corange,
+                          nystrom_finalize, refuse_sparse, sharded_update,
+                          stream_blocks)
 from .state import (StreamConfig, _local_sig, local_rowblock_ragged,
                     nystrom_local, rowblock_update, snap_bucket,
                     validate_row_block)
@@ -104,13 +118,14 @@ class SketchService:
     >>> svc.update_ragged([(sid, H2, 64)])           # or fused with others
     >>> svc.sketch(sid)                              # the live Y = A·Omega
     >>> svc.reconstruct(sid, rank=16)                # one-pass estimate
+
+    ``mesh`` (a ``core.sketch.make_grid_groups`` grid holding this rank)
+    selects grid mode; ``device=None`` means the card.
     """
 
     def __init__(self, mesh=None, max_resident: Optional[int] = None,
                  spill_dir: Optional[str] = None, device=None):
-        if mesh is not None:
-            raise _not_ported("a distributed (mesh) service, which needs "
-                              "ShardedStreamingSketch", "item 6")
+        self.mesh = None if mesh is None else _grid_of(mesh)
         if spill_dir is not None:
             raise _not_ported("spill_dir (checkpoint/ckpt.py)", "item 9")
         if max_resident is not None and max_resident < 1:
@@ -146,11 +161,19 @@ class SketchService:
         if qos not in QOS_CLASSES:
             raise ValueError(f"qos {qos!r} not in {QOS_CLASSES}")
         cfg.validate()
+        if self.mesh is not None:
+            refuse_sparse(cfg)
+            check_divisible(cfg, self.mesh)
         self._admit(need=1)
-        Y = torch.zeros((cfg.n1, cfg.r), dtype=cfg.dtype, device=self.device)
-        W = (torch.zeros((cfg.sketch_l, cfg.n2), dtype=cfg.dtype,
-                         device=self.device)
-             if cfg.corange else None)
+        if self.mesh is not None:
+            blocks = stream_blocks(cfg, self.mesh, device=self.device)
+            Y, W = blocks["Y"], blocks["W"]
+        else:
+            Y = torch.zeros((cfg.n1, cfg.r), dtype=cfg.dtype,
+                            device=self.device)
+            W = (torch.zeros((cfg.sketch_l, cfg.n2), dtype=cfg.dtype,
+                             device=self.device)
+                 if cfg.corange else None)
         sid = next(self._sid)
         self._streams[sid] = _Stream(cfg, seed_keys(cfg.seed), Y, W, qos=qos,
                                      last_touch=next(self._clock))
@@ -214,8 +237,9 @@ class SketchService:
             self.evict(sid)
 
     def evict(self, sid: int) -> None:
-        """Copy a resident stream's (Y, W) to host memory and free its
-        device slot.  The next touch restores it bitwise."""
+        """Copy a resident stream's (Y, W) — in grid mode this rank's
+        blocks — to host memory and free its device slot.  The next touch
+        restores it bitwise."""
         st = self._streams.get(sid)
         if st is None:
             if sid in self._evicted:
@@ -241,31 +265,51 @@ class SketchService:
     # -- ingest ------------------------------------------------------------
 
     def update(self, sid: int, H, row0: Optional[int] = None):
-        """Apply one update to stream ``sid``: ``row0`` selects a row-block
-        update (H is (k, n2)); ``row0=None`` means a full-shape additive
-        delta."""
+        """Apply one update to stream ``sid``.
+
+        Local mode: ``row0`` selects a row-block update (H is (k, n2));
+        ``row0=None`` means a full-shape additive delta.  Grid mode takes
+        full-shape additive deltas only, the same on every rank.
+        """
         st = self._touch(sid)
         cfg = st.cfg
+        if self.mesh is not None and row0 is not None:
+            raise ValueError("distributed streams take full-shape "
+                             "additive updates (row0 must be None)")
         H = _host_slab(H).to(device=self.device, dtype=cfg.dtype)
         if row0 is None:
             if tuple(H.shape) != (cfg.n1, cfg.n2):
                 raise ValueError(f"{tuple(H.shape)} != ({cfg.n1}, "
                                  f"{cfg.n2})")
+            if self.mesh is not None:
+                with obs_trace.span("service.update", cat="service",
+                                    mode="dist"):
+                    sharded_update(cfg, st.keys, st.Y, st.W, H, self.mesh)
+                return self._applied(st, "dist")
             row0 = 0
         row0 = int(row0)
         validate_row_block(cfg, row0, tuple(H.shape))
         with obs_trace.span("service.update", cat="service", mode="local"):
             rowblock_update(cfg, st.keys, st.Y, st.W, row0, H)
-        self._m_updates.inc(path="single")
+        return self._applied(st, "single")
+
+    def _applied(self, st: _Stream, path: str):
+        self._m_updates.inc(path=path)
         st.num_updates += 1
         self._updates_total += 1
         return self
 
     def update_sparse(self, *args, **kwargs):
-        raise _not_ported("update_sparse (SparseRows)", "item 6")
+        raise _not_ported("update_sparse (SparseRows)", "item 6b")
 
     def update_sparse_batch(self, *args, **kwargs):
-        raise _not_ported("update_sparse_batch (SparseRows)", "item 6")
+        raise _not_ported("update_sparse_batch (SparseRows)", "item 6b")
+
+    def _local_only(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} is local-mode only; distributed streams already "
+                f"amortize dispatch through the shared mesh program")
 
     def _lanes(self, sids) -> list:
         """Touch every lane of a batch (none may evict a sibling)."""
@@ -300,8 +344,9 @@ class SketchService:
 
         Lane i's result is bitwise the result of updating stream i alone;
         all lanes share one fold launch.  For heterogeneous lane shapes
-        use :meth:`update_ragged`.
+        use :meth:`update_ragged`.  Local mode only.
         """
+        self._local_only("update_batch")
         sts = self._lanes(sids)
         cfg0 = sts[0].cfg
         sig = _local_sig(cfg0)
@@ -359,7 +404,9 @@ class SketchService:
         holds (NaN included — that is how the contract is tested), for
         float32 and bfloat16 streams.  The ``sketch_ragged_padded_rows_total``
         counter adds ``n·kb − real`` per bucket (the staged pad rows).
+        Local mode only.
         """
+        self._local_only("update_ragged")
         items = list(items)
         sts = self._lanes(it[0] for it in items)
         edges = None if bucket_edges is None else sorted(
@@ -401,24 +448,35 @@ class SketchService:
     # -- queries -----------------------------------------------------------
 
     def sketch(self, sid: int) -> torch.Tensor:
+        """The live Y (in grid mode this rank's block)."""
         return self._touch(sid).Y
 
     def corange(self, sid: int) -> Optional[torch.Tensor]:
+        """The live W (in grid mode this rank's block)."""
         return self._touch(sid).W
 
     def reconstruct(self, sid: int, rank: Optional[int] = None, rcond=None):
+        """One-pass estimate (grid mode: from the gathered Y and W, on
+        every rank)."""
         from .reconstruct import one_pass_reconstruct
         st = self._touch(sid)
         if st.W is None:
             raise ValueError("reconstruction needs corange=True")
-        return one_pass_reconstruct(st.Y, st.W, st.cfg, rank=rank,
-                                    rcond=rcond)
+        Y, W = st.Y, st.W
+        if self.mesh is not None:
+            Y, W = gather_output(Y, self.mesh), gather_corange(W, self.mesh)
+        return one_pass_reconstruct(Y, W, st.cfg, rank=rank, rcond=rcond)
 
-    def nystrom(self, sid: int):
-        """(B, C) of a symmetric stream, C = Omega^T·Y from the sketch."""
+    def nystrom(self, sid: int, variant: str = "auto"):
+        """(B, C) of a symmetric stream: local mode C = Omega^T·Y from the
+        sketch; grid mode the Alg. 2 second stages on a (P, 1, 1) grid,
+        ``variant`` ``auto`` / ``no_redist`` / ``redist`` /
+        ``bound_driven`` (``stream.distributed.nystrom_finalize``)."""
         st = self._touch(sid)
         if st.cfg.n1 != st.cfg.n2:
             raise ValueError("Nyström needs a square stream")
+        if self.mesh is not None:
+            return nystrom_finalize(st.Y, st.cfg, self.mesh, variant)
         return nystrom_local(st.Y, st.cfg)
 
     # -- introspection -----------------------------------------------------

@@ -333,3 +333,36 @@ class StreamingSketch:
             raise ValueError("reconstruction needs corange=True")
         return one_pass_reconstruct(self.Y, self.W, self.cfg, rank=rank,
                                     rcond=rcond)
+
+    # -- checkpointing -----------------------------------------------------
+
+    def save(self, directory: str, step: Optional[int] = None,
+             keep: int = 3) -> str:
+        """Checkpoint (Y, W) with (config, num_updates) in the manifest's
+        ``extra`` (``checkpoint.ckpt``, atomic; layout ``"local"``).  The
+        sketch state plus the seed is the whole stream, so a restored
+        stream continues bitwise.  Returns the checkpoint's path."""
+        from repro_torch.checkpoint import ckpt
+        step = self.num_updates if step is None else step
+        tree = {"Y": self.Y}
+        if self.W is not None:
+            tree["W"] = self.W
+        extra = {"config": self.cfg.to_json_dict(),
+                 "num_updates": self.num_updates,
+                 "backend": self.backend, "layout": "local"}
+        return ckpt.save(directory, step, tree, extra=extra, keep=keep)
+
+    @classmethod
+    def restore(cls, directory: str, step: Optional[int] = None,
+                device=None) -> "StreamingSketch":
+        """Rebuild a stream (config and state) from a checkpoint onto
+        ``device`` (``None``: the card).  The saved ``backend`` is kept in
+        the manifest only: the kernels follow the device."""
+        from repro_torch.checkpoint import ckpt
+        tree, _, extra = ckpt.restore_tree(directory, step)
+        st = cls(StreamConfig.from_json_dict(extra["config"]), device=device)
+        st.Y.copy_(tree["Y"])
+        if st.W is not None:
+            st.W.copy_(tree["W"])
+        st.num_updates = int(extra["num_updates"])
+        return st

@@ -647,7 +647,7 @@ def _two_grid_words(n, r, p, q, rank):
             + (q2 - 1) * n * r // (q1 * q2 * q3),
             "reduce_scatter": (p2 - 1) * n * r // (p1 * p2 * p3)
             + (q1 - 1) * r * r // (q1 * q2 * q3),
-            "all_to_all": 0,
+            "all_reduce": 0, "all_to_all": 0,
             "redistribute": int(want.sum() - (want & held).sum())}
 
 
@@ -677,3 +677,27 @@ def test_alg2_two_grid_four_ranks_on_one_card(dev):
             assert words == _two_grid_words(n, r, p, q, rank), (what, words)
             assert launches == {"sketch_fwd": 1, "sketch_t": 1,
                                 "gen_omega": 0}, (what, launches)
+
+
+def test_stream_distributed_four_ranks_on_one_card(dev):
+    """The sharded stream on 4 gloo ranks that share cuda:0 (n = 1024,
+    r = 64, slabs of 128 rows in reverse order): on (4, 1, 1) Y is bitwise
+    this rank's ``rand_matmul`` block and W a one-device stream's, with 0
+    words a slab; on (2, 2, 1) ``update_rows`` is bitwise ``update`` on Y
+    and a slab receives ``stream_update_cost``'s words; the redist
+    finalize's C is bitwise the second stage on the one-shot blocks; every
+    rank launched sketch_fwd, sketch_t and fold_rows, and no gen_omega."""
+    from repro_torch.plan.model import stream_update_cost
+    from torch_dist_helper import run_workers, stream_dist_card_worker
+    n, r, slab = 1024, 64, 128
+    ranks = run_workers(stream_dist_card_worker, 4, n, r, slab, 7)
+    for rank, res in enumerate(ranks):
+        y_ok, w_ok, rows_eq_full, words, c_ok, launches, where = res
+        assert where == ("cuda", "cuda"), rank
+        assert y_ok and w_ok and rows_eq_full and c_ok, (rank, res)
+        assert words[(4, 1, 1)] == {0}, (rank, words)
+        assert words[(2, 2, 1)] == {stream_update_cost(
+            slab, n, r, 2 * r + 1, grid=(2, 2, 1)).words}, (rank, words)
+        assert all(launches[k] > 0 for k in ("sketch_fwd", "sketch_t",
+                                             "fold_rows")), (rank, launches)
+        assert launches["gen_omega"] == 0, (rank, launches)

@@ -377,7 +377,8 @@ def test_alg2_sparse_kinds_are_not_ported(kind):
                                                        kind=kind),
                lambda: nys.nystrom_auto(torch.zeros(64, 64), SEED, 16,
                                         P_procs=WORLD, kind=kind)):
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(NotImplementedError,
+                           match="sparse bodies are deferred"):
             fn()
 
 

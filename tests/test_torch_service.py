@@ -277,11 +277,9 @@ def test_unknown_sid_and_unported_parts_raise():
                lambda: svc.sketch(999)):
         with pytest.raises(ValueError, match="unknown stream id"):
             op()
-    for op in (lambda: SketchService(mesh=object(), device="cpu"),
-               lambda: SketchService(spill_dir="x", device="cpu"),
+    for op in (lambda: SketchService(spill_dir="x", device="cpu"),
                lambda: svc.reshard((2, 1, 1)),
                lambda: svc.update_sparse(0, None),
-               lambda: make_sketch_service(grid=(2, 1, 1), device="cpu"),
                lambda: make_ingest_queue(svc, bucket_edges="auto")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             op()

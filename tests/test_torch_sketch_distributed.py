@@ -270,7 +270,8 @@ def test_sparse_kinds_are_not_ported(kind):
                                                     kind=kind),
                lambda: sk.rand_matmul_auto(A, SEED, 4, P_procs=1,
                                            kind=kind)):
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(NotImplementedError,
+                           match="sparse bodies are deferred"):
             fn()
 
 

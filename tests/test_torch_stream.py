@@ -12,6 +12,8 @@ factors agree to about 1e-6 relative on these well-separated spectra;
 they are held to ``atol=1e-4·max|ref|``, compared as the matrices
 ``Q·X`` and ``Ã`` (the factors themselves are defined only up to sign).
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -22,6 +24,7 @@ from repro.core import nystrom as jnys
 from repro.stream import reconstruct as jrec
 from repro.stream import state as jstate
 from repro_torch import convert
+from repro_torch.checkpoint import ckpt
 from repro_torch.core import nystrom
 from repro_torch.stream import (StreamConfig, StreamingSketch,
                                 one_pass_reconstruct, reconstruction_error)
@@ -172,3 +175,56 @@ def test_stream_needs_cuda_without_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         StreamingSketch(StreamConfig(8, 8, r=2))
+
+
+@pytest.mark.parametrize("kind", ["normal", "countsketch"])
+@pytest.mark.parametrize("corange", [True, False])
+def test_save_restore_continues_bitwise(tmp_path, kind, corange):
+    """A stream saved mid-way and restored finishes with the bits of one
+    that never stopped (the sketch state plus the seed is the stream)."""
+    A = _low_rank(N1, N2, 6, seed=11)
+    cfg = StreamConfig(n1=N1, n2=N2, r=R, seed=2 ** 33 + 9, kind=kind,
+                       corange=corange)
+    whole = StreamingSketch(cfg, device="cpu")
+    first = StreamingSketch(cfg, device="cpu")
+    for r0 in range(0, N1, 64):
+        whole.update_rows(r0, torch.from_numpy(A[r0:r0 + 64]))
+        if r0 < N1 // 2:
+            first.update_rows(r0, torch.from_numpy(A[r0:r0 + 64]))
+    path = first.save(str(tmp_path))
+    assert path.endswith(f"step_{first.num_updates:08d}")
+    extra, step = ckpt.load_extra(str(tmp_path))
+    assert step == first.num_updates and extra["layout"] == "local"
+    assert StreamConfig.from_json_dict(extra["config"]) == cfg
+    st = StreamingSketch.restore(str(tmp_path), device="cpu")
+    assert st.cfg == cfg and st.num_updates == first.num_updates
+    assert torch.equal(st.Y, first.Y)
+    assert (st.W is None) == (not corange)
+    for r0 in range(N1 // 2, N1, 64):
+        st.update_rows(r0, torch.from_numpy(A[r0:r0 + 64]))
+    assert st.num_updates == whole.num_updates
+    assert torch.equal(st.Y, whole.Y)
+    if corange:
+        assert torch.equal(st.W, whole.W)
+
+
+def test_checkpoint_tree_form(tmp_path):
+    """The named-tensor form: whole tensors on the CPU, ``extra`` read
+    alone, the newest ``keep`` steps kept, and a tree is not a train
+    state."""
+    d = str(tmp_path)
+    for step in (1, 2, 3):
+        ckpt.save(d, step, {"Y": torch.full((2, 3), float(step)),
+                            "W": torch.arange(4.0)[1:]},
+                  extra={"n": step}, keep=2)
+    assert sorted(os.listdir(d)) == ["step_00000002", "step_00000003"]
+    assert ckpt.latest_step(d) == 3
+    assert ckpt.load_extra(d) == ({"n": 3}, 3)
+    tree, step, extra = ckpt.restore_tree(d, 2)
+    assert step == 2 and extra == {"n": 2}
+    assert torch.equal(tree["Y"], torch.full((2, 3), 2.0))
+    assert torch.equal(tree["W"], torch.arange(4.0)[1:])
+    with pytest.raises(ValueError, match="restore_tree"):
+        ckpt.restore(d, object())
+    with pytest.raises(FileNotFoundError):
+        ckpt.load_extra(str(tmp_path / "none"))

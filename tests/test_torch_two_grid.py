@@ -256,16 +256,16 @@ def _words_by_kind(n, r, p, q, rank, stage1=True):
         ag += (p3 - 1) * n * n // (p1 * p2 * p3)
         rs += (p2 - 1) * n * r // (p1 * p3 * p2)
     redist = _redistribute_terms(n, r, p, q)[rank]
-    return {"all_gather": ag, "reduce_scatter": rs, "all_to_all": 0,
-            "redistribute": redist}
+    return {"all_gather": ag, "reduce_scatter": rs, "all_reduce": 0,
+            "all_to_all": 0, "redistribute": redist}
 
 
 def _calls(p, q, n, r):
     """Calls of each collective in one two-grid run."""
     moves = any(_redistribute_terms(n, r, p, q))
     return {"all_gather": (p[2] > 1) + (q[1] > 1),
-            "reduce_scatter": (p[1] > 1) + (q[0] > 1), "all_to_all": 0,
-            "redistribute": int(moves)}
+            "reduce_scatter": (p[1] > 1) + (q[0] > 1), "all_reduce": 0,
+            "all_to_all": 0, "redistribute": int(moves)}
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -554,7 +554,8 @@ def test_two_grid_sparse_kinds_are_not_ported(kind):
                lambda: nys.nystrom_auto(torch.zeros(64, 64), SEED, 16,
                                         variant="bound_driven",
                                         P_procs=WORLD, kind=kind)):
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(NotImplementedError,
+                           match="sparse bodies are deferred"):
             fn()
 
 

@@ -474,3 +474,218 @@ def two_grid_card_worker(rank, world, n, seed, runs):
             {k: v["words"] for k, v in col.COMM.items()}, launches,
             (B.device.type, C.device.type))
     return out
+
+
+def stream_dist_worker(rank, world, spec):
+    """One rank of the distributed-stream cases on the CPU.  ``spec``
+    holds ``seed``, ``A`` (an (n1, n2) numpy matrix) and ``r``;
+    ``grids``: per grid a ``ShardedStreamingSketch`` fed ``slabs`` as
+    full-shape deltas (``update``) and one fed them as row slabs
+    (``update_rows``), and the one-shot ``rand_matmul``; ``ragged`` and
+    ``aligned`` slab orders on ``(world, 1, 1)``; ``ckdir``: the ragged
+    stream saved there and restored on each of ``restore_grids``;
+    ``salt`` (grid, omega_salt, psi_salt); ``S``, ``s_seed``, ``s_r``,
+    ``halves``: a symmetric stream on ``(world, 1, 1)`` finalized by each
+    of ``variants``, and each variant's second stage on the one-shot
+    blocks; ``service_seeds``: a grid service (``make_sketch_service``,
+    ``max_resident=1``) with one stream a seed, each updated by ``S``
+    once.  Returns numpy blocks, their gathers and the words this rank
+    received per call, by kind."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import nystrom as nys
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.grid import select_two_grid_executable
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.parallel import collectives as col
+    from repro_torch.serve import make_sketch_service
+    from repro_torch.stream import ShardedStreamingSketch, StreamConfig
+    from repro_torch.stream import distributed as sd
+
+    def arr(t):
+        return None if t is None else t.numpy().copy()
+
+    def comm():
+        return {k: dict(v) for k, v in col.COMM.items()}
+
+    def gathered(st):
+        return (arr(sk.gather_output(st.Y, st.mesh)),
+                None if st.W is None
+                else arr(sd.gather_corange(st.W, st.mesh)))
+
+    def frame(i0, i1):
+        H = torch.zeros_like(A)
+        H[i0:i1] = A[i0:i1]
+        return H
+
+    seed, r = spec["seed"], spec["r"]
+    A = torch.from_numpy(np.array(spec["A"]))
+    n1, n2 = A.shape
+    cfg = StreamConfig(n1=n1, n2=n2, r=r, seed=seed)
+    out = {"grid": {}}
+    for grid in spec["grids"]:
+        g = sk.make_grid_groups(*grid)
+        full = ShardedStreamingSketch(cfg, g, device="cpu")
+        rows = ShardedStreamingSketch(cfg, g, device="cpu")
+        w_full, w_rows = [], []
+        for i0, i1 in spec["slabs"]:
+            col.reset_comm()
+            full.update(frame(i0, i1))
+            w_full.append(comm())
+            col.reset_comm()
+            rows.update_rows(i0, A[i0:i1])
+            w_rows.append(comm())
+        oneshot = sk.rand_matmul(sk.input_block(A, g), seed, r, g)
+        out["grid"][grid] = {
+            "coords": g.coords, "full": gathered(full),
+            "rows": gathered(rows), "Y_full": arr(full.Y),
+            "Y_rows": arr(rows.Y), "oneshot": arr(oneshot),
+            "words_full": w_full, "words_rows": w_rows,
+            "num_updates": (full.num_updates, rows.num_updates)}
+    g1 = sk.make_grid_groups(world, 1, 1)
+    ragged = ShardedStreamingSketch(cfg, g1, device="cpu")
+    for i0, i1 in spec["ragged"]:
+        ragged.update_rows(i0, A[i0:i1])
+    out["ragged"] = (arr(ragged.Y), arr(sk.rand_matmul(sk.input_block(A, g1),
+                                                       seed, r, g1)))
+    aligned_full = ShardedStreamingSketch(cfg, g1, device="cpu")
+    aligned_rows = ShardedStreamingSketch(cfg, g1, device="cpu")
+    for i0, i1 in spec["aligned"]:
+        aligned_full.update(frame(i0, i1))
+        aligned_rows.update_rows(i0, A[i0:i1])
+    out["aligned"] = (gathered(aligned_full), gathered(aligned_rows))
+    # save on (world, 1, 1), restore on other grids
+    path = ragged.save(spec["ckdir"])
+    out["restore"] = {"path": path, "saved": gathered(ragged)}
+    for grid in spec["restore_grids"]:
+        st = ShardedStreamingSketch.restore(
+            spec["ckdir"], sk.make_grid_groups(*grid), device="cpu")
+        out["restore"][grid] = (gathered(st), st.num_updates, st.cfg)
+    grid, om_salt, psi_salt = spec["salt"]
+    salted = ShardedStreamingSketch(
+        StreamConfig(n1=n1, n2=n2, r=r, seed=seed, omega_salt=om_salt,
+                     psi_salt=psi_salt), sk.make_grid_groups(*grid),
+        device="cpu")
+    salted.update(A)
+    out["salt"] = gathered(salted)
+    # the streamed Nystrom finalize on (world, 1, 1)
+    S = torch.from_numpy(np.array(spec["S"]))
+    cfg_s = StreamConfig(n1=S.shape[0], n2=S.shape[1], r=spec["s_r"],
+                         seed=spec["s_seed"], corange=False)
+    st = ShardedStreamingSketch(cfg_s, g1, device="cpu")
+    for i0, i1 in spec["halves"]:
+        H = torch.zeros_like(S)
+        H[i0:i1] = S[i0:i1]
+        st.update(H)
+    one = sk.rand_matmul(sk.input_block(S, g1), cfg_s.seed, cfg_s.r, g1)
+    out["finalize"] = {"Y_bitwise_oneshot": torch.equal(st.Y, one)}
+    for variant in spec["variants"]:
+        col.reset_comm()
+        B, C = st.nystrom(variant)
+        words = comm()
+        B1, C1 = sd.nystrom_finalize(one, cfg_s, g1, variant)
+        if variant == "bound_driven":
+            q = select_two_grid_executable(S.shape[0], cfg_s.r, world,
+                                           p=(world, 1, 1))[1]
+            gq = sk.make_grid_groups(*q)
+            Bf, Cf = (nys.two_grid_gather(B, gq, "B"),
+                      nys.two_grid_gather(C, gq, "C"))
+        else:
+            layout = "redist" if variant == "redist" else "no_redist"
+            Bf, Cf = (nys.nystrom_gather(B, g1, layout),
+                      nys.nystrom_gather(C, g1, layout))
+        out["finalize"][variant] = {
+            "B": arr(Bf), "C": arr(Cf), "words": words,
+            "bitwise_oneshot": torch.equal(B, B1) and torch.equal(C, C1)}
+    # a grid service: two streams, max_resident=1, eviction and restore
+    svc = make_sketch_service(grid=(world, 1, 1), max_resident=1,
+                              device="cpu")
+    m = obs_metrics.get_metrics().counter("sketch_updates_total")
+    dist0 = m.value(path="dist")
+    sids, before = [], []
+    for s in spec["service_seeds"]:
+        sid = svc.open(StreamConfig(n1=S.shape[0], n2=S.shape[1],
+                                    r=spec["s_r"], seed=s))
+        col.reset_comm()
+        svc.update(sid, S)
+        sids.append((sid, comm()))
+        before.append((svc.sketch(sid).clone(), svc.corange(sid).clone()))
+    evicted = svc.num_evicted
+    Y0, W0 = svc.sketch(sids[0][0]), svc.corange(sids[0][0])
+    B, C = svc.nystrom(sids[0][0], "redist")
+    st0 = ShardedStreamingSketch(StreamConfig(n1=S.shape[0], n2=S.shape[1],
+                                              r=spec["s_r"],
+                                              seed=spec["service_seeds"][0]),
+                                 g1, device="cpu")
+    st0.update(S)
+    B0, C0 = st0.nystrom("redist")
+    low = svc.reconstruct(sids[0][0], rank=4)
+    out["service"] = {
+        "evicted": evicted, "stats": svc.stats(),
+        "dist_updates": m.value(path="dist") - dist0,
+        "restored_bitwise": (torch.equal(Y0, before[0][0])
+                             and torch.equal(W0, before[0][1])),
+        "Y_blocks": [arr(y) for y, _ in before],
+        "words": [w for _, w in sids],
+        "nystrom_bitwise": torch.equal(B, B0) and torch.equal(C, C0),
+        "B": arr(nys.nystrom_gather(B, g1, "redist")),
+        "C": arr(nys.nystrom_gather(C, g1, "redist")),
+        "low": arr(low.matrix()),
+        "low_direct": arr(st0.reconstruct(rank=4).matrix())}
+    # the all-reduce alone, on exact values
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 100.0 * rank
+    col.reset_comm()
+    out["all_reduce"] = (col.all_reduce(x, g1.p1_group, world).numpy(),
+                         comm())
+    return out
+
+
+def stream_dist_card_worker(rank, world, n, r, slab, seed):
+    """One rank of the distributed stream on cuda:0 (every rank shares the
+    one card): a symmetric A drawn on the card from a seeded generator,
+    fed in ``slab``-row slabs, in reverse order, through ``update_rows``
+    on (world, 1, 1) and (2, 2, 1), and once through ``update`` on
+    (2, 2, 1).  Returns (Y bitwise rand_matmul on (world, 1, 1), W
+    bitwise a one-device stream, update_rows == update on Y on (2, 2, 1),
+    words a slab on each grid, the finalize's C bitwise the second stage
+    on the one-shot blocks, launches, the blocks' devices)."""
+    import torch
+
+    from repro_torch.core import sketch as sk
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.parallel import collectives as col
+    from repro_torch.stream import (ShardedStreamingSketch, StreamConfig,
+                                    StreamingSketch, nystrom_finalize)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    G = torch.randn(n, n, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    A = (G + G.T) / 2
+    cfg = StreamConfig(n1=n, n2=n, r=r, seed=seed)
+    order = list(range(n - slab, -1, -slab))
+    g1, g2 = sk.make_grid_groups(world, 1, 1), sk.make_grid_groups(2, 2, 1)
+    reset_launches()
+    streams, words = {}, {}
+    for grid, g in (((world, 1, 1), g1), ((2, 2, 1), g2)):
+        st = streams[grid] = ShardedStreamingSketch(cfg, g)
+        for r0 in order:
+            col.reset_comm()
+            st.update_rows(r0, A[r0:r0 + slab])
+            words.setdefault(grid, set()).add(col.comm_words())
+    full = ShardedStreamingSketch(cfg, g2).update(A)
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES[k] for k in ("sketch_fwd", "sketch_t",
+                                         "fold_rows", "gen_omega")}
+    solo = StreamingSketch(cfg)
+    for r0 in order:
+        solo.update_rows(r0, A[r0:r0 + slab])
+    st1 = streams[(world, 1, 1)]
+    one = sk.rand_matmul(sk.input_block(A, g1), seed, r, g1)
+    _, C = st1.nystrom("redist")
+    _, C1 = nystrom_finalize(one, cfg, g1, "redist")
+    return (torch.equal(st1.Y, one), torch.equal(st1.W, solo.W),
+            torch.equal(streams[(2, 2, 1)].Y, full.Y), words,
+            torch.equal(C, C1), launches,
+            (st1.Y.device.type, st1.W.device.type))
