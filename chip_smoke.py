@@ -219,6 +219,33 @@ way:
                   version) beside their plain versions and one library
                   call each.
 
+then sparse streaming on the one card (COO row slabs folded by S1):
+
+ 16. sparse     — ``StreamConfig(n1 = n2 = 32768, r = 512, l = 1025, seed
+                  7)`` f32 streams of the kinds normal, countsketch and
+                  rowsample, each fed eight 4096-row COO slabs (131072
+                  distinct coordinates plus 8192 repeats, shuffled, from
+                  numpy seed 0) in phase 15's order through
+                  ``update_rows_sparse``: (a) Y and W after the first slab
+                  (and for normal the second, onto a nonzero W) bitwise the
+                  plain wave form run on the card over the same payload;
+                  (b) after all eight, Y within f32_tol(n2) and W within
+                  f32_tol(k) of the densified slabs through ``update_rows``;
+                  (c) the normal stream fed again from zero, bitwise; (d) a
+                  bfloat16 normal stream's first slab bitwise the plain
+                  version; (e) 16 streams of phases 6-8's shape in two
+                  batches of 8 lanes (normal, countsketch), one 256-row
+                  slab a lane of nnz 1 to 65536: ``update_sparse_batch``
+                  lane i bitwise ``update_sparse`` on a second service and
+                  ``update_rows_sparse`` alone; (f) over (a)'s main path
+                  exactly 2 sparse_fold launches an update, 2 gen_omega a
+                  normal update, no sketch_fwd or sketch_t.  Then at one
+                  normal slab: S1's Y and W launches (CUDA events), the
+                  wrapper with its CSR build, the plain wave form,
+                  ``torch.sparse.mm`` of the slab with Omega and of its
+                  transpose with Psi's rows, the ``update_rows_sparse``
+                  wall, the densified ``update_rows``, and S1's byte bound.
+
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and the exit code is non-zero; without a CUDA card it exits 1 and prints no
@@ -280,6 +307,13 @@ SD_ORDER = (3, 0, 6, 1, 5, 7, 2, 4)      # phase 4's eight slabs, out of order
 SD_GRIDS = [(2, 2, 1), (1, 2, 2)]        # (b); (a) runs on (4, 1, 1)
 SD_VARIANTS = ("auto", "no_redist", "redist", "bound_driven")
 SD_SEEDS = (SEED, SEED + 1)              # (f)'s two streams
+# phase 16: sparse streaming on one card, at phase 1-5's width
+SP_KINDS = ("normal", "countsketch", "rowsample")
+SP_DISTINCT, SP_REPEATS = 131072, 8192   # a slab's distinct coordinates,
+                                         # then entries that repeat them
+SP_LANE_NNZ = (1, 8, 64, 512, 2048, 8192, 32768, 65536)
+SP_LANE_K = 256
+SPARSE_SOURCE = "src/repro_torch/kernels/csrc/sparse_kernels.cu"
 RANKS_TIMEOUT_S = 600
 SERVE_ARGS = ["--workload", "sketch", "--streams", "128", "--updates", "4",
               "--n1", str(S_N1), "--n2", str(S_N2), "--r", str(S_R),
@@ -2395,6 +2429,295 @@ def phase_stream_dist():
     return results
 
 
+def sparse_coo(rng, k: int, n2: int, distinct: int, repeats: int):
+    """(row, col, val) of one COO slab of a (k, n2) block: ``distinct``
+    coordinates with standard-normal values, ``repeats`` more entries on
+    coordinates already drawn (new values), the whole shuffled."""
+    idx = rng.choice(k * n2, size=distinct, replace=False)
+    val = rng.standard_normal(distinct, dtype=np.float32)
+    idx = np.concatenate([idx, idx[rng.integers(0, distinct, repeats)]])
+    val = np.concatenate([val, rng.standard_normal(repeats,
+                                                   dtype=np.float32)])
+    order = rng.permutation(idx.size)
+    idx, val = idx[order], val[order]
+    return (idx // n2).astype(np.int32), (idx % n2).astype(np.int32), val
+
+
+def plain_sparse_update(state, local, cfg, Y, W, row0, sp) -> None:
+    """``update_rows_sparse``'s folds through the plain wave form, on the
+    card (the draws are the update's own: gen_omega, counted)."""
+    from repro_torch.core.sketch import seed_keys
+    for acc, dest, val, kw in state.sparse_update_folds(
+            cfg, seed_keys(cfg.seed), Y, W, row0, sp):
+        acc.copy_(local._sparse_fold_torch(acc, dest, val, **kw))
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(_bits(a), _bits(b))
+
+
+def sparse_service(state, SparseRows):
+    """(e): 16 streams of the serving shape, two batches of 8 lanes (one
+    all normal, one all countsketch), one 256-row slab a lane with nnz
+    from 1 to 65536: update_sparse_batch lane i must be bitwise
+    update_sparse on a second service and update_rows_sparse alone."""
+    from repro_torch.stream import SketchService, StreamingSketch
+    rng = np.random.default_rng(16)
+    svc, one = SketchService(), SketchService()
+    lanes = len(SP_LANE_NNZ)
+    row0s = [i * ((S_N1 - SP_LANE_K) // lanes) for i in range(lanes)]
+    for kind, seeds in (("normal", range(0, 8)),
+                        ("countsketch", range(8, 16))):
+        cfgs = [state.StreamConfig(S_N1, S_N2, r=S_R, seed=s, kind=kind)
+                for s in seeds]
+        sps = [SparseRows(*sparse_coo(rng, SP_LANE_K, S_N2, nnz, 0),
+                          (SP_LANE_K, S_N2)) for nnz in SP_LANE_NNZ]
+        sids = [svc.open(c) for c in cfgs]
+        ones = [one.open(c) for c in cfgs]
+        svc.update_sparse_batch(sids, sps, row0=row0s)
+        for i, (c, sp, r0) in enumerate(zip(cfgs, sps, row0s)):
+            one.update_sparse(ones[i], sp, row0=r0)
+            solo = StreamingSketch(c).update_rows_sparse(r0, sp)
+            lane = (svc.sketch(sids[i]), svc.corange(sids[i]))
+            for other in ((one.sketch(ones[i]), one.corange(ones[i])),
+                          (solo.Y, solo.W)):
+                check(all(torch.isfinite(x).all().item() for x in lane),
+                      "non-finite sparse lane state")
+                check(_same(lane[0], other[0]) and _same(lane[1], other[1]),
+                      f"sparse lane {i} ({kind}) differs from its solo "
+                      f"update")
+        print(f"[sparse] (e) service: 8 {kind} lanes ({S_N1}x{S_N2}, "
+              f"r={S_R}, l={cfgs[0].sketch_l}), {SP_LANE_K}-row slabs of "
+              f"nnz {list(SP_LANE_NNZ)} at rows {row0s}: "
+              f"update_sparse_batch == update_sparse == update_rows_sparse, "
+              f"Y and W bitwise")
+
+
+def sparse_bound(sp, r: int, l: int) -> tuple:
+    """S1's least time for one slab's two launches (this slab's data): the
+    bytes a fold must move — each distinct table row it gathers read once
+    (Omega's rows at the slab's columns, Psi's at its rows), the slab's k
+    rows of Y read and written, W's touched columns read and written, the
+    CSR payload (ptr, and a 4-byte index and value an entry, a launch) —
+    against 2·nnz·(r + l) FLOPs.  Returns (ms, by, bytes, the draws' tile
+    bytes)."""
+    k, n2 = sp.shape
+    ucols = np.unique(sp.col).size
+    urows = np.unique(sp.row).size
+    nbytes = 4.0 * (ucols * r + 2 * k * r + (k + 1) + 2 * sp.nnz
+                    + urows * l + 2 * ucols * l + (n2 + 1) + 2 * sp.nnz)
+    ms, by = bound_ms(2.0 * sp.nnz * (r + l), nbytes)
+    return ms, by, nbytes, 4.0 * (n2 * r + k * l)
+
+
+def phase_sparse(dev, LAUNCHES, reset_launches):
+    """Phase 16: sparse COO row slabs of the local stream through S1, at
+    phases 1-5's width (A = 32768², r = 512, l = 1025, seed 7)."""
+    from repro_torch.kernels import local
+    from repro_torch.kernels.sketch_matmul import sparse_fold_cuda
+    from repro_torch.plan import sparse_payload_words
+    from repro_torch.stream import SparseRows, StreamingSketch
+    from repro_torch.stream import state
+    rng = np.random.default_rng(0)
+    slabs = {s: SparseRows(*sparse_coo(rng, SLAB, N, SP_DISTINCT, SP_REPEATS),
+                           (SLAB, N)) for s in range(N // SLAB)}
+    nnz = slabs[0].nnz
+    print(f"[sparse] 8 COO slabs of {SLAB}x{N}: {nnz} entries each "
+          f"({SP_DISTINCT} distinct coordinates + {SP_REPEATS} repeats, "
+          f"density {nnz / (SLAB * N):.3e}); sparse_payload_words "
+          f"{sparse_payload_words(nnz):.0f} against the dense slab's "
+          f"{SLAB * N}")
+    cfgs = {kind: state.StreamConfig(N, N, r=R, seed=SEED, kind=kind)
+            for kind in SP_KINDS}
+    L = cfgs["normal"].sketch_l
+
+    def feed(kind, snaps=None):
+        st = StreamingSketch(cfgs[kind])
+        for i, s in enumerate(SD_ORDER):
+            st.update_rows_sparse(s * SLAB, slabs[s])
+            if snaps is not None and i < (2 if kind == "normal" else 1):
+                snaps[(kind, i)] = (st.Y.clone(), st.W.clone())
+        return st
+
+    # -- the main path: counts set to 0 just before, read just after -------
+    snaps = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    streams = {kind: feed(kind, snaps) for kind in SP_KINDS}
+    torch.cuda.synchronize()
+    t_main = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    dense_kinds = sum(k not in ("countsketch", "rowsample") for k in SP_KINDS)
+    want = {"sparse_fold": 2 * len(SP_KINDS) * len(SD_ORDER),
+            "gen_omega": 2 * dense_kinds * len(SD_ORDER),
+            "sketch_fwd": 0, "sketch_t": 0}
+    print(f"[sparse] main path: {len(SP_KINDS)} streams {SP_KINDS} x "
+          f"{len(SD_ORDER)} slabs in order {SD_ORDER} through "
+          f"update_rows_sparse in {t_main:.3f} s; launches {counts} (the "
+          f"design: 2 sparse_fold an update, 2 gen_omega a dense-kind "
+          f"update, no sketch_fwd or sketch_t)")
+    for name, n in want.items():                            # (f)
+        check(counts[name] == n, f"(f) {name} launched {counts[name]} "
+                                 f"times, the design says {n}")
+    for kind, st in streams.items():
+        check(torch.isfinite(st.Y).all().item()
+              and torch.isfinite(st.W).all().item(),
+              f"non-finite sparse stream state ({kind})")
+
+    # -- (a) kernel vs plain, bitwise, on the card ---------------------------
+    worst = 0.0
+    for kind in SP_KINDS:
+        cfg = cfgs[kind]
+        Y = torch.zeros(N, R, device=dev)
+        W = torch.zeros(L, N, device=dev)
+        for i, s in enumerate(SD_ORDER[:2 if kind == "normal" else 1]):
+            plain_sparse_update(state, local, cfg, Y, W, s * SLAB, slabs[s])
+            gY, gW = snaps[(kind, i)]
+            same = _same(gY, Y) and _same(gW, W)
+            worst = max(worst, max_abs(gY, Y), max_abs(gW, W))
+            print(f"[sparse] (a) {kind}: after slab {i + 1} (rows "
+                  f"{s * SLAB}:{(s + 1) * SLAB}) Y and W bitwise the plain "
+                  f"wave form on the card: {same}")
+            check(same, f"(a) S1 differs from its plain version ({kind}, "
+                        f"slab {i + 1})")
+        del Y, W
+    snaps.clear()
+
+    # -- (b) against the densified slabs through update_rows -----------------
+    dense = {kind: StreamingSketch(cfgs[kind]) for kind in SP_KINDS}
+    for s in SD_ORDER:
+        Hd = torch.from_numpy(slabs[s].to_dense()).to(dev)
+        for st in dense.values():
+            st.update_rows(s * SLAB, Hd)
+    del Hd
+    for kind in SP_KINDS:
+        eY = rel_fro(streams[kind].Y, dense[kind].Y)
+        eW = rel_fro(streams[kind].W, dense[kind].W)
+        path = ("sketch_fwd / sketch_t" if kind == "normal"
+                else "H @ omega_matrix")
+        print(f"[sparse] (b) {kind}: against to_dense() through update_rows "
+              f"({path}): Y rel_fro {eY:.3e} (tol {f32_tol(N):.1e}), W "
+              f"rel_fro {eW:.3e} (tol {f32_tol(SLAB):.1e})")
+        check(eY <= f32_tol(N) and eW <= f32_tol(SLAB),
+              f"(b) the sparse {kind} stream disagrees with the dense path")
+    del dense
+
+    # -- (c) run to run, (d) bf16 ---------------------------------------------
+    again = feed("normal")
+    same = (_same(again.Y, streams["normal"].Y)
+            and _same(again.W, streams["normal"].W))
+    print(f"[sparse] (c) the normal stream fed again from zero: bitwise "
+          f"{same}")
+    check(same, "(c) two runs of the sparse stream differ")
+    del again
+    cfg16 = state.StreamConfig(N, N, r=R, seed=SEED, dtype=torch.bfloat16)
+    st16 = StreamingSketch(cfg16)
+    s0 = SD_ORDER[0]
+    st16.update_rows_sparse(s0 * SLAB, slabs[s0])
+    Y16 = torch.zeros(N, R, dtype=torch.bfloat16, device=dev)
+    W16 = torch.zeros(L, N, dtype=torch.bfloat16, device=dev)
+    plain_sparse_update(state, local, cfg16, Y16, W16, s0 * SLAB, slabs[s0])
+    same = _same(st16.Y, Y16) and _same(st16.W, W16)
+    print(f"[sparse] (d) a bfloat16 normal stream's first slab bitwise the "
+          f"plain wave form on the card: {same}")
+    check(same, "(d) the bfloat16 sparse update differs from its plain "
+                "version")
+    del st16, Y16, W16
+
+    # -- (e) the service ------------------------------------------------------
+    sparse_service(state, SparseRows)
+
+    # -- timings at one full-width normal slab --------------------------------
+    cfg, sp, row0 = cfgs["normal"], slabs[s0], s0 * SLAB
+    st = StreamingSketch(cfg)
+    folds = state.sparse_update_folds(cfg, st.keys, st.Y, st.W, row0, sp)
+    parts = {}
+    for part, (acc, dest, val, kw) in zip(("Y", "W"), folds):
+        axis = kw.get("axis", 0)
+        ptr, ops = local.sparse_fold_operands(dest, acc.shape[axis], val,
+                                              kw["src"])
+        work = acc.clone()
+        k_ms = time_ms(lambda: sparse_fold_cuda(
+            work, ptr, table=kw["table"], axis=axis,
+            from_zero=kw.get("from_zero", False), **ops))
+        w_ms = time_ms(lambda: local.sparse_fold_block(work, dest, val, **kw))
+        p_ms = time_ms(lambda: local._sparse_fold_torch(acc, dest, val,
+                                                        **kw), reps=3)
+        dev_ms = device_ms(lambda: sparse_fold_cuda(
+            work, ptr, table=kw["table"], axis=axis,
+            from_zero=kw.get("from_zero", False), **ops),
+            "sparse_fold_kernel")
+        parts[part] = {"ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
+                       "profiler_ms": dev_ms}
+        del work
+    # the library call: torch.sparse.mm of the slab as a COO tensor with the
+    # materialized Omega (Y) and of H^T with Psi's rows (W), coalesced first
+    row = torch.from_numpy(sp.row).to(dev, torch.int64)
+    col = torch.from_numpy(sp.col).to(dev, torch.int64)
+    val = torch.from_numpy(sp.val).to(dev)
+    Hs = torch.sparse_coo_tensor(torch.stack([row, col]), val, (SLAB, N),
+                                 check_invariants=True).coalesce()
+    HsT = torch.sparse_coo_tensor(torch.stack([col, row]), val, (N, SLAB),
+                                  check_invariants=True).coalesce()
+    om, psi = folds[0][3]["table"], folds[1][3]["table"]
+    lib_y = time_ms(lambda: torch.sparse.mm(Hs, om))
+    lib_w = time_ms(lambda: torch.sparse.mm(HsT, psi))
+    del Hs, HsT, row, col, val, folds, om, psi
+
+    def wall(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts)
+    upd_wall = wall(lambda: st.update_rows_sparse(row0, sp))
+    Yp, Wp = st.Y.clone(), st.W.clone()
+    plain_wall = wall(lambda: plain_sparse_update(state, local, cfg, Yp, Wp,
+                                                  row0, sp), reps=3)
+    del Yp, Wp
+    Hd = torch.from_numpy(sp.to_dense()).to(dev)
+    dense_ms = time_ms(lambda: st.update_rows(row0, Hd))
+    dense_wall = wall(lambda: st.update_rows(row0, Hd))
+    del Hd, st
+    b_ms, b_by, b_bytes, tile_bytes = sparse_bound(sp, R, L)
+    with_draw = bound_ms(0.0, b_bytes + tile_bytes)[0]
+    s1_ms = parts["Y"]["ms"] + parts["W"]["ms"]
+    plain_ms = parts["Y"]["plain_ms"] + parts["W"]["plain_ms"]
+    for part, t in parts.items():
+        print(f"[timing] sparse_fold {part} part (one {SLAB}-row slab, "
+              f"{nnz} entries): {t['ms']:.4f} ms a launch (CUDA events; "
+              f"torch.profiler "
+              + ("none" if t["profiler_ms"] is None
+                 else f"{t['profiler_ms']:.4f}")
+              + f"), the wrapper with its CSR build {t['wrapper_ms']:.4f} "
+              f"ms, the plain wave form {t['plain_ms']:.3f} ms")
+    print(f"[timing] sparse_fold Y + W {s1_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by} ({b_bytes / 1e6:.1f} MB; "
+          f"{with_draw:.4f} ms counting the draws' Omega and Psi tiles "
+          f"written, {tile_bytes / 1e6:.1f} MB more); library "
+          f"torch.sparse.mm Y {lib_y:.4f} + W {lib_w:.4f} ms; "
+          f"update_rows_sparse wall {upd_wall:.3f} ms (validate, CSR, "
+          f"draws, S1), its plain version on the card {plain_wall:.3f} ms; "
+          f"the densified update_rows {dense_ms:.3f} ms on the device "
+          f"(CUDA events), {dense_wall:.3f} ms wall")
+    return {"launches": counts["sparse_fold"], "err": worst, "ms": s1_ms,
+            "plain_ms": plain_ms, "bound": (b_ms, b_by),
+            "library_ms": lib_y + lib_w,
+            "extra": {"parts": parts, "library_y_ms": lib_y,
+                      "library_w_ms": lib_w, "bound_bytes": b_bytes,
+                      "bound_with_draw_ms": with_draw,
+                      "update_rows_sparse_wall_ms": upd_wall,
+                      "plain_update_wall_ms": plain_wall,
+                      "dense_update_ms": dense_ms,
+                      "dense_update_wall_ms": dense_wall,
+                      "main_path_s": t_main, "nnz": nnz}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2679,6 +3002,10 @@ def main() -> int:
     print(f"[phases] 14 done at {time.perf_counter() - t_start:.1f} s")
     stream_dist = phase_stream_dist()
     print(f"[phases] 15 done at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sparse = phase_sparse(dev, LAUNCHES, reset_launches)
+    print(f"[phases] 16 done at {time.perf_counter() - t_start:.1f} s")
 
     total = [sum(gemm_times[c][i] for c in "abc") for i in range(3)]
     bound3 = sum(gemm_times[c][3][0] for c in "abc")
@@ -2688,13 +3015,20 @@ def main() -> int:
                  "gemm_block)",
                  train_counts["gemm"], gemm_err, total[0], total[1],
                  (bound3, "bytes"), total[2]))
+    rows.append(("sparse_fold",
+                 "none: src/repro/stream/state.py:368 _local_sparse_update "
+                 "is a plain XLA scatter, no pallas_call",
+                 sparse["launches"], sparse["err"], sparse["ms"],
+                 sparse["plain_ms"], sparse["bound"], sparse["library_ms"]))
 
     kernels = []
     for name, rep, n, err, ms, plain_ms, (bms, by), lib in rows:
         kernels.append({
             "name": name, "route": "cuda",
             "source": {"fold_rows": FOLD_SOURCE, "gemm": GEMM_SOURCE,
-                       "sketch_t": SKETCH_T_SOURCE}.get(name, KERNEL_SOURCE),
+                       "sketch_t": SKETCH_T_SOURCE,
+                       "sparse_fold": SPARSE_SOURCE}.get(name,
+                                                         KERNEL_SOURCE),
             "replaces": rep, "launches": n, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib, "card": card})
@@ -2746,6 +3080,11 @@ def main() -> int:
             kernels[-1]["stream_dist"] = {
                 "launches": [res["launches"][name] for res in stream_dist],
                 "calls": [res["calls"][name] for res in stream_dist]}
+        if name == "sparse_fold":
+            # ms, plain_ms, library_ms and bound_ms sum the Y and the W
+            # launch of one full-width normal slab (ms: the launcher alone,
+            # CUDA events); each part, the walls and the bound's bytes:
+            kernels[-1].update(sparse["extra"])
         if name in ("sketch_t", "sketch_fwd"):
             # ms, plain_ms, library_ms and bound_ms are those of sketch_t's
             # W update and of sketch_fwd's one-shot; each of the main

@@ -6,6 +6,8 @@
                            ``nvalid`` rows, over one lane or many
   * ``gemm_block``      —  acc? + (A · B)·alpha, both operands data (the
                            gradient exchange's factors and error feedback)
+  * ``sparse_fold_block`` — COO entries folded into acc's rows or columns
+                           in entry order (the sparse row slab's update)
 
 with the Omega (or Psi) tile drawn at GLOBAL Philox coordinates, so the
 key pair and the offsets select any shard's block.  ``acc`` fuses the
@@ -41,7 +43,7 @@ from repro_torch.core.sketch import _omega_tile_torch, seed_keys
 from repro_torch.core.kinds import validate_kind
 
 from .sketch_matmul import (fold_rows_cuda, gemm_cuda, sketch_fwd_cuda,
-                            sketch_t_cuda)
+                            sketch_t_cuda, sparse_fold_cuda)
 
 BACKENDS = ("torch", "cuda", "auto")
 
@@ -285,3 +287,97 @@ def gemm_block(A: torch.Tensor, B: torch.Tensor, *, alpha: float = 1.0,
     res = _gemm_block_torch(A, B, alpha, acc, out_dtype)
     dst = out if out is not None else acc
     return res if dst is None else dst.copy_(res)
+
+
+def sparse_csr(dest: torch.Tensor, nseg: int):
+    """``(order, ptr)`` of COO entries over ``nseg`` destinations: ``order``
+    sorts the entries by destination STABLY (entry order survives within a
+    destination), ``ptr`` (int32, ``nseg + 1``) delimits each destination's
+    run of ``dest[order]``."""
+    sorted_dest, order = torch.sort(dest.to(torch.int64), stable=True)
+    ptr = torch.searchsorted(sorted_dest, torch.arange(
+        nseg + 1, dtype=torch.int64, device=dest.device))
+    return order, ptr.to(torch.int32)
+
+
+def _sparse_fold_torch(acc: torch.Tensor, dest: torch.Tensor,
+                       val: torch.Tensor, table=None, src=None, cell=None,
+                       coef=None, axis: int = 0,
+                       from_zero: bool = False) -> torch.Tensor:
+    """Plain :func:`sparse_fold_block` (a new tensor), in waves: entries
+    sorted stably by destination, wave j adds the j-th entry of every
+    destination (one gather, multiply and add, written back by plain
+    indexing; no index repeats within a wave), so each destination takes
+    its entries in entry order and every product and add is rounded to
+    acc's type, as the reference's sequential scatter does."""
+    work = torch.zeros_like(acc) if from_zero else acc.clone()
+    view = work if axis == 0 else work.T
+    dest = dest.to(torch.int64)
+    order, ptr = sparse_csr(dest, acc.shape[axis])
+    rank = (torch.arange(order.numel(), device=acc.device)
+            - ptr.to(torch.int64)[dest[order]])
+    waves = int(rank.max()) + 1 if rank.numel() else 0
+    for j in range(waves):
+        e = order[rank == j]
+        d = dest[e]
+        if table is not None:
+            view[d] = view[d] + val[e, None] * table[src[e].to(torch.int64)]
+        else:
+            c = cell[e].to(torch.int64)
+            view[d, c] = view[d, c] + val[e] * coef[e]
+    return acc + work if from_zero else work
+
+
+def sparse_fold_block(acc: torch.Tensor, dest: torch.Tensor,
+                      val: torch.Tensor, *,
+                      table: Optional[torch.Tensor] = None,
+                      src: Optional[torch.Tensor] = None,
+                      cell: Optional[torch.Tensor] = None,
+                      coef: Optional[torch.Tensor] = None, axis: int = 0,
+                      from_zero: bool = False) -> torch.Tensor:
+    """Fold COO entries into the rows (``axis=0``) or columns (``axis=1``)
+    of ``acc`` IN PLACE — the scatter of the sparse row-slab update
+    (``stream/state.py`` :func:`sparse_rowblock_update`).
+
+    Entry e goes to segment ``dest[e]`` of acc and adds, in entry order,
+    ``val[e]·table[src[e], :]`` along it (the dense kinds: a row of the
+    Omega or Psi tile) or ``val[e]·coef[e]`` at position ``cell[e]`` of it
+    (the sparse kinds: one cell).  Every product and every add is rounded
+    to acc's type, which ``val``, ``table`` and ``coef`` share.  With
+    ``from_zero`` the sums start at 0 and EVERY segment becomes ``acc +
+    sum``, rounded once (the range update's ``Yk + dY``); else they
+    accumulate straight into acc and segments with no entries keep their
+    bits (the co-range update of W).  Indices must lie in range.
+
+    On the card: a stable sort by destination (:func:`sparse_csr`), then
+    one launch of the S1 kernel; on the CPU the plain wave form
+    :func:`_sparse_fold_torch`.  Returns ``acc``.
+    """
+    if (table is None) == (cell is None) or (table is None) != (src is None) \
+            or (cell is None) != (coef is None):
+        raise ValueError("sparse_fold_block: give table and src (dense) or "
+                         "cell and coef (sparse)")
+    for what, X in (("val", val), ("table", table), ("coef", coef)):
+        if X is not None and X.dtype != acc.dtype:
+            raise ValueError(f"sparse_fold_block: {what} is {X.dtype}, acc "
+                             f"{acc.dtype}: cast the entries first")
+    if not acc.is_cuda:
+        return acc.copy_(_sparse_fold_torch(acc, dest, val, table, src, cell,
+                                            coef, axis, from_zero))
+    ptr, entries = sparse_fold_operands(dest, acc.shape[axis], val, src,
+                                        cell, coef)
+    return sparse_fold_cuda(acc, ptr, table=table, axis=axis,
+                            from_zero=from_zero, **entries)
+
+
+def sparse_fold_operands(dest: torch.Tensor, nseg: int, val: torch.Tensor,
+                         src=None, cell=None, coef=None):
+    """What the card path hands S1: ``ptr`` over ``nseg`` destinations and
+    the entry arrays (``val`` and ``src`` or ``cell`` / ``coef``) gathered
+    into CSR order, indices as int32 (:func:`sparse_csr`)."""
+    order, ptr = sparse_csr(dest, nseg)
+
+    def csr(X, dtype=None):
+        return None if X is None else X[order].to(dtype or X.dtype)
+    return ptr, {"val": csr(val), "src": csr(src, torch.int32),
+                 "cell": csr(cell, torch.int32), "coef": csr(coef)}

@@ -4,8 +4,9 @@ The counterpart of the reference's Pallas kernel module: where that one
 defines ``gen_omega_pallas``, ``sketch_matmul_pallas`` and
 ``sketch_t_matmul_pallas``, this one launches the hand-written Hopper
 kernels of ``csrc/sketch_kernels.cu`` and ``csrc/sketch_t_kernels.cu``
-that replace them, the row-slab fold of ``csrc/fold_kernels.cu`` and the
-dense GEMM of ``csrc/gemm_kernels.cu``:
+that replace them, the row-slab fold of ``csrc/fold_kernels.cu``, the
+dense GEMM of ``csrc/gemm_kernels.cu`` and the sparse fold of
+``csrc/sparse_kernels.cu``:
 
   * ``gen_omega_cuda``  — a materialized Omega tile (the K1 generator's
                           oracle, K8);
@@ -26,7 +27,11 @@ dense GEMM of ``csrc/gemm_kernels.cu``:
                           device memory (K5, the reference's
                           ``_gemm_pallas``): a streaming thin kernel for
                           K <= 16, split over K for a skinny A, tiled
-                          otherwise (``gemm_plan``).
+                          otherwise (``gemm_plan``);
+  * ``sparse_fold_cuda`` — COO entries folded into the rows or columns of
+                          an accumulator in entry order, one thread an
+                          element, no atomics (S1, the sparse row slab's
+                          update; the reference's is a plain XLA scatter).
 
 Keys, offsets, salt, kind and scale are runtime arguments, so one build
 serves every seed and shard offset.  Each launcher checks device, dtype,
@@ -53,7 +58,7 @@ _INT_MAX = 2 ** 31 - 1
 
 # Launches of each kernel since the last ``reset_launches()``.
 LAUNCHES = {"gen_omega": 0, "sketch_fwd": 0, "sketch_t": 0,
-            "fold_rows": 0, "gemm": 0}
+            "fold_rows": 0, "gemm": 0, "sparse_fold": 0}
 
 
 def reset_launches() -> None:
@@ -595,3 +600,66 @@ def gemm_cuda(A: torch.Tensor, B: torch.Tensor, alpha: float = 1.0,
                          int(out_dtype == torch.bfloat16), _stream(A.device))
     _launched(rc, name)
     return dst
+
+
+def sparse_fold_cuda(acc: torch.Tensor, ptr: torch.Tensor, val: torch.Tensor,
+                     table: Optional[torch.Tensor] = None,
+                     src: Optional[torch.Tensor] = None,
+                     cell: Optional[torch.Tensor] = None,
+                     coef: Optional[torch.Tensor] = None, axis: int = 0,
+                     from_zero: bool = False) -> torch.Tensor:
+    """S1 (``csrc/sparse_kernels.cu``): fold CSR-ordered COO entries into
+    the segments of ``acc`` IN PLACE — its rows (``axis=0``) or its columns
+    (``axis=1``) — walking each segment's entries in order and rounding to
+    acc's type at each product and each add.
+
+    ``ptr`` (int32, ``acc.shape[axis] + 1``) delimits each segment's
+    entries; ``val`` and the entry arrays are in that (CSR) order.  The
+    dense form adds ``val[e]·table[src[e], :]`` along the segment, the
+    sparse form ``val[e]·coef[e]`` at position ``cell[e]`` of it.  With
+    ``from_zero`` each segment's sum starts at 0 and every segment becomes
+    ``acc + sum`` (one rounding); else the sum starts at acc and a segment
+    with no entries is left untouched.  Indices must lie in range (the
+    caller validates them).  One launch, counted under ``"sparse_fold"``;
+    none when there is nothing to change (no entries, not ``from_zero``).
+    """
+    name = "sparse_fold"
+    if not acc.is_cuda or acc.dim() != 2 or acc.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: acc must be a 2-D float32/bfloat16 CUDA "
+                         f"tensor, got {tuple(acc.shape)} {acc.dtype} on "
+                         f"{acc.device}")
+    if not acc.is_contiguous():
+        raise ValueError(f"{name}: acc must be contiguous")
+    if axis not in (0, 1):
+        raise ValueError(f"{name}: axis must be 0 or 1, got {axis}")
+    if (table is None) == (cell is None) or (table is None) != (src is None) \
+            or (cell is None) != (coef is None):
+        raise ValueError(f"{name}: give table and src (dense) or cell and "
+                         f"coef (sparse)")
+    nseg, width = acc.shape[axis], acc.shape[1 - axis]
+    nnz = val.shape[0]
+    _check_like(ptr, (nseg + 1,), torch.int32, acc.device, "ptr", name)
+    _check_like(val, (nnz,), acc.dtype, acc.device, "val", name)
+    if table is not None:
+        _check_like(table, (table.shape[0], width), acc.dtype, acc.device,
+                    "table", name)
+        _check_like(src, (nnz,), torch.int32, acc.device, "src", name)
+    else:
+        _check_like(cell, (nnz,), torch.int32, acc.device, "cell", name)
+        _check_like(coef, (nnz,), acc.dtype, acc.device, "coef", name)
+    if max(nseg, width, nnz) > _INT_MAX:
+        raise ValueError(f"{name}: sizes ({nseg}, {width}, {nnz}) exceed "
+                         f"int32")
+    if acc.numel() == 0 or (nnz == 0 and not from_zero):
+        return acc
+    strides = (width, 1) if axis == 0 else (1, acc.shape[1])
+    lib = _build.library()
+    with torch.cuda.device(acc.device):
+        rc = lib.rt_sparse_fold(
+            acc.data_ptr(), int(acc.dtype == torch.bfloat16), nseg, width,
+            nnz, *strides, ptr.data_ptr(), val.data_ptr(),
+            *[None if X is None else X.data_ptr()
+              for X in (table, src, cell, coef)],
+            int(from_zero), _stream(acc.device))
+    _launched(rc, name)
+    return acc

@@ -1,7 +1,7 @@
 """Cost model of Alg. 1, of Alg. 2 (the §5.2 Redistribute and the two-grid
-variants), of one sharded row-slab stream update and of the data-parallel
-gradient exchange (the parts of the reference's ``plan/model.py`` that the
-port runs).
+variants), of one sharded row-slab stream update, of a sparse row slab's
+payload and of the data-parallel gradient exchange (the parts of the
+reference's ``plan/model.py`` that the port runs).
 
 Counts only: words moved over the interconnect, latency hops, local FLOPs
 and device-memory words.  The reference also prices seconds on TPU
@@ -184,6 +184,15 @@ def stream_update_cost(k: int, n2: int, r: int, l: int,
         hbm += (k * cols + 2.0 * sketch_t_scratch_bytes(l, k) / 4
                 + 2.0 * l * cols)
     return Cost(words=words, messages=msgs, flops=flops, hbm_words=hbm)
+
+
+def sparse_payload_words(nnz: int) -> float:
+    """Wire/storage words of a COO payload: one index and one value a
+    stored entry, ``2·nnz`` — what a sparse row slab
+    (``stream.SparseRows``) costs to ship instead of its dense (k, n2)
+    frame.  (The reference's ``sparse_sketch_cost`` and its scatter
+    penalty belong to the planner, ROADMAP Queue 1 item 7.)"""
+    return 2.0 * float(nnz)
 
 
 def grad_allreduce_cost(m: int, n: int, world: int) -> Cost:

@@ -2,9 +2,10 @@
 regenerated by the fused kernels, on one device or sharded over a grid of
 ranks.
 
-  state.py        — StreamConfig + StreamingSketch (row/col/additive
-                    ingest, in place; save / restore), the solo and
-                    lane-batched row-slab updates the service runs
+  state.py        — StreamConfig + StreamingSketch (row/col/additive and
+                    COO row-slab ingest, in place; save / restore),
+                    SparseRows, the solo and lane-batched row-slab updates
+                    the service runs
   distributed.py  — ShardedStreamingSketch: the (Y, W) state sharded over
                     a (p1, p2, p3) grid of torch.distributed ranks (Alg. 1
                     per update), its checkpoints and streamed Nystrom
@@ -20,9 +21,9 @@ ranks.
   faults.py       — the fault-point registry the ingest path fires
 """
 from .state import (  # noqa: F401
-    OMEGA_SALT, PSI_SALT, StreamConfig, StreamingSketch, nystrom_local,
-    omega_matrix, pow2_bucket, psi_cols, psi_matrix, snap_bucket,
-    validate_row_block,
+    OMEGA_SALT, PSI_SALT, SparseRows, StreamConfig, StreamingSketch,
+    nystrom_local, omega_matrix, pow2_bucket, psi_cols, psi_matrix,
+    snap_bucket, validate_row_block,
 )
 from .reconstruct import (  # noqa: F401
     LowRank, lstsq_svd, one_pass_reconstruct, reconstruction_error,

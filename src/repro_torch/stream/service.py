@@ -43,9 +43,17 @@ Two placement modes:
     stages on a (P, 1, 1) grid; eviction copies each rank's own blocks.
     The lane-batched updates are local-mode only.
 
+Sparse payloads (local mode only, as in the reference):
+
+  * ``update_sparse``       — one stream's COO row slab (``SparseRows``):
+    ``stream.state.sparse_rowblock_update``, on the card the S1 kernel
+    (``kernels/csrc/sparse_kernels.cu``), bitwise the reference's scatter.
+  * ``update_sparse_batch`` — one COO slab a lane, lanes of one shape
+    signature and slab height; lane i is bitwise ``update_sparse`` of
+    stream i alone.
+
 Not in this slice (each raises ``NotImplementedError``): ``spill_dir``
-(ROADMAP Queue 1 item 9), ``reshard`` (``stream/elastic.py``, item 9) and
-the sparse-payload updates (``SparseRows``, item 6b).
+(ROADMAP Queue 1 item 9) and ``reshard`` (``stream/elastic.py``, item 9).
 """
 from __future__ import annotations
 
@@ -63,9 +71,16 @@ from repro_torch.obs import trace as obs_trace
 from .distributed import (_grid_of, check_divisible, gather_corange,
                           nystrom_finalize, refuse_sparse, sharded_update,
                           stream_blocks)
-from .state import (StreamConfig, _local_sig, local_rowblock_ragged,
-                    nystrom_local, rowblock_update, snap_bucket,
+from .state import (SparseRows, StreamConfig, _local_sig,
+                    local_rowblock_ragged, local_sparse_batch, nystrom_local,
+                    rowblock_update, snap_bucket, sparse_rowblock_update,
                     validate_row_block)
+
+_BATCH_WHY = ("distributed streams already amortize dispatch through the "
+              "shared mesh program")
+_SPARSE_WHY = ("distributed sparse bodies are deferred, as in the reference "
+               "— densify and use update(), or open the stream on a local "
+               "service")
 
 #: QoS classes, strongest first.  ``pinned`` streams are never auto-evicted;
 #: among evictable residents the lowest class goes first, LRU within class.
@@ -299,17 +314,77 @@ class SketchService:
         self._updates_total += 1
         return self
 
-    def update_sparse(self, *args, **kwargs):
-        raise _not_ported("update_sparse (SparseRows)", "item 6b")
+    def update_sparse(self, sid: int, sp: SparseRows, row0: int = 0):
+        """Apply one COO row-slab update to stream ``sid`` (local mode).
 
-    def update_sparse_batch(self, *args, **kwargs):
-        raise _not_ported("update_sparse_batch (SparseRows)", "item 6b")
+        The payload is (indices + values), ``2·nnz`` words
+        (``plan.model.sparse_payload_words``) instead of the dense slab's
+        ``k·n2``; the fold is ``stream.state.sparse_rowblock_update`` (on
+        the card the S1 kernel), bitwise the reference's.  The reference
+        also records a ``service.update[sparse]`` ledger site here; that
+        waits for the port's ``obs/ledger.py`` (ROADMAP Queue 1, item 8).
+        """
+        self._local_only("update_sparse", _SPARSE_WHY)
+        st = self._touch(sid)
+        row0 = int(row0)
+        sp.validate(st.cfg, row0)
+        with obs_trace.span("service.update", cat="service", mode="sparse"):
+            sparse_rowblock_update(st.cfg, st.keys, st.Y, st.W, row0, sp)
+        return self._applied(st, "sparse")
 
-    def _local_only(self, what: str) -> None:
+    def update_sparse_batch(self, sids, sps, row0=0):
+        """Multi-stream sparse ingest: one COO slab into every stream in
+        ``sids`` (local mode).
+
+        All lanes share one shape signature and one slab height; ``row0``
+        is one offset for all lanes or one a lane.  Each lane owns its
+        destinations and nothing is summed across lanes, so lane i is
+        bitwise :meth:`update_sparse` of stream i alone
+        (``stream.state.local_sparse_batch``: two S1 launches a lane on the
+        card).  The reference's ledger record waits for item 8, as in
+        :meth:`update_sparse`.
+        """
+        self._local_only("update_sparse_batch", _SPARSE_WHY)
+        sids = list(sids)
+        if len(set(sids)) != len(sids):
+            raise ValueError("update_sparse_batch sids must be distinct")
+        protect = frozenset(sids)
+        sts = [self._touch(s, protect) for s in sids]
+        if not sts:
+            raise ValueError("update_sparse_batch needs at least one stream")
+        sps = list(sps)
+        if len(sps) != len(sts):
+            raise ValueError(f"need {len(sts)} payloads, got {len(sps)}")
+        sig = _local_sig(sts[0].cfg)
+        for st in sts[1:]:
+            if _local_sig(st.cfg) != sig:
+                raise ValueError(
+                    f"streams must share one shape signature; "
+                    f"{_local_sig(st.cfg)} != {sig}")
+        n = len(sts)
+        row0s = ([int(row0)] * n if np.ndim(row0) == 0
+                 else [int(x) for x in row0])
+        if len(row0s) != n:
+            raise ValueError(f"row0 needs {n} entries, got {len(row0s)}")
+        k = sps[0].shape[0]
+        for sp, r0 in zip(sps, row0s):
+            if sp.shape[0] != k:
+                raise ValueError(f"lanes must share one slab height; "
+                                 f"{sp.shape[0]} != {k}")
+            sp.validate(sts[0].cfg, r0)
+        with obs_trace.span("service.update_sparse_batch", cat="service",
+                            lanes=n):
+            local_sparse_batch([(st.cfg, st.keys, st.Y, st.W, r0)
+                                for st, r0 in zip(sts, row0s)], sps)
+        self._m_updates.inc(n, path="sparse")
+        for st in sts:
+            st.num_updates += 1
+        self._updates_total += n
+        return self
+
+    def _local_only(self, what: str, why: str = _BATCH_WHY) -> None:
         if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} is local-mode only; distributed streams already "
-                f"amortize dispatch through the shared mesh program")
+            raise NotImplementedError(f"{what} is local-mode only; {why}")
 
     def _lanes(self, sids) -> list:
         """Touch every lane of a batch (none may evict a sibling)."""

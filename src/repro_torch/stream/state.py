@@ -8,10 +8,16 @@ with Y = A·Omega (n1 x r) the range sketch and W = Psi·A (l x n2) the
 co-range sketch.  Omega and Psi are regenerated from the seed under two
 salts, so only the O((n1 + n2)·r) sketch state is stored.
 
-For the dense kinds every update runs through the fused kernels of
-``kernels/local.py`` (on the card, the CUDA kernels; Omega and Psi never
-exist in device memory).  The sparse kinds have no kernel: they materialize
-their tile and multiply, on any device, as the reference does.
+For the dense kinds every dense-slab update runs through the fused kernels
+of ``kernels/local.py`` (on the card, the CUDA kernels; Omega and Psi never
+exist in device memory).  The sparse kinds have no GEMM kernel: they
+materialize their tile and multiply, on any device, as the reference does.
+
+A slab may also arrive as COO entries (:class:`SparseRows`, ``2·nnz``
+words instead of ``k·n2``): :func:`sparse_rowblock_update` folds them
+without densifying, through ``kernels.local.sparse_fold_block`` (on the
+card the S1 kernel, one launch a sketch), giving bitwise the reference's
+sequential scatter for every kind, in float32 and bfloat16.
 
 Unlike the reference, whose updates rebind immutable arrays, the updates
 here write into ``Y`` and ``W`` IN PLACE.
@@ -27,19 +33,24 @@ the lane-batched update of many streams whose slabs were staged into one
 padded buffer: per-lane ``dY`` products, ONE masked fold of every lane's
 ``dY`` into its own ``Y`` (the K4 kernel on the card), per-lane ``W``
 updates.  Lane i of it is bitwise ``rowblock_update`` of stream i alone,
-for float32 and bfloat16 streams.
+for float32 and bfloat16 streams.  Its sparse counterpart
+:func:`local_sparse_batch` runs :func:`sparse_rowblock_update` lane by
+lane.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.kinds import SPARSE_KINDS, validate_kind
-from repro_torch.core.sketch import omega_tile, resolve_device, seed_keys
+from repro_torch.core.sketch import (omega_tile, resolve_device, seed_keys,
+                                     sparse_omega_rows)
 from repro_torch.kernels.local import (fold_rows_block, resolve_backend,
-                                       sketch_block, sketch_t_block)
+                                       sketch_block, sketch_t_block,
+                                       sparse_fold_block)
 
 OMEGA_SALT = 0   # salt stream for Omega (range sketch)
 PSI_SALT = 1     # salt stream for Psi (co-range sketch); must differ
@@ -127,6 +138,79 @@ def validate_row_block(cfg: StreamConfig, row0: int,
     if n2 != cfg.n2 or row0 < 0 or row0 + k > cfg.n1:
         raise ValueError(f"row block ({row0}, {tuple(shape)}) outside "
                          f"({cfg.n1}, {cfg.n2})")
+
+
+def _host(x) -> np.ndarray:
+    """A payload array (numpy or tensor) as numpy, for the checks."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def _shape(x) -> tuple:
+    return tuple(x.shape) if isinstance(x, torch.Tensor) else np.shape(x)
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseRows:
+    """A sparse row slab in COO form: ``A[row0 + row[e], col[e]] += val[e]``.
+
+    ``shape = (k, n2)`` is the DENSE slab shape the entries live in; the
+    wire format is (indices, values) — ``2·nnz`` words instead of the dense
+    slab's ``k·n2`` (``plan.model.sparse_payload_words``).  The arrays may
+    be numpy arrays or tensors (on any device); entries may come in any
+    order and repeat a coordinate.
+    """
+    row: Any                   # (nnz,) integer, local row within the slab
+    col: Any                   # (nnz,) integer, global column in [0, n2)
+    val: Any                   # (nnz,) values
+    shape: Tuple[int, int]     # (k, n2)
+
+    @property
+    def nnz(self) -> int:
+        return int(_shape(self.row)[0])
+
+    @classmethod
+    def from_dense(cls, H) -> "SparseRows":
+        """COO of a dense slab (entry order: row-major, as np.nonzero)."""
+        H = _host(H)
+        r, c = np.nonzero(H)
+        return cls(row=np.asarray(r, np.int32), col=np.asarray(c, np.int32),
+                   val=H[r, c], shape=tuple(H.shape))
+
+    def to_dense(self, dtype=None) -> np.ndarray:
+        """The dense slab as numpy (repeated coordinates summed by
+        ``np.add.at``)."""
+        val = _host(self.val)
+        out = np.zeros(self.shape, dtype or val.dtype)
+        np.add.at(out, (_host(self.row), _host(self.col)), val)
+        return out
+
+    def validate(self, cfg: StreamConfig, row0: int) -> None:
+        validate_row_block(cfg, row0, self.shape)
+        k, n2 = self.shape
+        row, col = _host(self.row), _host(self.col)
+        if row.shape != col.shape or row.shape != _shape(self.val):
+            raise ValueError(f"ragged COO arrays: {row.shape} / "
+                             f"{col.shape} / {_shape(self.val)}")
+        if row.size and (row.min() < 0 or row.max() >= k
+                         or col.min() < 0 or col.max() >= n2):
+            raise ValueError(f"COO indices outside slab shape {self.shape}")
+
+    def padded(self, nnz_b: int):
+        """(row, col, val) as numpy, padded to ``nnz_b`` entries with pads
+        ``row == k`` / ``col == n2`` / ``val == 0`` (the reference's bucket
+        layout; the port's updates take the unpadded payload)."""
+        k, n2 = self.shape
+        nnz = self.nnz
+        if nnz > nnz_b:
+            raise ValueError(f"nnz={nnz} exceeds bucket {nnz_b}")
+        pad = nnz_b - nnz
+        val = _host(self.val)
+        row = np.concatenate([np.asarray(_host(self.row), np.int32),
+                              np.full(pad, k, np.int32)])
+        col = np.concatenate([np.asarray(_host(self.col), np.int32),
+                              np.full(pad, n2, np.int32)])
+        return row, col, np.concatenate([val, np.zeros(pad, val.dtype)])
 
 
 def nystrom_local(Y: torch.Tensor, cfg: StreamConfig):
@@ -237,6 +321,91 @@ def local_rowblock_ragged(lanes: Sequence[Tuple], Hb: torch.Tensor) -> None:
             _slab_W(cfg, keys, W, row0, Hb[i, :k])
 
 
+def _entries(sp: SparseRows, device, dtype):
+    """The payload on ``device``: int64 indices and the values cast to the
+    stream's dtype (the reference's first rounding)."""
+    def t(x):
+        return x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(x))
+    return (t(sp.row).to(device=device, dtype=torch.int64),
+            t(sp.col).to(device=device, dtype=torch.int64),
+            t(sp.val).to(device=device, dtype=dtype))
+
+
+def sparse_update_folds(cfg: StreamConfig, keys, Y: torch.Tensor,
+                        W: Optional[torch.Tensor], row0: int,
+                        sp: SparseRows) -> list:
+    """The folds of one stream's COO row-slab update, ``[(acc, dest, val,
+    kw)]`` for Y and then W: each is ``sparse_fold_block(acc, dest, val,
+    **kw)`` (see :func:`sparse_rowblock_update`), with the payload on Y's
+    device, the values in the stream's dtype and the draws made."""
+    k = sp.shape[0]
+    row, col, val = _entries(sp, Y.device, cfg.dtype)
+    Yk = Y[row0:row0 + k]                    # a contiguous row view
+    sparse = cfg.kind in SPARSE_KINDS
+    if sparse:
+        b, v = sparse_omega_rows(keys, col, cfg.r, cfg.kind, cfg.dtype,
+                                 salt=cfg.omega_salt, n_total=cfg.n2)
+        kw = dict(cell=b, coef=v)
+    else:
+        kw = dict(table=omega_tile(keys, 0, 0, cfg.n2, cfg.r, cfg.kind,
+                                   cfg.dtype, salt=cfg.omega_salt,
+                                   device=Y.device), src=col)
+    folds = [(Yk, row, val, dict(kw, from_zero=True))]
+    if W is None:
+        return folds
+    if sparse:
+        pb, pv = sparse_omega_rows(keys, row0 + row, cfg.sketch_l, cfg.kind,
+                                   cfg.dtype, salt=cfg.psi_salt,
+                                   n_total=cfg.n1)
+        kw = dict(cell=pb, coef=pv)
+    else:
+        kw = dict(table=omega_tile(keys, row0, 0, k, cfg.sketch_l, cfg.kind,
+                                   cfg.dtype, salt=cfg.psi_salt,
+                                   n_total=cfg.n1, device=W.device), src=row)
+    return folds + [(W, col, val, dict(kw, axis=1))]
+
+
+def sparse_rowblock_update(cfg: StreamConfig, keys, Y: torch.Tensor,
+                           W: Optional[torch.Tensor], row0: int,
+                           sp: SparseRows) -> None:
+    """One stream's COO row-slab update, in place: the reference's
+    ``_local_sparse_update`` with the same rounding points.
+
+      * Y: ``dY`` starts at zero; entry e adds ``val[e]·Omega[col[e], :]``
+        to row ``row[e]`` (the dense kinds, Omega drawn in the stream's
+        dtype) or ``val[e]·v[e]`` to the one cell ``(row[e], b[e])`` (the
+        sparse kinds, ``(b, v)`` drawn at ``col``); then EVERY row of the
+        slab becomes ``Yk + dY``.
+      * W accumulates straight into itself: entry e adds
+        ``Psi[:, row0 + row[e]]·val[e]`` to column ``col[e]`` (Psi's rows
+        drawn as a (k, l) tile) or ``pv[e]·val[e]`` to the cell
+        ``(pb[e], col[e])`` (drawn at ``row0 + row``); columns with no
+        entry are not touched.
+
+    Each destination takes its entries in entry order, every product and
+    add rounded to the stream's dtype: on the card one S1 launch a sketch
+    (the dense kinds' tiles from the gen-Omega kernel), on the CPU the
+    plain wave form.  No pads, no bucket.  The caller has validated ``sp``
+    (``SparseRows.validate``).
+    """
+    for acc, dest, val, kw in sparse_update_folds(cfg, keys, Y, W, row0, sp):
+        sparse_fold_block(acc, dest, val, **kw)
+
+
+def local_sparse_batch(lanes: Sequence[Tuple],
+                       payloads: Sequence[SparseRows]) -> None:
+    """The lane-batched COO update, in place: ``lanes[i] = (cfg, keys, Y,
+    W, row0)`` takes ``payloads[i]``.  Every lane shares one
+    :func:`_local_sig` and one slab height (the service checks both) and
+    owns its ``Y`` and ``W``; nothing is summed across lanes, so lane i is
+    bitwise :func:`sparse_rowblock_update` of stream i alone.  It runs
+    that update lane by lane: on the card two S1 launches a lane (one
+    without W)."""
+    for (cfg, keys, Y, W, row0), sp in zip(lanes, payloads, strict=True):
+        sparse_rowblock_update(cfg, keys, Y, W, row0, sp)
+
+
 class StreamingSketch:
     """One-device streaming accumulator for (Y, W).
 
@@ -275,6 +444,16 @@ class StreamingSketch:
         validate_row_block(self.cfg, row0, tuple(H.shape))
         rowblock_update(self.cfg, self.keys, self.Y, self.W, row0,
                         self._as_slab(H), self.backend)
+        self.num_updates += 1
+        return self
+
+    def update_rows_sparse(self, row0: int, sp: SparseRows):
+        """Rows [row0, row0+k) arrive as a COO slab (additively): the
+        numbers :meth:`update_rows` would fold for the densified slab, up
+        to the order of summation, with the reference's bits
+        (:func:`sparse_rowblock_update`); the slab is never densified."""
+        sp.validate(self.cfg, row0)
+        sparse_rowblock_update(self.cfg, self.keys, self.Y, self.W, row0, sp)
         self.num_updates += 1
         return self
 

@@ -701,3 +701,130 @@ def test_stream_distributed_four_ranks_on_one_card(dev):
         assert all(launches[k] > 0 for k in ("sketch_fwd", "sketch_t",
                                              "fold_rows")), (rank, launches)
         assert launches["gen_omega"] == 0, (rank, launches)
+
+
+# ---------------------------------------------------------------------------
+# S1, the sparse fold of COO row slabs: bitwise, one rounding at each
+# product and each add, in entry order
+# ---------------------------------------------------------------------------
+
+def _sparse_bits(x: torch.Tensor) -> torch.Tensor:
+    x = x.contiguous()
+    return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+
+def _sparse_fold_case(dtype, form, axis, seed=0):
+    """An odd-shaped acc (37 x 45), one segment with 300 entries, two with
+    none, -0.0 in acc and val, entries in no order."""
+    rng = np.random.default_rng(seed)
+    acc = torch.from_numpy(rng.standard_normal((37, 45)).astype(np.float32))
+    acc = acc.to(dtype)
+    acc[0, :3] = -0.0
+    nseg, width = acc.shape[axis], acc.shape[1 - axis]
+    dest = np.concatenate([rng.integers(0, nseg - 2, 500),
+                           np.full(300, 3)])
+    dest = torch.from_numpy(rng.permutation(dest))
+    nnz = dest.numel()
+    val = torch.from_numpy(rng.standard_normal(nnz).astype(np.float32))
+    val = val.to(dtype)
+    val[:4] = -0.0
+    ops = {}
+    if form == "table":
+        ops["table"] = torch.from_numpy(rng.standard_normal(
+            (61, width)).astype(np.float32)).to(dtype)
+        ops["src"] = torch.from_numpy(rng.integers(0, 61, nnz))
+    else:
+        ops["cell"] = torch.from_numpy(rng.integers(0, width, nnz))
+        ops["coef"] = torch.from_numpy(rng.choice(
+            [-1.0, 0.0, 1.0, 3.5], nnz).astype(np.float32)).to(dtype)
+    return acc, dest, val, ops
+
+
+@pytest.mark.parametrize("from_zero", [True, False])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("form", ["table", "cell"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_fold_bitwise_plain(dev, dtype, form, axis, from_zero):
+    from repro_torch.kernels import sparse_fold_block
+    from repro_torch.kernels.local import _sparse_fold_torch
+    acc, dest, val, ops = _sparse_fold_case(dtype, form, axis)
+    ops_d = {k: v.to(dev) for k, v in ops.items()}
+    ref = _sparse_fold_torch(acc, dest, val, axis=axis, from_zero=from_zero,
+                             **ops)
+    runs = []
+    for _ in range(2):
+        reset_launches()
+        got = sparse_fold_block(acc.to(dev), dest.to(dev), val.to(dev),
+                                axis=axis, from_zero=from_zero, **ops_d)
+        torch.cuda.synchronize()
+        assert LAUNCHES["sparse_fold"] == 1
+        runs.append(got.cpu())
+    assert torch.equal(_sparse_bits(runs[0]), _sparse_bits(ref))
+    assert torch.equal(_sparse_bits(runs[1]), _sparse_bits(runs[0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["normal", "uniform", "rademacher",
+                                  "countsketch", "rowsample"])
+def test_update_rows_sparse_card_bitwise_cpu(dev, kind, dtype):
+    """The card's stream (S1, the draws on the card) against the CPU's
+    plain stream, which the CPU tests hold bitwise to the reference: an
+    odd n2, empty rows, a column with no entry and one with many, two
+    slabs (the second onto a nonzero W) and an empty payload."""
+    from repro_torch.stream import SparseRows
+    cfg = StreamConfig(n1=40, n2=45, r=8, seed=7, kind=kind, dtype=dtype)
+    rng = np.random.default_rng(1)
+    slabs = []
+    for _ in range(2):
+        row = np.concatenate([rng.integers(0, 12, 150), np.full(60, 5)])
+        col = np.concatenate([rng.integers(0, 44, 150), np.full(60, 9)])
+        val = rng.standard_normal(210).astype(np.float32)
+        order = rng.permutation(210)
+        slabs.append(SparseRows(row[order].astype(np.int32),
+                                col[order].astype(np.int32), val[order],
+                                (16, 45)))
+    slabs.append(SparseRows(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                            np.zeros(0, np.float32), (16, 45)))
+    card = [StreamingSketch(cfg, device=dev) for _ in range(2)]
+    cpu = StreamingSketch(cfg, device="cpu")
+    for row0, sp in zip((0, 24, 8), slabs):
+        reset_launches()
+        card[0].update_rows_sparse(row0, sp)
+        torch.cuda.synchronize()
+        dense = kind in ("normal", "uniform", "rademacher")
+        assert LAUNCHES["sparse_fold"] == (1 if sp.nnz == 0 else 2)
+        assert LAUNCHES["gen_omega"] == (2 if dense else 0)
+        card[1].update_rows_sparse(row0, sp)
+        cpu.update_rows_sparse(row0, sp)
+        for st in card:
+            assert torch.equal(_sparse_bits(st.Y.cpu()), _sparse_bits(cpu.Y))
+            assert torch.equal(_sparse_bits(st.W.cpu()), _sparse_bits(cpu.W))
+    assert torch.all(cpu.W[:, 44] == 0)     # column 44 has no entry
+
+
+@pytest.mark.parametrize("kind", ["countsketch", "normal"])
+def test_service_sparse_lane_vs_solo_on_the_card(dev, kind):
+    from repro_torch.stream import SparseRows
+    rng = np.random.default_rng(4)
+    svc, one = SketchService(device=dev), SketchService(device=dev)
+    sps, cfgs = [], []
+    for seed, nnz in zip((11, 99, 5), (13, 29, 1)):
+        H = np.zeros((8, 48), np.float32)
+        H.flat[rng.choice(8 * 48, size=nnz, replace=False)] = (
+            rng.standard_normal(nnz).astype(np.float32))
+        sps.append(SparseRows.from_dense(H))
+        cfgs.append(StreamConfig(n1=32, n2=48, r=8, seed=seed, kind=kind))
+    sids = [svc.open(c) for c in cfgs]
+    ones = [one.open(c) for c in cfgs]
+    row0s = [0, 16, 24]
+    reset_launches()
+    svc.update_sparse_batch(sids, sps, row0=row0s)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sparse_fold"] == 2 * len(sids)
+    for i, (c, sp, r0) in enumerate(zip(cfgs, sps, row0s)):
+        one.update_sparse(ones[i], sp, row0=r0)
+        solo = StreamingSketch(c, device=dev).update_rows_sparse(r0, sp)
+        lane = svc._streams[sids[i]]
+        for other in (one._streams[ones[i]], solo):
+            assert torch.equal(_sparse_bits(lane.Y), _sparse_bits(other.Y))
+            assert torch.equal(_sparse_bits(lane.W), _sparse_bits(other.W))

@@ -279,7 +279,6 @@ def test_unknown_sid_and_unported_parts_raise():
             op()
     for op in (lambda: SketchService(spill_dir="x", device="cpu"),
                lambda: svc.reshard((2, 1, 1)),
-               lambda: svc.update_sparse(0, None),
                lambda: make_ingest_queue(svc, bucket_edges="auto")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             op()
