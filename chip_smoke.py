@@ -239,12 +239,20 @@ then sparse streaming on the one card (COO row slabs folded by S1):
                   lane i bitwise ``update_sparse`` on a second service and
                   ``update_rows_sparse`` alone; (f) over (a)'s main path
                   exactly 2 sparse_fold launches an update, 2 gen_omega a
-                  normal update, no sketch_fwd or sketch_t.  Then at one
-                  normal slab: S1's Y and W launches (CUDA events), the
-                  wrapper with its CSR build, the plain wave form,
-                  ``torch.sparse.mm`` of the slab with Omega and of its
-                  transpose with Psi's rows, the ``update_rows_sparse``
-                  wall, the densified ``update_rows``, and S1's byte bound.
+                  normal update, no sketch_fwd or sketch_t; (g) S1 at its
+                  tile's edges (100 segments of 1025 elements, tiles with
+                  no entry, untouched columns of touched tiles holding
+                  -0.0 and NaN bits, a segment of 4096 entries and one of
+                  65536), both forms, both axes, both ``from_zero``,
+                  float32 and bfloat16, bitwise the plain wave form on the
+                  card.  Then at one normal slab: S1's Y and W launches
+                  (CUDA events), the wrapper with its CSR build, the plain
+                  wave form, ``torch.sparse.mm`` of the slab with Omega
+                  and of its transpose with Psi's rows, the
+                  ``update_rows_sparse`` wall and its stages apart
+                  (validate, the payload's copies, the draws, the CSR
+                  build, S1; each ended by a synchronize), the densified
+                  ``update_rows``, and S1's byte bound.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -313,6 +321,9 @@ SP_DISTINCT, SP_REPEATS = 131072, 8192   # a slab's distinct coordinates,
                                          # then entries that repeat them
 SP_LANE_NNZ = (1, 8, 64, 512, 2048, 8192, 32768, 65536)
 SP_LANE_K = 256
+SP_EDGE = (100, 1025)                    # (g): segments, elements
+SP_EDGE_NNZ = (4096, 65536)              # (g): the long segment's entries
+SP_STAGE_REPS = 20
 SPARSE_SOURCE = "src/repro_torch/kernels/csrc/sparse_kernels.cu"
 RANKS_TIMEOUT_S = 600
 SERVE_ARGS = ["--workload", "sketch", "--streams", "128", "--updates", "4",
@@ -2493,6 +2504,138 @@ def sparse_service(state, SparseRows):
               f"Y and W bitwise")
 
 
+NAN_BITS = {torch.float32: (0x7FC00001, -0x3FFFFF),      # 0xFFC00001
+            torch.bfloat16: (0x7FC1, -0x3F)}               # 0xFFC1
+
+
+def sparse_edge_case(dev, dtype, form, axis, from_zero, long_nnz):
+    """(g)'s operands: SP_EDGE segments (not a multiple of the tile's 32 or
+    64 columns; 1025 elements, one row past 32·32), entries only in
+    segments 0-31 and 96-99 (so 32-95 are tiles with no entry in float32
+    and untouched columns of a touched tile in bfloat16), ``long_nnz`` of
+    them in segment 5; -0.0 in acc and val; unless ``from_zero`` (which
+    rewrites every element through arithmetic) NaN bits of two payloads
+    and both signs in untouched segments and, for the cell form, in
+    element 1024, which no entry names."""
+    rng = np.random.default_rng(17)
+    nseg, width = SP_EDGE
+    acc = torch.from_numpy(rng.standard_normal(
+        (nseg, width) if axis == 0 else (width, nseg), dtype=np.float32))
+    acc = acc.to(dev, dtype)
+    seg = acc if axis == 0 else acc.T
+    seg[40, :7] = -0.0
+    seg[3, 9] = -0.0
+    if not from_zero:
+        ib = seg.view(torch.int32 if dtype == torch.float32 else torch.int16)
+        for s in (33, 70):
+            ib[s, 0], ib[s, 1000] = NAN_BITS[dtype]
+        if form == "cell":
+            ib[:, width - 1] = NAN_BITS[dtype][0]
+    dest = np.concatenate([rng.integers(0, 32, 3000), np.full(long_nnz, 5),
+                           rng.integers(96, 100, 500)])
+    dest = torch.from_numpy(rng.permutation(dest)).to(dev)
+    nnz = dest.numel()
+    val = torch.from_numpy(rng.standard_normal(nnz, dtype=np.float32))
+    val = val.to(dev, dtype)
+    val[:4] = -0.0
+    if form == "table":
+        ops = {"table": torch.from_numpy(rng.standard_normal(
+                   (257, width), dtype=np.float32)).to(dev, dtype),
+               "src": torch.from_numpy(rng.integers(0, 257, nnz)).to(dev)}
+    else:
+        ops = {"cell": torch.from_numpy(rng.integers(0, width - 1, nnz))
+               .to(dev),
+               "coef": torch.from_numpy(rng.choice(
+                   [-1.0, 0.0, 1.0, 3.5], nnz).astype(np.float32))
+               .to(dev, dtype)}
+    return acc, dest, val, ops
+
+
+def sparse_edges(dev, local) -> int:
+    """(g): S1 bitwise its plain wave form on the card at every edge case,
+    the long segment in the settings the stream uses (W into itself along
+    axis 1, Y from zero along axis 0).  Returns the cases run."""
+    cases = [(dt, form, axis, fz, SP_EDGE_NNZ[0])
+             for dt in (torch.float32, torch.bfloat16)
+             for form in ("table", "cell") for axis in (0, 1)
+             for fz in (True, False)]
+    cases += [(torch.float32, "table", 1, False, SP_EDGE_NNZ[1]),
+              (torch.bfloat16, "cell", 0, True, SP_EDGE_NNZ[1])]
+    for dt, form, axis, fz, n in cases:
+        acc, dest, val, ops = sparse_edge_case(dev, dt, form, axis, fz, n)
+        ref = local._sparse_fold_torch(acc, dest, val, axis=axis,
+                                       from_zero=fz, **ops)
+        got = local.sparse_fold_block(acc.clone(), dest, val, axis=axis,
+                                      from_zero=fz, **ops)
+        again = local.sparse_fold_block(acc.clone(), dest, val, axis=axis,
+                                        from_zero=fz, **ops)
+        check(_same(got, ref) and _same(again, got),
+              f"(g) S1 differs from its plain version or from itself at "
+              f"the tile's edges ({dt}, {form}, axis {axis}, from_zero "
+              f"{fz}, a segment of {n} entries)")
+    print(f"[sparse] (g) S1 at the tile's edges ({SP_EDGE[0]} segments of "
+          f"{SP_EDGE[1]} elements, empty tiles, -0.0 and NaN bits in "
+          f"untouched columns, segments of {SP_EDGE_NNZ[0]} and "
+          f"{SP_EDGE_NNZ[1]} entries): {len(cases)} cases over both forms, "
+          f"axes, from_zero and dtypes, bitwise the plain wave form on the "
+          f"card and run to run")
+    return len(cases)
+
+
+def sparse_stages(state, local, st, row0, sp) -> dict:
+    """``update_rows_sparse`` replayed stage by stage, each stage ended by
+    a synchronize (``time.perf_counter_ns``, median of SP_STAGE_REPS):
+    ``SparseRows.validate``, ``_entries``' copies to the card, the draws
+    (the Omega and Psi tiles), the CSR builds (``sparse_fold_operands``,
+    Y's and W's) and S1's two launches.  The replay must leave Y and W
+    bitwise what ``update_rows_sparse`` leaves on a copy of the stream."""
+    from repro_torch.kernels.sketch_matmul import sparse_fold_cuda
+    cfg, dev = st.cfg, st.Y.device
+    k = sp.shape[0]
+    sync, ns = torch.cuda.synchronize, time.perf_counter_ns
+
+    def replay(Y, W):
+        sync()
+        t0 = ns()
+        sp.validate(cfg, row0)
+        t1 = ns()
+        row, col, val = state._entries(sp, dev, cfg.dtype)
+        sync()
+        t2 = ns()
+        om = state.omega_tile(st.keys, 0, 0, cfg.n2, cfg.r, cfg.kind,
+                              cfg.dtype, salt=cfg.omega_salt, device=dev)
+        psi = state.omega_tile(st.keys, row0, 0, k, cfg.sketch_l, cfg.kind,
+                               cfg.dtype, salt=cfg.psi_salt, n_total=cfg.n1,
+                               device=dev)
+        sync()
+        t3 = ns()
+        ptr_y, ops_y = local.sparse_fold_operands(row, k, val, col)
+        ptr_w, ops_w = local.sparse_fold_operands(col, cfg.n2, val, row)
+        sync()
+        t4 = ns()
+        sparse_fold_cuda(Y[row0:row0 + k], ptr_y, table=om, from_zero=True,
+                         **ops_y)
+        sparse_fold_cuda(W, ptr_w, table=psi, axis=1, **ops_w)
+        sync()
+        t5 = ns()
+        return {"validate": t1 - t0, "entries": t2 - t1, "draws": t3 - t2,
+                "csr": t4 - t3, "s1": t5 - t4, "sum": t5 - t0}
+
+    a = (st.Y.clone(), st.W.clone())
+    b = (st.Y.clone(), st.W.clone())
+    replay(*a)
+    ref = state.StreamingSketch(cfg)
+    ref.Y.copy_(b[0])
+    ref.W.copy_(b[1])
+    ref.update_rows_sparse(row0, sp)
+    check(_same(a[0], ref.Y) and _same(a[1], ref.W),
+          "the staged replay of update_rows_sparse differs from it")
+    del b, ref
+    runs = [replay(*a) for _ in range(SP_STAGE_REPS)]
+    return {name: statistics.median(r[name] for r in runs) / 1e6
+            for name in runs[0]}
+
+
 def sparse_bound(sp, r: int, l: int) -> tuple:
     """S1's least time for one slab's two launches (this slab's data): the
     bytes a fold must move — each distinct table row it gathers read once
@@ -2625,8 +2768,9 @@ def phase_sparse(dev, LAUNCHES, reset_launches):
                 "version")
     del st16, Y16, W16
 
-    # -- (e) the service ------------------------------------------------------
+    # -- (e) the service, (g) the tile's edges --------------------------------
     sparse_service(state, SparseRows)
+    edge_cases = sparse_edges(dev, local)
 
     # -- timings at one full-width normal slab --------------------------------
     cfg, sp, row0 = cfgs["normal"], slabs[s0], s0 * SLAB
@@ -2647,7 +2791,7 @@ def phase_sparse(dev, LAUNCHES, reset_launches):
         dev_ms = device_ms(lambda: sparse_fold_cuda(
             work, ptr, table=kw["table"], axis=axis,
             from_zero=kw.get("from_zero", False), **ops),
-            "sparse_fold_kernel")
+            "sparse_fold_")
         parts[part] = {"ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
                        "profiler_ms": dev_ms}
         del work
@@ -2676,6 +2820,7 @@ def phase_sparse(dev, LAUNCHES, reset_launches):
             ts.append((time.perf_counter() - t) * 1e3)
         return statistics.median(ts)
     upd_wall = wall(lambda: st.update_rows_sparse(row0, sp))
+    stages = sparse_stages(state, local, st, row0, sp)
     Yp, Wp = st.Y.clone(), st.W.clone()
     plain_wall = wall(lambda: plain_sparse_update(state, local, cfg, Yp, Wp,
                                                   row0, sp), reps=3)
@@ -2705,6 +2850,9 @@ def phase_sparse(dev, LAUNCHES, reset_launches):
           f"draws, S1), its plain version on the card {plain_wall:.3f} ms; "
           f"the densified update_rows {dense_ms:.3f} ms on the device "
           f"(CUDA events), {dense_wall:.3f} ms wall")
+    print(f"[timing] update_rows_sparse by stage (each ended by a "
+          f"synchronize; median of {SP_STAGE_REPS}): "
+          + ", ".join(f"{name} {ms:.4f} ms" for name, ms in stages.items()))
     return {"launches": counts["sparse_fold"], "err": worst, "ms": s1_ms,
             "plain_ms": plain_ms, "bound": (b_ms, b_by),
             "library_ms": lib_y + lib_w,
@@ -2712,6 +2860,8 @@ def phase_sparse(dev, LAUNCHES, reset_launches):
                       "library_w_ms": lib_w, "bound_bytes": b_bytes,
                       "bound_with_draw_ms": with_draw,
                       "update_rows_sparse_wall_ms": upd_wall,
+                      "update_rows_sparse_stages_ms": stages,
+                      "edge_cases": edge_cases,
                       "plain_update_wall_ms": plain_wall,
                       "dense_update_ms": dense_ms,
                       "dense_update_wall_ms": dense_wall,

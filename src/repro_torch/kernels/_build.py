@@ -42,7 +42,7 @@ SIGNATURES = {
     "rt_gemm": (_VP,) * 5 + (_INT,) * 3 + (_LL, _LL, _INT, _INT, _F32, _INT,
                                           _VP),
     "rt_sparse_fold": (_VP,) + (_INT,) * 4 + (_LL, _LL) + (_VP,) * 6
-                      + (_INT, _VP),
+                      + (_INT,) * 7 + (_VP,),
 }
 
 

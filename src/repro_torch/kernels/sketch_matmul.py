@@ -30,8 +30,10 @@ dense GEMM of ``csrc/gemm_kernels.cu`` and the sparse fold of
                           otherwise (``gemm_plan``);
   * ``sparse_fold_cuda`` — COO entries folded into the rows or columns of
                           an accumulator in entry order, one thread an
-                          element, no atomics (S1, the sparse row slab's
-                          update; the reference's is a plain XLA scatter).
+                          element, columns staged through shared memory
+                          in 128-byte rows, no atomics (S1, the sparse
+                          row slab's update, ``sparse_fold_plan``; the
+                          reference's is a plain XLA scatter).
 
 Keys, offsets, salt, kind and scale are runtime arguments, so one build
 serves every seed and shard offset.  Each launcher checks device, dtype,
@@ -602,6 +604,52 @@ def gemm_cuda(A: torch.Tensor, B: torch.Tensor, alpha: float = 1.0,
     return dst
 
 
+SPARSE_FOLD_FORMS = {"rows": 0, "tile": 1}
+SPARSE_WARPS = 8            # warps a block, both forms
+SPARSE_ROW_BYTES = 128      # a row of the tile form: one 128-byte line
+SPARSE_TILE_ROWS = 128      # most elements of a segment a tile holds
+SPARSE_PITCH_WORDS = 33     # a tile row in shared memory, one word padding
+SPARSE_GRID_Y = 65535
+
+
+def sparse_fold_plan(nseg: int, width: int, axis: int, dtype) -> dict:
+    """What one S1 launch over ``nseg`` segments of ``width`` elements of an
+    acc of ``dtype`` takes: its ``form``, ``tc`` segments and ``tj``
+    elements a block, the dynamic shared ``smem`` bytes and the ``grid``
+    (segments' blocks, elements' blocks).
+
+    Segments along axis 0 are contiguous rows: the "rows" form puts a warp
+    on 32 elements of one segment and a block on SPARSE_WARPS segments.
+    Segments along axis 1 are columns, strided by the row length: the
+    "tile" form stages ``tc`` consecutive columns (one 128-byte row of the
+    tile: 32 float32 or 64 bfloat16) by ``tj`` rows in shared memory,
+    padded to SPARSE_PITCH_WORDS words a row, with the tile's ``tc + 1``
+    CSR offsets after it; the rows are cut into ceil(width / 128) tiles of
+    equal height (at most SPARSE_TILE_ROWS).  Block (bx, by) covers
+    segments [bx·tc, (bx + 1)·tc) and elements [by·tj, (by + 1)·tj), each
+    cut at its end.  Raises ValueError for a dtype the kernel does not
+    take, another axis, sizes past int32 or width past 65535 blocks of 32.
+    """
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"sparse_fold: dtype must be float32 or bfloat16, "
+                         f"got {dtype}")
+    if axis not in (0, 1):
+        raise ValueError(f"sparse_fold: axis must be 0 or 1, got {axis}")
+    if min(nseg, width) < 1 or max(nseg, width) > _INT_MAX \
+            or -(-width // 32) > SPARSE_GRID_Y:
+        raise ValueError(f"sparse_fold: sizes ({nseg}, {width}) outside "
+                         f"[1, int32] or past {SPARSE_GRID_Y} blocks of 32")
+    if axis == 0:
+        form, tc, tj, smem = "rows", SPARSE_WARPS, 32, 0
+    else:
+        form = "tile"
+        tc = SPARSE_ROW_BYTES // dtype.itemsize
+        tj = -(-width // -(-width // SPARSE_TILE_ROWS))
+        smem = 4 * (tj * SPARSE_PITCH_WORDS + tc + 1)
+    return {"form": form, "tc": tc, "tj": tj, "smem": smem,
+            "grid": (-(-nseg // tc), -(-width // tj))}
+
+
 def sparse_fold_cuda(acc: torch.Tensor, ptr: torch.Tensor, val: torch.Tensor,
                      table: Optional[torch.Tensor] = None,
                      src: Optional[torch.Tensor] = None,
@@ -620,8 +668,9 @@ def sparse_fold_cuda(acc: torch.Tensor, ptr: torch.Tensor, val: torch.Tensor,
     ``from_zero`` each segment's sum starts at 0 and every segment becomes
     ``acc + sum`` (one rounding); else the sum starts at acc and a segment
     with no entries is left untouched.  Indices must lie in range (the
-    caller validates them).  One launch, counted under ``"sparse_fold"``;
-    none when there is nothing to change (no entries, not ``from_zero``).
+    caller validates them).  One launch of the form
+    :func:`sparse_fold_plan` names, counted under ``"sparse_fold"``; none
+    when there is nothing to change (no entries, not ``from_zero``).
     """
     name = "sparse_fold"
     if not acc.is_cuda or acc.dim() != 2 or acc.dtype not in KERNEL_DTYPES:
@@ -652,6 +701,7 @@ def sparse_fold_cuda(acc: torch.Tensor, ptr: torch.Tensor, val: torch.Tensor,
                          f"int32")
     if acc.numel() == 0 or (nnz == 0 and not from_zero):
         return acc
+    plan = sparse_fold_plan(nseg, width, axis, acc.dtype)
     strides = (width, 1) if axis == 0 else (1, acc.shape[1])
     lib = _build.library()
     with torch.cuda.device(acc.device):
@@ -660,6 +710,7 @@ def sparse_fold_cuda(acc: torch.Tensor, ptr: torch.Tensor, val: torch.Tensor,
             nnz, *strides, ptr.data_ptr(), val.data_ptr(),
             *[None if X is None else X.data_ptr()
               for X in (table, src, cell, coef)],
-            int(from_zero), _stream(acc.device))
+            int(from_zero), SPARSE_FOLD_FORMS[plan["form"]], plan["tc"],
+            plan["tj"], plan["smem"], *plan["grid"], _stream(acc.device))
     _launched(rc, name)
     return acc

@@ -763,6 +763,118 @@ def test_sparse_fold_bitwise_plain(dev, dtype, form, axis, from_zero):
     assert torch.equal(_sparse_bits(runs[1]), _sparse_bits(runs[0]))
 
 
+_NAN_BITS = {torch.float32: (0x7FC00001, -0x3FFFFF),      # 0xFFC00001
+             torch.bfloat16: (0x7FC1, -0x3F)}              # 0xFFC1
+
+
+def _sparse_tile_case(dtype, form, axis, from_zero, long_nnz, seed=3):
+    """S1's tile edges: 100 segments of 1025 elements (nseg not a multiple
+    of the tile's 32 or 64 columns, one row past 32·32), entries only in
+    segments 0-31 and 96-99, so segments 32-95 are tiles with no entry
+    (float32) or untouched columns of a touched tile (bfloat16); segment 5
+    holds ``long_nnz`` entries; -0.0 and NaN bits (two payloads, both
+    signs) in untouched segments and, for the cell form, in element 1024
+    of touched ones, which no entry names.  NaN is left out where the
+    fold must rewrite every element (``from_zero``): the card's NaN
+    arithmetic gives other bits than the CPU's."""
+    rng = np.random.default_rng(seed)
+    nseg, width = 100, 1025
+    shape = (nseg, width) if axis == 0 else (width, nseg)
+    acc = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    acc = acc.to(dtype)
+    seg = acc if axis == 0 else acc.T              # a view: [segment, element]
+    seg[40, :7] = -0.0
+    seg[3, 9] = -0.0
+    if not from_zero:
+        ib = seg.view(torch.int32 if dtype == torch.float32 else torch.int16)
+        for s in (33, 70):
+            ib[s, 0], ib[s, 1000] = _NAN_BITS[dtype]
+        if form == "cell":
+            ib[:, width - 1] = _NAN_BITS[dtype][0]
+    dest = np.concatenate([rng.integers(0, 32, 3000), np.full(long_nnz, 5),
+                           rng.integers(96, 100, 500)])
+    dest = torch.from_numpy(rng.permutation(dest))
+    nnz = dest.numel()
+    val = torch.from_numpy(rng.standard_normal(nnz).astype(np.float32))
+    val = val.to(dtype)
+    val[:4] = -0.0
+    ops = {}
+    if form == "table":
+        ops["table"] = torch.from_numpy(rng.standard_normal(
+            (257, width)).astype(np.float32)).to(dtype)
+        ops["src"] = torch.from_numpy(rng.integers(0, 257, nnz))
+    else:
+        ops["cell"] = torch.from_numpy(rng.integers(0, width - 1, nnz))
+        ops["coef"] = torch.from_numpy(rng.choice(
+            [-1.0, 0.0, 1.0, 3.5], nnz).astype(np.float32)).to(dtype)
+    return acc, dest, val, ops
+
+
+_SPARSE_EDGES = [(dt, form, axis, fz, 4096)
+                 for dt in (torch.float32, torch.bfloat16)
+                 for form in ("table", "cell") for axis in (0, 1)
+                 for fz in (True, False)]
+_SPARSE_EDGES += [(dt, form, axis, fz, 65536)
+                  for dt in (torch.float32, torch.bfloat16)
+                  for form in ("table", "cell")
+                  for axis, fz in ((1, False), (0, True))]
+
+
+@pytest.mark.parametrize("dtype,form,axis,from_zero,long_nnz", _SPARSE_EDGES)
+def test_sparse_fold_tile_edges_bitwise_plain(dev, dtype, form, axis,
+                                              from_zero, long_nnz):
+    """Both forms of S1 at the tile's edges (``_sparse_tile_case``), every
+    setting with a segment of 4096 entries and the stream's two settings
+    (W: columns into itself; Y: rows from zero) with one of 65,536 (2,048
+    prefetched chunks of 32): bitwise the plain version and run to run,
+    one launch a fold."""
+    from repro_torch.kernels import sparse_fold_block
+    from repro_torch.kernels.local import _sparse_fold_torch
+    acc, dest, val, ops = _sparse_tile_case(dtype, form, axis, from_zero,
+                                            long_nnz)
+    ref = _sparse_fold_torch(acc, dest, val, axis=axis, from_zero=from_zero,
+                             **ops)
+    ops_d = {k: v.to(dev) for k, v in ops.items()}
+    runs = []
+    for _ in range(2):
+        reset_launches()
+        got = sparse_fold_block(acc.to(dev), dest.to(dev), val.to(dev),
+                                axis=axis, from_zero=from_zero, **ops_d)
+        torch.cuda.synchronize()
+        assert LAUNCHES["sparse_fold"] == 1
+        runs.append(got.cpu())
+    assert torch.equal(_sparse_bits(runs[0]), _sparse_bits(ref))
+    assert torch.equal(_sparse_bits(runs[1]), _sparse_bits(runs[0]))
+
+
+def test_sparse_fold_refuses_a_plan_that_does_not_fit(dev):
+    """rt_sparse_fold checks the launch it is handed against the call."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sketch_matmul import (SPARSE_FOLD_FORMS,
+                                                   _stream, sparse_fold_plan)
+    acc = torch.zeros(1025, 100, device=dev)
+    ptr = torch.zeros(101, dtype=torch.int32, device=dev)
+    table = torch.zeros(1, 1025, device=dev)
+    plan = sparse_fold_plan(100, 1025, 1, torch.float32)
+    lib = _build.library()
+
+    def call(form, tc, tj, smem, grid):
+        return lib.rt_sparse_fold(
+            acc.data_ptr(), 0, 100, 1025, 0, 1, 100, ptr.data_ptr(), None,
+            table.data_ptr(), None, None, None, 0, SPARSE_FOLD_FORMS[form],
+            tc, tj, smem, *grid, _stream(dev))
+
+    good = (plan["form"], plan["tc"], plan["tj"], plan["smem"], plan["grid"])
+    assert call(*good) == 0
+    torch.cuda.synchronize()
+    for bad in (("rows", 8, 32, 0, (13, 33)),
+                ("tile", 64, plan["tj"], plan["smem"], plan["grid"]),
+                ("tile", 32, plan["tj"], plan["smem"] - 4, plan["grid"]),
+                ("tile", 32, plan["tj"], plan["smem"],
+                 (plan["grid"][0], plan["grid"][1] - 1))):
+        assert call(*bad) != 0, bad
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["normal", "uniform", "rademacher",
                                   "countsketch", "rowsample"])

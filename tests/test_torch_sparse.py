@@ -30,6 +30,7 @@ from repro_torch.core.sketch import GridGroups
 from repro_torch.kernels import sparse_fold_block
 from repro_torch.kernels.local import (_sparse_fold_torch, sparse_csr,
                                        sparse_fold_operands)
+from repro_torch.kernels.sketch_matmul import sparse_fold_plan
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.plan import sparse_payload_words
 from repro_torch.stream import (SketchService, SparseRows, StreamConfig,
@@ -332,6 +333,74 @@ def test_csr_walk_equals_the_wave_form(dtype, form, axis, from_zero):
                             cell=cell, coef=coef, axis=axis,
                             from_zero=from_zero)
     assert_bitwise(got, wave)
+
+
+def _plan_cover(plan, nseg: int, width: int):
+    """How often S1's launch of ``plan`` visits each segment and each
+    element, as the kernel assigns them (``csrc/sparse_kernels.cu``).  The
+    rows form: warp w of block (bx, by) takes segment bx·tc + w, lane x its
+    element by·tj + x.  The tile form: block (bx, by) stages columns
+    [bx·tc, bx·tc + tc) by rows [by·tj, by·tj + tj), each cut at its end;
+    warp w walks columns w, w + 8, ... and lane x holds rows x + 32·i
+    (i < 4).  A segment's index depends on (bx, warp, step) alone and an
+    element's on (by, lane, slot) alone, so two exact 1-D covers make an
+    exact 2-D one."""
+    tc, tj, (gx, gy) = plan["tc"], plan["tj"], plan["grid"]
+    segs, elems = np.zeros(nseg, np.int64), np.zeros(width, np.int64)
+    warps, lanes = np.arange(8), np.arange(32)
+    if plan["form"] == "rows":
+        s = (np.arange(gx)[:, None] * 8 + warps).ravel()
+        e = (np.arange(gy)[:, None] * 32 + lanes).ravel()
+        np.add.at(segs, s[s < nseg], 1)
+        np.add.at(elems, e[e < width], 1)
+        return segs, elems
+    s0 = np.arange(gx)[:, None, None] * tc
+    c = warps[:, None] + 8 * np.arange(-(-tc // 8))          # (warp, step)
+    ok = c < np.minimum(tc, nseg - s0)
+    np.add.at(segs, np.broadcast_to(s0 + c, ok.shape)[ok], 1)
+    j0 = np.arange(gy)[:, None, None] * tj
+    r = lanes[:, None] + 32 * np.arange(4)                   # (lane, slot)
+    ok = r < np.minimum(tj, width - j0)
+    np.add.at(elems, np.broadcast_to(j0 + r, ok.shape)[ok], 1)
+    return segs, elems
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("nseg,width", [(32768, 1025), (1, 1), (33, 1025),
+                                        (4096, 512), (3, 65535 * 32)])
+def test_sparse_fold_plan_covers_each_element_once(nseg, width, axis,
+                                                   dtype):
+    """S1's launch geometry, which only the card runs: every (segment,
+    element) is visited exactly once, the grid keeps within 65535 blocks
+    along y, the tile form's shared memory fits a block (227 KB) and a row
+    of its tile is 128 bytes (32 float32, 64 bfloat16)."""
+    tdt = DTYPES[dtype][0]
+    plan = sparse_fold_plan(nseg, width, axis, tdt)
+    segs, elems = _plan_cover(plan, nseg, width)
+    assert np.all(segs == 1) and np.all(elems == 1)
+    assert plan["grid"][1] <= 65535 and plan["smem"] <= 227 * 1024
+    if axis == 0:
+        assert (plan["form"], plan["tc"], plan["tj"], plan["smem"]) == (
+            "rows", 8, 32, 0)
+    else:
+        assert plan["form"] == "tile"
+        assert plan["tc"] * tdt.itemsize == 128
+        assert 1 <= plan["tj"] <= 128
+        assert plan["smem"] == 4 * (plan["tj"] * 33 + plan["tc"] + 1)
+        assert plan["grid"][1] == -(-width // 128)   # tiles of equal height
+
+
+def test_sparse_fold_plan_refusals():
+    plan = sparse_fold_plan(2, 65535 * 32, 0, torch.float32)
+    assert plan["grid"] == (1, 65535)
+    for args, what in (((2, 65535 * 32 + 1, 0, torch.float32), "65535"),
+                       ((2, 65535 * 32 + 1, 1, torch.bfloat16), "65535"),
+                       ((0, 4, 1, torch.float32), "outside"),
+                       ((4, 4, 2, torch.float32), "axis"),
+                       ((4, 4, 0, torch.float64), "dtype")):
+        with pytest.raises(ValueError, match=what):
+            sparse_fold_plan(*args)
 
 
 def test_sparse_csr_is_stable():
