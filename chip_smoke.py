@@ -48,16 +48,24 @@ of n1 = 16384, n2 = 8192, r = 128, l = 257, float32):
                   odd element;
   7. lanes      — 8 streams: one ``update_ragged`` round (NaN pad rows) on
                   one service, the same slabs one by one through ``update``
-                  on another; Y and W must be equal bitwise;
+                  on another; then one more round through
+                  ``make_ingest_queue(bucket_edges="auto")`` on the edges
+                  ``choose_bucket_edges`` prices for its heights; Y and W
+                  must be equal bitwise;
   8. serving    — ``repro_torch.launch.serve.run_sketch`` (the launcher's
                   entry point): 128 streams, 4 updates each, heights
-                  uniform in [1, 256], window 64, depth 256, pow2 buckets;
+                  uniform in [1, 256], window 64, depth 256, the buckets
+                  the planner prices for those heights (``expected_ks``;
+                  its edges, pad waste and updates/s printed);
                   launches counted over this run alone must be > 0 for
                   fold_rows, sketch_fwd and sketch_t, and over its timed
                   window the queue must have needed no retry and
                   quarantined nothing, with one fold launch per lane batch
-                  and one sketch_fwd and one sketch_t per update; then
-                  fold_rows is timed at one bucket of it (64 lanes, kb =
+                  and one sketch_fwd and one sketch_t per update; then one
+                  bucket's host cost (staging a one-row lane and one
+                  ``fold_rows_block`` call: the H100 entry's
+                  ``dispatch_overhead``) is timed, and
+                  fold_rows at one bucket of it (64 lanes, kb =
                   256): the wrapper, its host stages, the kernel on the
                   device (warm, and with the L2 flushed), beside its plain
                   version, one ``torch._foreach_add_`` over the live
@@ -254,11 +262,34 @@ then sparse streaming on the one card (COO row slabs folded by S1):
                   build, S1; each ended by a synchronize), the densified
                   ``update_rows``, and S1's byte bound.
 
+then the cost model (``repro_torch.plan``) against those runs:
+
+ records        — one record per measured call, its ``plan.model`` cost
+                  beside its seconds: phase 3's one-shot ``sketch_block``
+                  (``local_cost``) and ``ops.nystrom_fused``
+                  (``nystrom_local_cost``), phase 4's eight slabs
+                  (``stream_update_cost``), phases 12-15's runs at the
+                  slowest rank's wall (``alg1_cost``,
+                  ``alg1_communicating_cost``, ``alg2_cost``,
+                  ``alg2_fused_cost``, ``stream_update_cost`` a slab), phase
+                  16's ``update_rows_sparse`` (``sparse_stream_update_cost``):
+                  (a) a record's words are the words its phase counted, (b)
+                  its local floor on the H100 entry is at most its seconds,
+                  (c) ``save_sweep`` / ``load_sweep`` round-trip them to
+                  ``build/repro_torch/cost_sweep.json``, (d)
+                  ``calibrate_machine_model`` fits a finite, positive alpha
+                  and byte_bw (printed beside the committed entry's, with
+                  each record's predicted / measured seconds; nothing gates
+                  on the ratio), (e) ``probe_machine()`` is the H100 entry
+                  and ``device_kind_tag()`` the nvidia-smi name with
+                  underscores.
+
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and the exit code is non-zero; without a CUDA card it exits 1 and prints no
 result.
 """
+import dataclasses
 import gc
 import json
 import math
@@ -326,6 +357,7 @@ SP_EDGE_NNZ = (4096, 65536)              # (g): the long segment's entries
 SP_STAGE_REPS = 20
 SPARSE_SOURCE = "src/repro_torch/kernels/csrc/sparse_kernels.cu"
 RANKS_TIMEOUT_S = 600
+SWEEP_PATH = ROOT / "build" / "repro_torch" / "cost_sweep.json"
 SERVE_ARGS = ["--workload", "sketch", "--streams", "128", "--updates", "4",
               "--n1", str(S_N1), "--n2", str(S_N2), "--r", str(S_R),
               "--max-rows", str(S_KMAX), "--window", "64", "--depth", "256"]
@@ -737,8 +769,10 @@ def phase_fold(dev, fold_rows_block, plain_fold, LAUNCHES, capacity):
     return worst
 
 
-def phase_lanes(dev, SketchService, StreamConfig):
-    """Phase 7: one ragged round == the same slabs applied one by one."""
+def phase_lanes(dev, SketchService, StreamConfig, make_ingest_queue):
+    """Phase 7: one ragged round == the same slabs applied one by one; then
+    a round through the queue on the edges ``bucket_edges="auto"``
+    prices."""
     rng = np.random.default_rng(7)
     cfgs = [StreamConfig(S_N1, S_N2, r=S_R, seed=700 + i) for i in range(8)]
     svc, solo = SketchService(), SketchService()
@@ -763,6 +797,36 @@ def phase_lanes(dev, SketchService, StreamConfig):
     print(f"[lanes] 8 streams ({S_N1}x{S_N2}, r={S_R}, l={cfgs[0].sketch_l}) "
           f"heights {[H.shape[0] for _, H, _ in items]}: ragged round == "
           f"solo updates, Y and W bitwise")
+    # one more round through the queue, on the edges "auto" prices for
+    # these heights on this card's machine entry
+    items = []
+    for i in range(8):
+        k = int(rng.integers(1, S_KMAX + 1))
+        items.append((i, rng.standard_normal((k, S_N2), dtype=np.float32),
+                      int(rng.integers(0, S_N1 - k + 1))))
+    q = make_ingest_queue(svc, expected_ks=[H.shape[0] for _, H, _ in items])
+    check(q.bucket_edges is not None, '"auto" gave no bucket edges')
+    batches = svc.stats()["lane_batches"]
+    for i, H, row0 in items:
+        q.submit(sids[i], H, row0)
+    q.flush(raise_errors=True)
+    st = q.stats()
+    q.shutdown()
+    for i, H, row0 in items:
+        solo.update(rids[i], H, row0=row0)
+    torch.cuda.synchronize()
+    check(st["errors"] == 0 and st["retries"] == 0
+          and st["quarantined"] == 0, f"the auto-edge round: {st}")
+    for sid, rid in zip(sids, rids):
+        for got, want in ((svc.sketch(sid), solo.sketch(rid)),
+                          (svc.corange(sid), solo.corange(rid))):
+            check(torch.equal(_bits(got), _bits(want)),
+                  "a lane on the auto edges differs from its solo update")
+    print(f"[lanes] heights {[H.shape[0] for _, H, _ in items]} through "
+          f"make_ingest_queue(bucket_edges=\"auto\"): edges "
+          f"{q.bucket_edges}, {svc.stats()['lane_batches'] - batches} lane "
+          f"batches, pad waste {st['pad_waste']:.4f}; Y and W bitwise the "
+          f"solo updates")
 
 
 def phase_serving(serve, reset_launches, LAUNCHES):
@@ -779,9 +843,16 @@ def phase_serving(serve, reset_launches, LAUNCHES):
           f"{st['pad_waste']:.4f}; {st['rounds']} rounds; launches over the "
           f"run (warm-up included): {counts}")
     timed = st["launches"]
+    print(f"[serving] bucket edges {list(st['bucket_edges'])} "
+          f"(make_ingest_queue(bucket_edges=\"auto\", expected_ks=the "
+          f"run's heights)): pad waste {st['pad_waste']:.4f}, "
+          f"{st['updates_per_s']:.1f} updates/s, {st['lane_batches']} lane "
+          f"batches")
     print(f"[serving] timed window: {timed}, {st['lane_batches']} lane "
           f"batches, {st['retries']} retries, {st['quarantined']} "
           f"quarantined")
+    check(st["bucket_edges"] is not None,
+          "serving: the queue took no planner-priced bucket edges")
     check(st["errors"] == 0 and st["applied"] == 512,
           f"serving: errors {st['errors']}, applied {st['applied']}")
     # the queue's retry and per-lane paths would hide a failed fold behind
@@ -799,6 +870,29 @@ def phase_serving(serve, reset_launches, LAUNCHES):
         check(counts[name] > 0, f"kernel {name} never launched on the "
                                 f"serving path")
     return counts, st
+
+
+def dispatch_timing(dev, SketchService, StreamConfig, fold_rows_block):
+    """The host cost of one bucket of the ragged ingest, the H100 entry's
+    ``dispatch_overhead``: staging a one-lane, one-row bucket at the
+    serving shape (``SketchService._stage``: pinned buffer, copy, one
+    host-to-device copy) and one ``fold_rows_block`` call on it; host
+    clock (``time.perf_counter_ns``) around the two, the card idle
+    before each, median of 200 in microseconds."""
+    svc = SketchService()
+    cfg = StreamConfig(S_N1, S_N2, r=S_R, seed=800)
+    Y = svc.sketch(svc.open(cfg))
+    H = torch.randn(1, S_N2)
+    dY = torch.zeros(1, 1, S_R, device=dev)
+    times = []
+    for _ in range(200):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        svc._stage([(None, H, 0, 1)], 1, cfg, 0.0)
+        fold_rows_block([Y], dY, [S_N1], [1])
+        times.append(time.perf_counter_ns() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) / 1e3
 
 
 def fold_timing(dev, fold_rows_block, plain_fold, sm):
@@ -1540,7 +1634,7 @@ def _alg2_rank(rank, world, sass, mhz):
     from repro_torch.core.sketch import _omega_tile_torch
     from repro_torch.kernels import local
     from repro_torch.kernels.sketch_matmul import (
-        LAUNCHES, reset_launches, sketch_t_scratch_bytes, sketch_t_splits)
+        LAUNCHES, reset_launches, sketch_t_plan)
     from repro_torch.parallel import collectives as col
 
     dev = torch.device("cuda", 0)
@@ -1668,16 +1762,13 @@ def _alg2_rank(rank, world, sass, mhz):
         check(err <= f32_tol(K), f"rank {rank}: sketch_t ({variant}) "
                                  f"rel_fro {err:.3e} vs plain")
         bms, by = bound_ms(2.0 * R * K * c, 4.0 * (K * c + R * c))
-        splits = sketch_t_splits(R, c, K)
         calls["sketch_t"][variant] = {
             "shape": f"{K}x{c} -> {R}x{c} at row0 {row0}",
             "ms": time_ms(kernel), "plain_ms": time_ms(plain_fn, reps=3),
             "library_ms": time_ms(lambda: torch.matmul(om.T, Bb)),
             "bound_ms": bms, "bound_by": by,
             "draw_bound_ms": omega_ops_bound_ms(sass, K * R, mhz)[0],
-            "splits": splits, "scratch_bytes": sketch_t_scratch_bytes(R, K),
-            "work_bytes": 4 * splits * R * c if splits > 1 else 0,
-            "max_abs_err": abs_err, "rel_fro": err}
+            **sketch_t_plan(R, c, K), "max_abs_err": abs_err, "rel_fro": err}
         dist.barrier()
         if rank == 0:
             calls["sketch_t"][variant]["device_ms"] = kernel_parts(
@@ -1789,7 +1880,7 @@ def _two_grid_rank(rank, world, sass, mhz):
     from repro_torch.core.sketch import _omega_tile_torch
     from repro_torch.kernels import local
     from repro_torch.kernels.sketch_matmul import (
-        LAUNCHES, reset_launches, sketch_t_scratch_bytes, sketch_t_splits)
+        LAUNCHES, reset_launches, sketch_t_plan)
     from repro_torch.parallel import collectives as col
     from repro_torch.plan.model import fused_redistribute_words
 
@@ -2029,17 +2120,14 @@ def _two_grid_rank(rank, world, sass, mhz):
         check(err <= f32_tol(K), f"rank {rank}: sketch_t ({call}) rel_fro "
                                  f"{err:.3e} vs plain")
         bms, by = bound_ms(2.0 * cols * K * c, 4.0 * (K * c + cols * c))
-        splits = sketch_t_splits(cols, c, K)
         calls["sketch_t"][call] = {
             "shape": f"{K}x{c} -> {cols}x{c} at ({row0},{col0})",
             "ms": time_ms(kernel), "plain_ms": time_ms(plain_fn, reps=3),
             "library_ms": time_ms(lambda: torch.matmul(om.T, Bb)),
             "bound_ms": bms, "bound_by": by,
             "draw_bound_ms": omega_ops_bound_ms(sass, K * cols, mhz)[0],
-            "splits": splits,
-            "scratch_bytes": sketch_t_scratch_bytes(cols, K),
-            "work_bytes": 4 * splits * cols * c if splits > 1 else 0,
-            "max_abs_err": abs_err, "rel_fro": err}
+            **sketch_t_plan(cols, c, K), "max_abs_err": abs_err,
+            "rel_fro": err}
         dist.barrier()
         if rank == 0:
             calls["sketch_t"][call]["device_ms"] = kernel_parts(
@@ -2169,6 +2257,8 @@ def _stream_dist_rank(rank, world, ckdir):
         walls.setdefault(name, []).append(wall)
         return out, col.comm_words()
 
+    slab_words = {}
+
     def stream(grid):
         st = ShardedStreamingSketch(cfg, groups[grid])
         words = []
@@ -2176,6 +2266,7 @@ def _stream_dist_rank(rank, world, ckdir):
             r0 = s * SLAB
             words.append(drive(f"slab {grid}", lambda: st.update_rows(
                 r0, A[r0:r0 + SLAB]))[1])
+        slab_words[f"slab {grid}"] = words
         return st, words
 
     # (a) regime 1: the slabs out of order on (4,1,1)
@@ -2412,7 +2503,7 @@ def _stream_dist_rank(rank, world, ckdir):
     say(f"launches over the phase's runs: {launches}")
     dist.barrier()
     return {"lines": lines, "launches": launches, "calls": calls,
-            "walls": walls}
+            "walls": walls, "slab_words": slab_words}
 
 
 def phase_stream_dist():
@@ -2438,6 +2529,165 @@ def phase_stream_dist():
         check(all(x > 0 for x in n), f"{name} not launched on every rank: "
                                      f"{n}")
     return results
+
+
+def cost_record(phase: int, call: str, cost, seconds: float,
+                counted_words: float = 0.0) -> dict:
+    """One measured call beside its analytic cost (``plan.model``): the
+    record ``calibrate_machine_model`` reads, with the words the phase
+    counted (``counted_words``) for check (a)."""
+    return {"phase": phase, "call": call, "words": cost.words,
+            "messages": cost.messages, "flops": cost.flops,
+            "hbm_words": cost.hbm_words, "itemsize": 4, "seconds": seconds,
+            "counted_words": counted_words}
+
+
+def times(cost, n: int):
+    """``n`` calls of one cost, back to back."""
+    return dataclasses.replace(cost, words=n * cost.words,
+                               messages=n * cost.messages,
+                               flops=n * cost.flops,
+                               hbm_words=n * cost.hbm_words)
+
+
+def slowest(results, name: str, field: str = "wall_s"):
+    """The largest of a run's ``field`` over the ranks (for walls: the
+    slowest rank's, each between a barrier and a synchronize)."""
+    return max(res["runs"][name][field] for res in results)
+
+
+def alg1_records(results) -> list:
+    """Phase 12's runs beside ``alg1_cost`` (``alg1_communicating_cost``
+    for the baseline)."""
+    from repro_torch.plan import alg1_communicating_cost, alg1_cost
+    out = []
+    for name, run in results[0]["runs"].items():
+        fn = (alg1_communicating_cost if name == "communicating"
+              else alg1_cost)
+        out.append(cost_record(
+            12, f"alg1 {name} on {tuple(run['grid'])}",
+            fn(N, N, R, tuple(run["grid"])), slowest(results, name),
+            slowest(results, name, "words")))
+    return out
+
+
+def alg2_records(results, world: int) -> list:
+    """Phase 13's runs beside ``alg2_cost`` (No-Redist, p == q) or
+    ``alg2_fused_cost`` (Redist: the all-to-all priced at what moves)."""
+    from repro_torch.plan import alg2_cost, alg2_fused_cost
+    p = (world, 1, 1)
+    out = []
+    for name, run in results[0]["runs"].items():
+        q = p if run["variant"] == "no_redist" else (1, 1, world)
+        fn = alg2_cost if q == p else alg2_fused_cost
+        out.append(cost_record(13, f"alg2 {name} {p}->{q}", fn(N, R, p, q),
+                               slowest(results, name),
+                               slowest(results, name, "words")))
+    return out
+
+
+def two_grid_records(results) -> list:
+    """Phase 14's runs of both stages beside ``alg2_fused_cost`` (the
+    second stage alone has no cost function and makes no record)."""
+    from repro_torch.plan import alg2_fused_cost
+    out = []
+    for name, run in results[0]["runs"].items():
+        if run["launches"]["sketch_fwd"] == 0:
+            continue
+        p, q, r = tuple(run["p"]), tuple(run["q"]), run["r"]
+        words = max(sum(res["runs"][name]["words"].values())
+                    for res in results)
+        out.append(cost_record(14, f"two-grid {name} (p {p}, q {q}, r {r})",
+                               alg2_fused_cost(N, r, p, q),
+                               slowest(results, name), words))
+    return out
+
+
+def stream_dist_records(results, l: int) -> list:
+    """Phase 15's slabs beside ``stream_update_cost``, one record a slab
+    (the slowest rank's wall)."""
+    from repro_torch.plan import stream_update_cost
+    out = []
+    for name, words in results[0]["slab_words"].items():
+        grid = tuple(int(x) for x in name[len("slab ("):-1].split(","))
+        cost = stream_update_cost(SLAB, N, R, l, grid=grid)
+        for i, s in enumerate(SD_ORDER):
+            out.append(cost_record(
+                15, f"update_rows slab {s} on {grid}", cost,
+                max(res["walls"][name][i] for res in results),
+                max(res["slab_words"][name][i] for res in results)))
+    return out
+
+
+def phase_records(records: list, card: str):
+    """Checks on the calibration records: (a) a record's words are the
+    words its phase counted; (b) its local floor on the H100 entry,
+    max(flops / flop_rate, hbm_words·4 / hbm_bw), is at most its measured
+    seconds; (c) ``save_sweep`` / ``load_sweep`` round-trip them under
+    ``build/repro_torch/``; (d) ``calibrate_machine_model`` fits a finite,
+    positive alpha and byte_bw (printed beside the committed entry's, and
+    each record's predicted / measured seconds on both); (e)
+    ``probe_machine()`` is the H100 entry and ``device_kind_tag()`` the
+    card's name from nvidia-smi with underscores.  Each record gets the
+    card's ``device_kind`` and power limit."""
+    from repro_torch.plan import (H100_GLOO, PRESETS,
+                                  calibrate_machine_model, device_kind_tag,
+                                  load_sweep, probe_machine, save_sweep)
+    h100 = PRESETS[H100_GLOO]
+    name, power = (x.strip() for x in card.split(",", 1))
+    tag = device_kind_tag()
+    check(probe_machine() == h100, f"(e) probe_machine() is "
+                                   f"{probe_machine()}, not {H100_GLOO}")
+    check(tag == name.replace(" ", "_"),
+          f"(e) device_kind_tag() {tag!r} against nvidia-smi's {name!r}")
+    props = torch.cuda.get_device_properties(0)
+    smem = getattr(props, "shared_memory_per_multiprocessor", None)
+    print(f"[records] (e) probe_machine() is {H100_GLOO}; "
+          f"device_kind_tag() {tag}; the card: total_memory "
+          f"{props.total_memory} (entry {h100.hbm_bytes}), shared memory "
+          f"per SM {smem} (entry {h100.smem_bytes})")
+    for rec in records:
+        rec.update(device_kind=tag, power_limit=power)
+        check(rec["words"] == rec["counted_words"],            # (a)
+              f"(a) {rec['call']}: {rec['words']} words priced, "
+              f"{rec['counted_words']} counted")
+        floor = max(rec["flops"] / h100.flop_rate,
+                    rec["hbm_words"] * rec["itemsize"] / h100.hbm_bw)
+        check(floor <= rec["seconds"],                         # (b)
+              f"(b) {rec['call']}: local floor {floor:.6f} s above the "
+              f"measured {rec['seconds']:.6f} s")
+    SWEEP_PATH.parent.mkdir(parents=True, exist_ok=True)      # (c)
+    save_sweep(records, SWEEP_PATH)
+    check(load_sweep(SWEEP_PATH) == records, "(c) the sweep's round trip")
+    fit = calibrate_machine_model(records, base=h100)         # (d)
+    check(all(math.isfinite(x) and x > 0 for x in (fit.alpha, fit.byte_bw)),
+          f"(d) the fit: alpha {fit.alpha}, byte_bw {fit.byte_bw}")
+    informative = sum(r["words"] > 0 or r["messages"] > 0 for r in records)
+    kept = [t for t, v, b in (("alpha", fit.alpha, h100.alpha),
+                              ("byte_bw", fit.byte_bw, h100.byte_bw))
+            if v == b]
+    note = (f"; the fit of {', '.join(kept)} was not positive: the "
+            f"committed value kept" if kept else "")
+    print(f"[records] (a)-(c): {len(records)} records ({informative} with "
+          f"words or messages) written to {SWEEP_PATH.relative_to(ROOT)}; "
+          f"words equal the counted words, local floors below the walls")
+    print(f"[records] (d) calibrate_machine_model: alpha {fit.alpha!r} s, "
+          f"byte_bw {fit.byte_bw!r} B/s ({2 ** 20 / fit.byte_bw * 1e3:.3f} "
+          f"ms a MiB){note}; the committed {H100_GLOO}: alpha "
+          f"{h100.alpha!r} s, byte_bw {h100.byte_bw!r} B/s")
+    for rec in records:
+        print(f"[records]   phase {rec['phase']} {rec['call']}: measured "
+              f"{rec['seconds']:.6f} s; predicted / measured "
+              f"{_seconds(rec, h100) / rec['seconds']:.3f} (committed), "
+              f"{_seconds(rec, fit) / rec['seconds']:.3f} (this fit)")
+    return fit
+
+
+def _seconds(rec: dict, machine) -> float:
+    from repro_torch.plan import Cost
+    cost = Cost(words=rec["words"], flops=rec["flops"],
+                messages=rec["messages"], hbm_words=rec["hbm_words"])
+    return cost.seconds(machine, rec["itemsize"])
 
 
 def sparse_coo(rng, k: int, n2: int, distinct: int, repeats: int):
@@ -2883,6 +3133,11 @@ def main() -> int:
                                         StreamingSketch, reconstruction_error)
         from repro_torch.launch import serve
         from repro_torch.parallel import grad_compress
+        from repro_torch.plan import (H100_GLOO, PRESETS, local_cost,
+                                      nystrom_local_cost,
+                                      sparse_stream_update_cost,
+                                      stream_update_cost)
+        from repro_torch.serve import make_ingest_queue
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})",
               file=sys.stderr)
@@ -2904,6 +3159,8 @@ def main() -> int:
     A = make_matrix(dev)
     cfg = StreamConfig(N, N, r=R, seed=SEED)
     L = cfg.sketch_l
+    machine = PRESETS[H100_GLOO]
+    records = []        # measured calls beside their plan.model costs
     torch.cuda.synchronize()
 
     # -- 1. draws, 2. kernels vs plain ---------------------------------------
@@ -2941,6 +3198,8 @@ def main() -> int:
           f"Nystrom error {nys_err}")
     fwd_err = max_abs(B, B_ref)
     del om, B_ref, C_ref
+    records.append(cost_record(3, "ops.nystrom_fused",
+                               nystrom_local_cost(N, R), t_oneshot))
 
     # -- 4. streaming main path ----------------------------------------------
     t0 = time.perf_counter()
@@ -2949,6 +3208,9 @@ def main() -> int:
         st.update_rows(r0, A[r0:r0 + SLAB])
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
+    records.append(cost_record(
+        4, f"StreamingSketch.update_rows x {N // SLAB}",
+        times(stream_update_cost(SLAB, N, R, L), N // SLAB), t_stream))
     low = st.reconstruct(rank=64)
     Yn, Cn = st.nystrom()
     torch.cuda.synchronize()
@@ -3029,6 +3291,8 @@ def main() -> int:
                  fwd_bound, fwd_lib))
     sketch_fwd_calls = {
         "one_shot": (fwd_ms, fwd_plain, fwd_lib, fwd_bound, fwd_parts)}
+    records.append(cost_record(3, "sketch_block (the one-shot B)",
+                               local_cost(N, N, R), fwd_ms * 1e-3))
     print(f"[timing] sketch_fwd at the one-shot ({N}x{N} -> {N}x{R}): "
           f"{fwd_ms:.3f} ms (plain {fwd_plain:.3f}, library {fwd_lib:.3f}, "
           f"bound {fwd_bound[0]:.3f} ms by {fwd_bound[1]}); on the device "
@@ -3076,7 +3340,7 @@ def main() -> int:
     # -- 6. fold, 7. lanes vs solo, 8. serving -------------------------------
     fold_err = phase_fold(dev, local.fold_rows_block, local._fold_rows_torch,
                           LAUNCHES, sm.FOLD_LANE_CAPACITY)
-    phase_lanes(dev, SketchService, StreamConfig)
+    phase_lanes(dev, SketchService, StreamConfig, make_ingest_queue)
     serve_counts, serve_st = phase_serving(serve, reset_launches, LAUNCHES)
     (f_ms, f_kernel, f_plain, f_lib, (f_bound, f_by), f_split, f_plan,
      f_loop) = fold_timing(dev, local.fold_rows_block,
@@ -3099,6 +3363,12 @@ def main() -> int:
                   f"{f_kernel[1]:.4f} ms with the L2 flushed by a read)")
           + f", bound {f_bound:.4f} ms; the wrapper's host stages "
           + ", ".join(f"{k} {us:.1f} us" for k, us in f_split.items()))
+    dispatch_us = dispatch_timing(dev, SketchService, StreamConfig,
+                                  local.fold_rows_block)
+    print(f"[timing] one bucket's host cost (stage a one-row lane, one "
+          f"fold_rows_block call; median of 200): {dispatch_us:.1f} us; "
+          f"the H100 entry's dispatch_overhead "
+          f"{machine.dispatch_overhead * 1e6:.1f} us")
     diag, lane_fwd = serving_diagnosis(dev, local, _omega_tile_torch)
     for (name, k), ms in diag.items():
         print(f"[diagnosis] serving shape: {name} one lane of k={k} "
@@ -3156,6 +3426,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     sparse = phase_sparse(dev, LAUNCHES, reset_launches)
     print(f"[phases] 16 done at {time.perf_counter() - t_start:.1f} s")
+    ex = sparse["extra"]
+    records += (alg1_records(alg1) + alg2_records(alg2, ALG2_WORLD)
+                + two_grid_records(two_grid) + stream_dist_records(
+                    stream_dist, L)
+                + [cost_record(16, "update_rows_sparse (normal)",
+                               sparse_stream_update_cost(
+                                   SLAB, N, R, L, ex["nnz"], kind="normal"),
+                               ex["update_rows_sparse_wall_ms"] * 1e-3)])
+    phase_records(records, card)
 
     total = [sum(gemm_times[c][i] for c in "abc") for i in range(3)]
     bound3 = sum(gemm_times[c][3][0] for c in "abc")

@@ -186,10 +186,10 @@ def sketch_fwd_splits(n: int, K: int) -> int:
     ``SKETCH_FWD_MAX_SPLITS`` (16 on a serving lane, K = 8192).
 
     Its price, since m is not looked at: a split call needs an f32 work
-    buffer of ``splits·m·n·4`` bytes (256 MiB at m = 32768, n = 128,
-    K = 32768) and writes and reads it once more, up to about 16% of the
-    FMA time at 512-row splits, also at a tall m whose tiles would fill
-    the card without a split."""
+    buffer of ``splits·m·n·4`` bytes (1 GiB at m = 32768, n = 128,
+    K = 32768: 64 splits) and writes and reads it once more, up to about
+    16% of the FMA time at 512-row splits, also at a tall m whose tiles
+    would fill the card without a split."""
     if sketch_fwd_narrow(n) or n > SKETCH_FWD_TILE:
         return 1
     return max(1, min(K // SKETCH_FWD_MIN_K_SPLIT, SKETCH_FWD_MAX_SPLITS))
@@ -301,6 +301,16 @@ def sketch_t_scratch_bytes(m: int, K: int) -> int:
     return K * (-(-m // 4) * 4) * 4
 
 
+def sketch_t_plan(m: int, n: int, K: int) -> dict:
+    """What one ``sketch_t`` call of B (K, n) -> (m, n) allocates:
+    ``splits`` (:func:`sketch_t_splits`) and the bytes of its Omega
+    scratch and of its f32 work buffer (``splits·m·n·4`` when split)."""
+    splits = sketch_t_splits(m, n, K)
+    return {"splits": splits,
+            "scratch_bytes": sketch_t_scratch_bytes(m, K),
+            "work_bytes": splits * m * n * 4 if splits > 1 else 0}
+
+
 def sketch_t_cuda(B: torch.Tensor, key0: int, key1: int, cols: int,
                   row0: int = 0, col0: int = 0, kind: str = "normal",
                   salt: int = 0, scale=None,
@@ -316,9 +326,9 @@ def sketch_t_cuda(B: torch.Tensor, key0: int, key1: int, cols: int,
     three with a split: the Omega slab is drawn once into a scratch of
     :func:`sketch_t_scratch_bytes`, the product runs over it (split over
     K by :func:`sketch_t_splits` into an f32 work buffer), and a split's
-    partial sums are added in split order.  Scratch and work are
-    allocated here and released on return; the count in
-    ``LAUNCHES["sketch_t"]`` is one a call.
+    partial sums are added in split order (:func:`sketch_t_plan`).
+    Scratch and work are allocated here and released on return; the count
+    in ``LAUNCHES["sketch_t"]`` is one a call.
     """
     name = "sketch_t"
     _check_operand(B, name)
@@ -333,9 +343,10 @@ def sketch_t_cuda(B: torch.Tensor, key0: int, key1: int, cols: int,
     out = _output(acc, None, (m, n), out_dtype, B.device, name)
     if m == 0 or n == 0:
         return out
-    splits = sketch_t_splits(m, n, K)
-    scratch = torch.empty(sketch_t_scratch_bytes(m, K) // 4,
-                          dtype=torch.float32, device=B.device)
+    plan = sketch_t_plan(m, n, K)
+    splits = plan["splits"]
+    scratch = torch.empty(plan["scratch_bytes"] // 4, dtype=torch.float32,
+                          device=B.device)
     work = (torch.empty((splits, m, n), dtype=torch.float32, device=B.device)
             if splits > 1 else None)
     lib = _build.library()

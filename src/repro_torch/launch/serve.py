@@ -26,13 +26,15 @@ def run_sketch(args):
 
     Payloads are drawn (numpy, seed 0) before the clock starts, and the
     clock stops after the queue has flushed and the card is idle, so
-    updates/s is the serving stack's rate, not numpy's.  One warm-up round
+    updates/s is the serving stack's rate, not numpy's.  The lane heights
+    are drawn first and passed as ``expected_ks``, so the queue buckets
+    on the planner's edges (``choose_bucket_edges``).  One warm-up round
     on throwaway streams, one lane per bucket height the traffic can
     produce, builds the kernels and warms the allocators first.  The timed
     window is marked ``serve.timed_window`` for torch.profiler.  Returns
-    the queue's ``stats()`` plus ``seconds``, ``updates_per_s``, and over
-    the timed window the kernels' ``launches`` and the service's
-    ``lane_batches`` (one fold launch each).
+    the queue's ``stats()`` plus ``seconds``, ``updates_per_s``, the
+    ``bucket_edges``, and over the timed window the kernels' ``launches``
+    and the service's ``lane_batches`` (one fold launch each).
     """
     import numpy as np
     import torch
@@ -49,17 +51,20 @@ def run_sketch(args):
             for s in range(args.streams)]
     ks = [int(rng.integers(1, args.max_rows + 1))
           for _ in range(args.streams * args.updates)]
-    q = make_ingest_queue(svc, depth=args.depth, window=args.window)
+    q = make_ingest_queue(svc, depth=args.depth, window=args.window,
+                          expected_ks=ks)
     tops = sorted({snap_bucket(k, q.bucket_edges) for k in ks})
     tmp = [svc.open(StreamConfig(seed=1_000_000 + i, **shape))
            for i in range(len(tops))]
     svc.update_ragged([(t, np.zeros((kb, args.n2), np.float32), 0)
-                       for t, kb in zip(tmp, tops)])
+                       for t, kb in zip(tmp, tops)],
+                      bucket_edges=q.bucket_edges)
     svc.sync()
     for t in tmp:
         svc.close(t)
-    print(f"[serve:sketch] {svc.device}: warmed one lane per bucket "
-          f"{tops}")
+    print(f"[serve:sketch] {svc.device}: bucket edges {q.bucket_edges} "
+          f"(choose_bucket_edges over the {len(ks)} lane heights); warmed "
+          f"one lane per bucket {tops}")
     it = iter(ks)
     rounds = []
     for _ in range(args.updates):
@@ -97,7 +102,7 @@ def run_sketch(args):
           f"batches")
     q.shutdown()
     st.update(seconds=dt, updates_per_s=n / dt, launches=launches,
-              lane_batches=batches)
+              lane_batches=batches, bucket_edges=q.bucket_edges)
     return st
 
 

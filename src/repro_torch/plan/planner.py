@@ -108,8 +108,9 @@ def plan_train_compression(params_shapes, rank: int, P: Optional[int] = None,
     (default: the process group's world size, 1 without one)."""
     if objective == "seconds":
         raise NotImplementedError(
-            "objective='seconds' needs a measured H100 machine model "
-            "(ROADMAP.md Queue 1, item 7); use objective='words'")
+            "objective='seconds' needs the planner's seconds objective, "
+            "not ported yet (ROADMAP.md Queue 1, item 7b); use "
+            "objective='words'")
     if objective != "words":
         raise ValueError(f"unknown objective {objective!r} (want words)")
     if P is None:

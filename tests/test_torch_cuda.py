@@ -940,3 +940,55 @@ def test_service_sparse_lane_vs_solo_on_the_card(dev, kind):
         for other in (one._streams[ones[i]], solo):
             assert torch.equal(_sparse_bits(lane.Y), _sparse_bits(other.Y))
             assert torch.equal(_sparse_bits(lane.W), _sparse_bits(other.W))
+
+
+def test_probe_machine_on_the_card(dev):
+    """The card's machine entry and kind tag: an H100 gets the H100 entry
+    (any other card must be refused, not mapped onto it)."""
+    from repro_torch.plan import (H100_GLOO, PRESETS, device_kind_tag,
+                                  probe_machine)
+    name = torch.cuda.get_device_name(0)
+    assert device_kind_tag() == device_kind_tag(dev) == name.replace(" ",
+                                                                     "_")
+    if "H100" in name:
+        assert probe_machine() is PRESETS[H100_GLOO]
+        assert probe_machine(dev) is PRESETS[H100_GLOO]
+    else:
+        with pytest.raises(ValueError, match="machine="):
+            probe_machine()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_auto_edge_round_bitwise_equal_solo_on_card(dev, dtype):
+    """One round through ``make_ingest_queue(bucket_edges="auto")``: the
+    planner's edges for the round's heights on the card's entry, every
+    lane bitwise the solo update of its stream."""
+    from repro_torch.plan import choose_bucket_edges, probe_machine
+    from repro_torch.serve import make_ingest_queue
+    rng = np.random.default_rng(6)
+    cfgs = [StreamConfig(n1=300, n2=96, r=20, seed=70 + i, dtype=dtype)
+            for i in range(8)]
+    svc, ref = SketchService(), SketchService()
+    sids = [svc.open(c) for c in cfgs]
+    rids = [ref.open(c) for c in cfgs]
+    items = []
+    for i, c in enumerate(cfgs):
+        k = int(rng.integers(1, 70))
+        items.append((i, rng.standard_normal((k, 96)).astype(np.float32),
+                      int(rng.integers(0, c.n1 - k + 1))))
+    ks = [H.shape[0] for _, H, _ in items]
+    q = make_ingest_queue(svc, expected_ks=ks)
+    assert list(q.bucket_edges) == choose_bucket_edges(
+        ks, 96, 20, cfgs[0].sketch_l, machine=probe_machine(dev))
+    for i, H, row0 in items:
+        q.submit(sids[i], H, row0)
+    q.flush(raise_errors=True)
+    st = q.stats()
+    q.shutdown()
+    assert st["applied"] == len(items) and st["retries"] == 0
+    for i, H, row0 in items:
+        ref.update(rids[i], H, row0=row0)
+    svc.sync()
+    for s, r in zip(sids, rids):
+        assert torch.equal(_bits(svc.sketch(s)), _bits(ref.sketch(r)))
+        assert torch.equal(_bits(svc.corange(s)), _bits(ref.corange(r)))

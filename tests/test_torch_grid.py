@@ -280,17 +280,20 @@ def test_alg2_costs_price_the_reference_words(P):
 def test_alg2_cost_prices_the_port_scratches():
     """Device-memory words: stage 1 as ``alg1_cost`` (the ``sketch_fwd``
     Omega scratch), then stage 2's gathered B block read, its (n/q1) x
-    ceil4(r/q2) Omega scratch written and read, its C partial written —
-    not the reference's zero-Omega Pallas pricing."""
+    ceil4(r/q2) Omega scratch written and read, its split-K work buffer
+    (``sketch_t_plan``: splits x r/q2 x r/q3) written and read, its C
+    partial written — not the reference's zero-Omega Pallas pricing."""
     n, r, p, q = 32768, 512, (4, 1, 1), (1, 2, 2)
     c = tmodel.alg2_cost(n, r, p, q)
-    stage2 = n * r / 2 + 2 * n * 256 + 256 * 256
+    # 64 splits of the (256, 256) output: a 4,194,304-word work buffer
+    stage2 = n * r / 2 + 2 * n * 256 + 2 * 64 * 256 * 256 + 256 * 256
     assert c.hbm_words == tmodel.alg1_cost(n, n, r, p).hbm_words + stage2
     assert tmodel.alg2_fused_cost(n, r, p, q).hbm_words == c.hbm_words
-    # r = 2: the scratch pads r/q2 = 2 columns to 4
+    # r = 2: the scratch pads r/q2 = 2 columns to 4; 32 splits of (2, 1)
     c2 = tmodel.alg2_cost(n, 2, (4, 1, 1), (2, 1, 2))
     assert c2.hbm_words == (tmodel.alg1_cost(n, n, 2, (4, 1, 1)).hbm_words
-                            + n * 2 / 4 + 2 * (n // 2) * 4 + 2 * 2 / 2)
+                            + n * 2 / 4 + 2 * (n // 2) * 4 + 2 * 32 * 2 * 1
+                            + 2 * 2 / 2)
     assert c.hbm_words != jmodel.alg2_cost(n, r, p, q).hbm_words
 
 
@@ -334,7 +337,21 @@ def test_alg1_cost_prices_the_omega_scratch():
 
 
 def test_cost_keeps_the_training_fields():
-    """The exchange's callers build a Cost from words and FLOPs alone."""
-    c = tmodel.grad_compress_cost(256, 64, 8, 2)
-    assert (c.messages, c.hbm_words) == (0.0, 0.0)
-    assert tmodel.Cost(words=1.0, flops=2.0).words == 1.0
+    """A Cost built from words and FLOPs alone keeps messages and
+    device-memory words at 0; the exchange's costs carry the reference's
+    hops (2·log2 P) and the port's device-memory words."""
+    c0 = tmodel.Cost(words=1.0, flops=2.0)
+    assert (c0.words, c0.flops, c0.messages, c0.hbm_words) == (1.0, 2.0,
+                                                               0.0, 0.0)
+    m, n, r = 256, 64, 8
+    c = tmodel.grad_compress_cost(m, n, r, 2)
+    assert c.messages == 2.0
+    # M = G+E; sketch_fwd's narrow path (scratch n x ceil4(r), no split);
+    # the QR; (a) skinny P̂ᵀ·M, too short to split; (b) thin, into bf16;
+    # (c) thin, in place
+    assert c.hbm_words == (2.5 * m * n + (m * n + 2 * n * r + m * r)
+                           + 2 * m * r + (m * r + m * n + r * n)
+                           + (m * r + r * n + 0.5 * m * n)
+                           + (m * r + r * n + 2 * m * n))
+    raw = tmodel.grad_allreduce_cost(m, n, 2)
+    assert (raw.messages, raw.hbm_words) == (1.0, 2.0 * m * n)

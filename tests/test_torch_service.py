@@ -23,7 +23,7 @@ from _hypothesis_compat import given, settings, st
 
 from repro import stream as jstream
 from repro_torch.obs import metrics as obs_metrics
-from repro_torch.serve import make_ingest_queue, make_sketch_service
+from repro_torch.serve import make_sketch_service
 from repro_torch.stream import SketchService, StreamConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -278,8 +278,7 @@ def test_unknown_sid_and_unported_parts_raise():
         with pytest.raises(ValueError, match="unknown stream id"):
             op()
     for op in (lambda: SketchService(spill_dir="x", device="cpu"),
-               lambda: svc.reshard((2, 1, 1)),
-               lambda: make_ingest_queue(svc, bucket_edges="auto")):
+               lambda: svc.reshard((2, 1, 1))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             op()
 

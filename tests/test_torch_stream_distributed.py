@@ -397,20 +397,27 @@ def test_all_reduce_of_one_rank_moves_nothing():
     ids=str)
 def test_stream_update_cost_matches_reference(grid, k, corange):
     """``words`` and ``messages`` are the reference's exactly;
-    ``hbm_words`` prices the port's scratches (not the reference's)."""
+    ``hbm_words`` prices the port's scratches and split-K work buffers
+    (``sketch_fwd_plan``, ``sketch_t_plan``; not the reference's)."""
     n2, r, l = 32768, 512, 1025
     got = tmodel.stream_update_cost(k, n2, r, l, grid=grid, corange=corange)
     ref = jmodel.stream_update_cost(k, n2, r, l, grid=grid, corange=corange)
     assert got.words == ref.words and got.messages == ref.messages
     assert got.flops == ref.flops
     p1, p2, p3 = grid
-    from repro_torch.kernels.sketch_matmul import (sketch_fwd_scratch_bytes,
-                                                   sketch_t_scratch_bytes)
-    want = (k * n2 / p2 + 2.0 * sketch_fwd_scratch_bytes(r // p3, n2 // p2)
-            / 4 + 4.0 * k * r / p3)
+    from repro_torch.kernels.sketch_matmul import (sketch_fwd_plan,
+                                                   sketch_t_plan)
+    fwd = sketch_fwd_plan(k, r // p3, n2 // p2)
+    want = (k * n2 / p2
+            + 2.0 * (fwd["scratch_bytes"] + fwd["work_bytes"]) / 4
+            + 4.0 * k * r / p3)
     if corange:
-        want += (k * n2 / (p2 * p3) + 2.0 * sketch_t_scratch_bytes(l, k) / 4
+        wt = sketch_t_plan(l, n2 // (p2 * p3), k)
+        want += (k * n2 / (p2 * p3)
+                 + 2.0 * (wt["scratch_bytes"] + wt["work_bytes"]) / 4
                  + 2.0 * l * n2 / (p2 * p3))
+    # r/p3 <= 128 splits sketch_fwd over K: a work buffer is priced
+    assert (fwd["work_bytes"] > 0) == (p3 >= 4)
     assert got.hbm_words == want
 
 
