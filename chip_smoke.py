@@ -282,7 +282,33 @@ then the cost model (``repro_torch.plan``) against those runs:
                   each record's predicted / measured seconds; nothing gates
                   on the ratio), (e) ``probe_machine()`` is the H100 entry
                   and ``device_kind_tag()`` the nvidia-smi name with
-                  underscores.
+                  underscores;
+
+and the planner (``plan_sketch``, ``plan_nystrom``, ``plan_stream``):
+
+ 17. plan       — (c) on the H100 entry: ``regime_sweep`` of the sketch at
+                  A = 32768², r = 512 over P in ``PL_SWEEP``, the Nystrom
+                  crossover and a sweep around it, and gemma2-2b's
+                  gradient-exchange plan (rank 8, P = 8) under the seconds
+                  objective beside the words one; (a) on one card at
+                  phases 1-5's A (made again from seed 0): the three
+                  one-card plans (the sketch, the Nystrom pair, eight
+                  4096-row stream slabs), every executable candidate
+                  executed (``dataclasses.replace`` of its variant) and
+                  held bitwise to the direct call it names, the kernel
+                  bodies and the stream's Y bitwise phase 3's B, each
+                  timed (CUDA events, median of 3) beside its predicted
+                  seconds, whether the model's pick was the fastest
+                  (printed, not gating), and ``explain`` of each plan;
+                  (b) on four ranks of the card over gloo (``_plan_rank``):
+                  ``rand_matmul_auto(grid="plan")``,
+                  ``nystrom_auto(variant="plan")``,
+                  ``ShardedStreamingSketch(cfg, plan_stream(...))`` fed
+                  phase 15's slab order and ``make_sketch_service(grid=
+                  "auto")``'s one full update, each bitwise the same entry
+                  point with the plan's grid or variant passed explicitly,
+                  its words a rank those phases 12-15 count and at most the
+                  plan's, and its slowest wall beside the plan's seconds.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -3118,6 +3144,321 @@ def phase_sparse(dev, LAUNCHES, reset_launches):
                       "main_path_s": t_main, "nnz": nnz}}
 
 
+# -- phase 17: the planner --------------------------------------------------
+
+PL_WORLD = 4
+PL_SWEEP = (1, 4, 64, 4096, 1048576)       # (c): regime_sweep's P
+PL_NYS_SWEEP = (4, 64, 66, 128, 1024)      # (c): around the crossover
+PL_REPS = 3
+
+
+def _bitwise(a, b) -> bool:
+    """Tensors, or tuples of tensors, equal bit for bit."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_bitwise(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def phase_plan_one_card(dev, A, B_oneshot, LAUNCHES, reset_launches):
+    """Phase 17 (a): the three one-card plans on ``probe_machine()`` (the
+    H100 entry), each executable candidate executed, bitwise its direct
+    call, and timed beside its predicted seconds."""
+    from repro_torch.core.nystrom import nystrom_reference
+    from repro_torch.core.sketch import sketch_reference
+    from repro_torch.kernels import ops
+    from repro_torch.plan import (H100_GLOO, explain, plan_nystrom,
+                                  plan_sketch, plan_stream, probe_machine)
+    from repro_torch.stream import StreamConfig, StreamingSketch
+
+    machine = probe_machine()
+    check(machine.name == H100_GLOO,
+          f"probe_machine() is {machine.name}, not {H100_GLOO}")
+    cfg = StreamConfig(N, N, r=R, seed=SEED)
+    L = cfg.sketch_l
+    plans = {"sketch": plan_sketch(N, N, R),
+             "nystrom": plan_nystrom(N, R),
+             "stream": plan_stream(N, N, R, chunk_rows=SLAB, l=L,
+                                   corange=True)}
+
+    def stream_direct():
+        st = StreamingSketch(cfg, device=dev)
+        for r0 in range(0, N, SLAB):
+            st.update_rows(r0, A[r0:r0 + SLAB])
+        return st
+    direct = {
+        ("sketch", "cuda_fused"): lambda: ops.sketch_matmul(A, seed=SEED,
+                                                            r=R),
+        ("sketch", "local_torch"): lambda: sketch_reference(A, SEED, R),
+        ("nystrom", "cuda_fused"): lambda: ops.nystrom_fused(A, seed=SEED,
+                                                             r=R),
+        ("nystrom", "local_torch"): lambda: nystrom_reference(A, SEED, R),
+        ("stream", "stream_local"): stream_direct}
+
+    def result(task, out):
+        return (out.sketch, out.corange_sketch) if task == "stream" else out
+
+    out = {}
+    for task, plan in plans.items():
+        check(plan.machine == H100_GLOO and plan.n_procs == 1
+              and plan.executable, f"phase 17 (a): the {task} plan {plan}")
+        rows = {}
+        for cand in plan.candidates:
+            if not cand.executable:
+                continue
+            p = dataclasses.replace(plan, variant=cand.variant)
+            key = (task, cand.variant)
+            check(key in direct, f"phase 17 (a): no direct call for {key}")
+            reset_launches()
+            got = result(task, p.execute(A, seed=SEED, device=dev))
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in LAUNCHES.items() if v}
+            want = result(task, direct[key]())
+            check(_bitwise(got, want), f"phase 17 (a): {task} plan "
+                                       f"{cand.variant} is not bitwise "
+                                       f"its direct call")
+            if cand.variant == "cuda_fused" or task == "stream":
+                oneshot = got[0] if isinstance(got, tuple) else got
+                check(torch.equal(oneshot, B_oneshot),
+                      f"phase 17 (a): {task} plan {cand.variant} is not "
+                      f"bitwise phase 3's B")
+            del got, want
+            ms = time_ms(lambda: p.execute(A, seed=SEED, device=dev),
+                         reps=PL_REPS)
+            rows[cand.variant] = {
+                "predicted_s": cand.seconds, "measured_s": ms * 1e-3,
+                "ratio": cand.seconds / (ms * 1e-3), "launches": launches,
+                "bottleneck": cand.cost.bottleneck(machine)}
+            torch.cuda.empty_cache()
+        fastest = min(rows, key=lambda v: rows[v]["measured_s"])
+        out[task] = {"chosen": plan.variant, "fastest": fastest,
+                     "candidates": rows}
+        for v, row in rows.items():
+            chosen = " (chosen)" if v == plan.variant else ""
+            print(f"[plan] (a) {task}: {v}{chosen} predicted {row['predicted_s'] * 1e3:.4g} ms "
+                  f"({row['bottleneck']}-bound on the H100 entry), "
+                  f"measured {row['measured_s'] * 1e3:.4f} ms (CUDA events,"
+                  f" median of {PL_REPS} after a warm-up), predicted / "
+                  f"measured {row['ratio']:.4g}; launches {row['launches']}; "
+                  f"bitwise its direct call")
+        print(f"[plan] (a) {task}: the model picked {plan.variant}, the "
+              f"fastest measured is {fastest}: "
+              f"{'match' if fastest == plan.variant else 'MISMATCH'}")
+        print(explain(plan))
+    return out
+
+
+def _alg2_counted(variant, p, q, rank) -> int:
+    """The words a rank receives in one Alg. 2 call, as phases 13-14
+    count them: No-Redist's reduce-scatter, Redist's all-to-all less the
+    1/P a rank keeps, a two-grid run's ``two_grid_words``."""
+    P = p[0] * p[1] * p[2]
+    if variant == "alg2_no_redist":
+        return (P - 1) * R * R // P
+    if variant == "alg2_redist":
+        return (P - 1) * N * R // (P * P)
+    return sum(two_grid_words(N, R, p, q, _coords(rank, p),
+                              _coords(rank, q)).values())
+
+
+def _plan_rank(rank, world, device="cuda"):
+    """Phase 17 (b), one rank: each planned call beside the same entry
+    point with the plan's grid or variant passed explicitly (``device``
+    other than the card only to rehearse the phase on the CPU)."""
+    import torch.distributed as dist
+    from repro_torch.core import nystrom as nys
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.grid import alg1_bandwidth_words
+    from repro_torch.kernels.sketch_matmul import LAUNCHES, reset_launches
+    from repro_torch.parallel import collectives as col
+    from repro_torch.plan import (H100_GLOO, plan_nystrom, plan_sketch,
+                                  plan_stream, stream_update_cost)
+    from repro_torch.serve import make_sketch_service
+    from repro_torch.stream import ShardedStreamingSketch, StreamConfig
+
+    dev = torch.device(device, 0)
+    lines, runs = [], {}
+
+    def say(msg):
+        lines.append(f"[plan] (b) rank {rank}: {msg}")
+
+    A = make_matrix(dev)
+    same_matrix(A, rank, world)
+    cfg = StreamConfig(N, N, r=R, seed=SEED)
+    L = cfg.sketch_l
+    ps = plan_sketch(N, N, R, P=world)
+    pn = plan_nystrom(N, R, P=world)
+    pst = plan_stream(N, N, R, P=world, chunk_rows=SLAB, l=L, corange=True)
+    for plan in (ps, pn, pst):
+        check(plan.machine == H100_GLOO and plan.n_procs == world
+              and plan.executable, f"rank {rank}: phase 17 plan {plan}")
+
+    def drive(name, fn, plan=None):
+        """One call between barriers, its counts reset just before it."""
+        dist.barrier()
+        reset_launches()
+        col.reset_comm()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = {"wall_s": wall, "words": col.comm_words(),
+                      "launches": {k: v for k, v in LAUNCHES.items() if v},
+                      "predicted_s": None if plan is None
+                      else plan.predicted_seconds,
+                      "predicted_words": None if plan is None
+                      else plan.predicted_words}
+        return res, runs[name]["words"]
+
+    def held(name, bitwise, words, want_words, plan):
+        check(bitwise, f"rank {rank}: {name} is not bitwise the explicit "
+                       f"call")
+        check(words == want_words and words <= plan.predicted_words,
+              f"rank {rank}: {name}: {words} words, the explicit call's "
+              f"and phases 12-15's count {want_words}, the plan's "
+              f"{plan.predicted_words}")
+        say(f"{name}: bitwise the explicit call; {words} words (phases "
+            f"12-15 count {want_words}; predicted {plan.predicted_words:g}"
+            f"); wall {runs[name]['wall_s']:.4f} s against the plan's "
+            f"{plan.predicted_seconds:.4g} s (four ranks share the card)")
+
+    # Alg. 1: grid="plan" against the plan's grid passed explicitly
+    (blk, gm, g), w = drive("rand_matmul_auto(grid='plan')",
+                            lambda: sk.rand_matmul_auto(A, SEED, R,
+                                                        grid="plan"), ps)
+    (ref, _, _), w_ref = drive(f"rand_matmul_auto(grid={ps.grid})",
+                               lambda: sk.rand_matmul_auto(A, SEED, R,
+                                                           grid=ps.grid))
+    check(gm.shape == ps.grid, f"rank {rank}: grid {gm.shape}")
+    held("rand_matmul_auto(grid='plan')", torch.equal(blk, ref), w, w_ref,
+         ps)
+    check(w_ref == alg1_bandwidth_words(N, N, R, *ps.grid),
+          f"rank {rank}: Alg. 1 words {w_ref}")
+    del ref
+
+    # Alg. 2: variant="plan" against the plan's variant passed explicitly
+    planned = f"nystrom_auto(variant='plan') -> {pn.variant}"
+    (B, C, _, got), w = drive(planned, lambda: nys.nystrom_auto(
+        A, SEED, R, variant="plan"), pn)
+    if pn.variant in ("alg2_no_redist", "alg2_redist"):
+        name = pn.variant[len("alg2_"):]
+        (B0, C0, _, _), w_ref = drive(
+            f"nystrom_auto(variant={name!r})",
+            lambda: nys.nystrom_auto(A, SEED, R, variant=name))
+    else:
+        fn = (nys.nystrom_two_grid_fused
+              if pn.variant == "alg2_bound_driven_fused"
+              else nys.nystrom_two_grid)
+        (B0, C0), w_ref = drive(
+            f"{fn.__name__}(p={pn.grid}, q={pn.q_grid})",
+            lambda: fn(sk.input_block(A, sk.make_grid_groups(*pn.grid)),
+                       SEED, R, p=pn.grid, q=pn.q_grid))
+    held(planned, torch.equal(B, B0) and torch.equal(C, C0), w, w_ref, pn)
+    check(w_ref == _alg2_counted(pn.variant, pn.grid, pn.q_grid, rank),
+          f"rank {rank}: Alg. 2 words {w_ref}")
+    del B, C, B0, C0
+
+    # a sharded stream placed by plan_stream, fed phase 15's slab order
+    def feed(st):
+        for i in SD_ORDER:
+            st.update_rows(i * SLAB, A[i * SLAB:(i + 1) * SLAB])
+        return st
+    st, w = drive("ShardedStreamingSketch(cfg, plan_stream(...))",
+                  lambda: feed(ShardedStreamingSketch(cfg, pst, device=dev)),
+                  pst)
+    st0, w_ref = drive(f"ShardedStreamingSketch(cfg, grid {pst.grid})",
+                       lambda: feed(ShardedStreamingSketch(
+                           cfg, sk.make_grid_groups(*pst.grid), device=dev)))
+    slab_words = stream_update_cost(SLAB, N, R, L, pst.grid).words
+    held("ShardedStreamingSketch(cfg, plan_stream(...))",
+         torch.equal(st.Y, st0.Y) and torch.equal(st.W, st0.W), w, w_ref,
+         pst)
+    check(w_ref == len(SD_ORDER) * slab_words,
+          f"rank {rank}: stream words {w_ref}")
+    if pst.grid == ps.grid:
+        check(torch.equal(st.Y, blk), f"rank {rank}: the planned stream's "
+                                      f"Y is not bitwise Alg. 1's block")
+    del st, st0
+
+    # a grid service placed by grid="auto": one stream, one full update
+    # (a grid service takes full-shape deltas; without the co-range its
+    # update is Alg. 1 on the grid, what plan_sketch prices)
+    scfg = StreamConfig(N, N, r=R, seed=SEED, corange=False)
+    svc = make_sketch_service(grid="auto", shape=(N, N, R), device=dev)
+    svc0 = make_sketch_service(grid=ps.grid, device=dev)
+    sid, sid0 = svc.open(scfg), svc0.open(scfg)
+    _, w = drive("make_sketch_service(grid='auto').update",
+                 lambda: svc.update(sid, A), ps)
+    _, w_ref = drive(f"make_sketch_service(grid={ps.grid}).update",
+                     lambda: svc0.update(sid0, A))
+    check(svc.mesh.shape == ps.grid, f"rank {rank}: service grid "
+                                     f"{svc.mesh.shape}")
+    held("make_sketch_service(grid='auto').update",
+         torch.equal(svc.sketch(sid), svc0.sketch(sid0)), w, w_ref, ps)
+    check(w_ref == alg1_bandwidth_words(N, N, R, *ps.grid)
+          and torch.equal(svc.sketch(sid), blk),
+          f"rank {rank}: the service's update is not Alg. 1's")
+    launches = sum(sum(r["launches"].values()) for r in runs.values())
+    check(launches > 0, f"rank {rank}: no kernel launched")
+    return {"lines": lines, "runs": runs,
+            "plans": {k: (p.variant, p.grid, p.q_grid, p.predicted_words,
+                          p.predicted_seconds)
+                      for k, p in (("sketch", ps), ("nystrom", pn),
+                                   ("stream", pst))}}
+
+
+def phase_plan_ranks():
+    """Phase 17 (b): the grid="plan" entry points on PL_WORLD ranks of one
+    card over gloo, each rank holding phase 1-5's A."""
+    print(f"[plan] (b) {PL_WORLD} ranks on cuda:0 over gloo: "
+          f"rand_matmul_auto(grid='plan'), nystrom_auto(variant='plan'), "
+          f"ShardedStreamingSketch(cfg, plan_stream(...)) fed "
+          f"{len(SD_ORDER)} slabs in {SD_ORDER}, make_sketch_service("
+          f"grid='auto'); each against the explicit call")
+    results = spawn_ranks(17, _plan_rank, PL_WORLD)
+    for res in results:
+        for line in res["lines"]:
+            print(line)
+    for name in results[0]["runs"]:
+        walls = [res["runs"][name]["wall_s"] for res in results]
+        print(f"[plan] (b) {name}: slowest rank {max(walls):.4f} s "
+              f"(four ranks sharing the card; plan predicted "
+              f"{results[0]['runs'][name]['predicted_s']})")
+    print(f"[plan] (b) plans (variant, grid, q, words, seconds): "
+          f"{results[0]['plans']}")
+    return results
+
+
+def phase_plan_tables():
+    """Phase 17 (c): analytic tables on the H100 entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_api
+    from repro_torch.plan import (explain_train_compression,
+                                  nystrom_crossover_P, plan_nystrom,
+                                  plan_sketch, plan_train_compression,
+                                  regime_sweep)
+    print(f"[plan] (c) regime_sweep(plan_sketch, ({N}, {N}, {R}), "
+          f"{list(PL_SWEEP)}):")
+    print(regime_sweep(plan_sketch, (N, N, R), PL_SWEEP))
+    print(f"[plan] (c) Nystrom at n = {N}, r = {R}: crossover P ~ "
+          f"{nystrom_crossover_P(N, R)}; regime_sweep(plan_nystrom, "
+          f"{list(PL_NYS_SWEEP)}):")
+    print(regime_sweep(plan_nystrom, (N, R), PL_NYS_SWEEP))
+    cfg = get_config("gemma2-2b")
+    shapes = get_api(cfg).init(0, cfg, "meta")
+    words = plan_train_compression(shapes, rank=T_R, P=T_PLAN_WORKERS)
+    secs = plan_train_compression(shapes, rank=T_R, P=T_PLAN_WORKERS,
+                                  objective="seconds")
+    differ = [d.name for d, e in zip(secs.decisions, words.decisions)
+              if d.compress != e.compress]
+    print(explain_train_compression(secs))
+    print(f"[plan] (c) gemma2-2b, rank {T_R}, P = {T_PLAN_WORKERS} on "
+          f"{secs.machine}: the seconds objective compresses "
+          f"{secs.n_compressed} leaves, the words objective "
+          f"{words.n_compressed}; {len(differ)} differ: {differ}")
+    return {"seconds_compressed": secs.n_compressed,
+            "words_compressed": words.n_compressed, "differ": differ}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3334,6 +3675,7 @@ def main() -> int:
               f"{plain:.3f}, library {lib:.3f}, bound {bms:.3f} ms by {by}); "
               f"on the device (torch.profiler): {parts_text(parts)}")
 
+    B_oneshot = B       # phase 3's B, held to phase 17's one-card plans
     del A, B, C, st, H, W, psi
     torch.cuda.empty_cache()
 
@@ -3435,6 +3777,23 @@ def main() -> int:
                                    SLAB, N, R, L, ex["nnz"], kind="normal"),
                                ex["update_rows_sparse_wall_ms"] * 1e-3)])
     phase_records(records, card)
+
+    # -- 17. the planner ------------------------------------------------------
+    t17 = time.perf_counter()
+    plan_tables = phase_plan_tables()
+    A = make_matrix(dev)
+    plan_one = phase_plan_one_card(dev, A, B_oneshot, LAUNCHES,
+                                   reset_launches)
+    del A, B_oneshot
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan_ranks = phase_plan_ranks()
+    print("[plan] summary " + json.dumps({
+        "one_card": plan_one, "tables": plan_tables,
+        "ranks": [{"runs": res["runs"], "plans": res["plans"]}
+                  for res in plan_ranks], "card": card}))
+    print(f"[phases] 17 done at {time.perf_counter() - t_start:.1f} s "
+          f"(phase 17: {time.perf_counter() - t17:.1f} s)")
 
     total = [sum(gemm_times[c][i] for c in "abc") for i in range(3)]
     bound3 = sum(gemm_times[c][3][0] for c in "abc")

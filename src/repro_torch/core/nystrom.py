@@ -194,19 +194,47 @@ def nystrom_auto(A: torch.Tensor, seed, r: int, variant: str = "auto",
       * ``"bound_driven"`` — the two-grid Alg. 2 on the Theorem-3 (p, q)
         pair, snapped to the min-words executable pair when the ideal
         grids do not divide (``select_two_grid_executable``), through
-        :func:`nystrom_two_grid_fused`.
+        :func:`nystrom_two_grid_fused`;
+      * ``"plan"`` — the cost model's choice (``plan.plan_nystrom``; the
+        same as passing ``plan=plan_nystrom(n, r, P=P)``).
+    plan: a :class:`repro_torch.plan.Plan` (wins over ``variant``): the
+    two-grid variants run on its (p, q) pair, the 1-D ones on (P, 1, 1),
+    and ``local_torch`` runs no_redist, as the reference maps its
+    ``local_xla``; a ``cuda_fused`` plan is no grid program (call
+    ``plan.execute``).
     Returns ``(B_blk, C_blk, GridGroups, variant)``: row blocks on
     (P, 1, 1) for no_redist, column blocks for redist, the q-layouts on
     the q-grid for bound_driven (None past the grid)."""
     import torch.distributed as dist
     _dense_only(kind)
-    if plan is not None or variant == "plan":
-        raise NotImplementedError(
-            "variant='plan' / plan= need plan_nystrom, which is not ported "
-            "(ROADMAP.md Queue 1, item 7); pass variant='auto', "
-            "'bound_driven' or a 1-D variant")
     P = P_procs or dist.get_world_size()
     n = A.shape[0]
+    if plan is not None or variant == "plan":
+        from repro_torch.plan.planner import Plan, plan_nystrom
+        if plan is None:
+            plan = plan_nystrom(n, r, P=P, kind=kind)
+        if not isinstance(plan, Plan):
+            raise TypeError(f"plan must be a repro_torch.plan.Plan "
+                            f"(plan_nystrom); got {plan!r}")
+        if not plan.executable:
+            raise ValueError(
+                f"plan {plan.variant!r} for dims={plan.dims}, "
+                f"P={plan.n_procs} is analytic-only (no executable grid "
+                f"pair divides the shape)")
+        if plan.variant in ("alg2_bound_driven", "alg2_bound_driven_fused"):
+            fn = (nystrom_two_grid_fused
+                  if plan.variant == "alg2_bound_driven_fused"
+                  else nystrom_two_grid)
+            B, C = fn(input_block(A, make_grid_groups(*plan.grid)), seed, r,
+                      p=plan.grid, q=plan.q_grid, kind=kind)
+            return B, C, make_grid_groups(*plan.q_grid), "bound_driven"
+        variant = {"alg2_no_redist": "no_redist", "alg2_redist": "redist",
+                   "local_torch": "no_redist"}.get(plan.variant)
+        if variant is None:
+            raise ValueError(f"plan variant {plan.variant!r} has no 1-D "
+                             f"grid execution here; call plan.execute "
+                             f"instead (or pass variant='auto' to force "
+                             f"the grid path)")
     if variant == "bound_driven":
         from .grid import select_two_grid_executable
         got = select_two_grid_executable(n, r, P)

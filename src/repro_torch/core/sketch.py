@@ -382,22 +382,42 @@ def rand_matmul_auto(A: torch.Tensor, seed, r: int,
       * ``"auto"`` — the paper's §4.3 grid (``select_matmul_grid``), or,
         when it does not divide the shape, the factorization of P that
         does with the fewest words (``_best_executable_alg1_grid``);
+      * ``"plan"`` — the cost model's choice (``plan.plan_sketch``; the
+        same as passing ``plan=plan_sketch(n1, n2, r, P=P_procs)``);
       * an explicit ``(p1, p2, p3)`` tuple.
+    plan: a :class:`repro_torch.plan.Plan` (wins over ``grid``): an
+    ``alg1`` plan runs on its grid, a ``local_torch`` plan on (1, 1, 1);
+    a ``cuda_fused`` plan is no grid program (call ``plan.execute``).
     ``P_procs`` defaults to the world size.  Returns ``(B_blk,
     MatmulGrid, GridGroups)``."""
     import torch.distributed as dist
 
-    from repro_torch.plan.planner import (_alg1_executable,
-                                          _best_executable_alg1_grid)
+    from repro_torch.plan.planner import (Plan, _alg1_executable,
+                                          _best_executable_alg1_grid,
+                                          plan_sketch)
     from .grid import MatmulGrid, alg1_bandwidth_words, alg1_latency_hops
     from .lower_bounds import matmul_regime
     _dense_only(kind)
-    if plan is not None or grid == "plan":
-        raise NotImplementedError(
-            "grid='plan' / plan= need plan_sketch, which is not ported "
-            "(ROADMAP.md Queue 1, item 7); pass grid='auto' or a tuple")
     P_procs = P_procs or dist.get_world_size()
     n1, n2 = A.shape
+    if plan is not None or grid == "plan":
+        if plan is None:
+            plan = plan_sketch(n1, n2, r, P=P_procs, kind=kind)
+        if not isinstance(plan, Plan):
+            raise TypeError(f"plan must be a repro_torch.plan.Plan "
+                            f"(plan_sketch); got {plan!r}")
+        if not plan.executable:
+            raise ValueError(
+                f"plan {plan.variant!r} for dims={plan.dims}, "
+                f"P={plan.n_procs} is analytic-only (no executable grid "
+                f"divides the shape)")
+        if plan.variant == "alg1" and plan.grid is not None:
+            grid = plan.grid
+        elif plan.variant == "local_torch":
+            grid = (1, 1, 1)          # the degenerate Alg.-1 grid
+        else:
+            raise ValueError(f"plan variant {plan.variant!r} is not an "
+                             f"Alg.-1 grid plan; call plan.execute instead")
     if grid == "auto":
         shape = _best_executable_alg1_grid(n1, n2, r, P_procs)
         if shape is None:

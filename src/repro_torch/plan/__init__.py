@@ -1,19 +1,33 @@
-"""The parts of the reference's planner that the port runs: the machine
-model and the costs of every variant (Alg. 1, Alg. 2, one-card sketches,
-stream updates, sparse slabs, the gradient exchange, ragged buckets), the
-calibration of the network terms from measured records, and the per-leaf
-pricing of the DP gradient exchange (words only)."""
+"""repro_torch.plan — the cost model and the execution planner (the
+reference's ``repro.plan`` less its measured autotuner, ROADMAP item 7c).
+
+``plan_sketch`` / ``plan_nystrom`` / ``plan_stream`` price every variant
+the port can run (Alg. 1 grids, Alg. 2 redist / no_redist / two-grid, the
+one-card ``cuda_fused`` kernels and ``local_torch``, streaming ingest,
+the sparse family) on a :class:`MachineModel`, audit the winner against
+the lower bounds, and return a :class:`Plan` whose ``execute`` makes the
+call it names; ``explain`` renders the decision.
+
+  model.py    — machine entries and analytic per-variant costs
+  planner.py  — candidates, Plan, dispatch, the gradient-exchange plan
+  autotune.py — calibration of the machine model from measured records
+  explain.py  — reports (regimes, crossovers, bound gaps)
+"""
 from .autotune import (calibrate_machine_model, load_sweep,  # noqa: F401
                        save_sweep)
-from .explain import explain_train_compression  # noqa: F401
+from .explain import (bound_report, explain,  # noqa: F401
+                      explain_train_compression, nystrom_crossover_P,
+                      regime_sweep, sketch_zero_comm_limit)
 from .model import (H100_GLOO, PRESETS, SPARSE_SCATTER_PENALTY,  # noqa: F401
                     Cost, MachineModel, alg1_communicating_cost, alg1_cost,
                     alg2_cost, alg2_fused_cost, choose_bucket_edges,
                     device_kind_tag, fused_redistribute_words,
                     grad_allreduce_cost, grad_compress_cost,
-                    hbm_roofline_words, local_cost, nystrom_local_cost,
+                    hbm_roofline_words, local_cost, local_torch_cost,
+                    nystrom_local_cost, nystrom_local_torch_cost,
                     probe_machine, ragged_bucket_cost, redistribute_words,
                     sparse_payload_words, sparse_sketch_cost,
                     sparse_stream_update_cost, stream_update_cost)
-from .planner import (LeafDecision, TrainCompressionPlan,  # noqa: F401
-                      plan_train_compression)
+from .planner import (Candidate, LeafDecision, Plan,  # noqa: F401
+                      TrainCompressionPlan, plan_nystrom, plan_sketch,
+                      plan_stream, plan_train_compression)

@@ -12,8 +12,8 @@ writes the card's records (phases 3-4 and 12-16) to
 module is the committed set that the H100 entry's ``alpha`` and
 ``byte_bw`` are the fit of.
 
-The measured autotuner and its cache (``autotune``, ``sweep_records``)
-wait for the port's planner.
+The measured autotuner and its cache (``autotune``, ``sweep_records``),
+which refine the planner's analytic ranking, are ROADMAP item 7c.
 """
 from __future__ import annotations
 

@@ -14,6 +14,9 @@ function are the reference's; ``hbm_words`` prices the port's bodies:
   * ``local_cost``, ``hbm_roofline_words`` — one ``sketch_fwd`` call;
   * ``nystrom_local_cost`` — ``ops.nystrom_fused`` (``sketch_fwd`` then
     ``sketch_t``);
+  * ``local_torch_cost``, ``nystrom_local_torch_cost`` — the same with
+    Omega materialized by ``gen_omega`` and multiplied by ``torch.matmul``
+    (``sketch_reference``, ``nystrom_reference``);
   * ``stream_update_cost`` — one row-slab stream update (local or sharded);
   * ``sparse_sketch_cost``, ``sparse_stream_update_cost`` — the sparse
     Omega families and COO slabs, all four counts the reference's;
@@ -238,6 +241,15 @@ def local_cost(n1: int, n2: int, r: int) -> Cost:
                 hbm_words=hbm_roofline_words(n1, n2, r))
 
 
+def local_torch_cost(n1: int, n2: int, r: int) -> Cost:
+    """One-card sketch with Omega materialized (``sketch_reference``):
+    A read, Omega written by ``gen_omega`` and read by ``torch.matmul``,
+    B written.  Words, messages and FLOPs are the reference's
+    ``local_cost``."""
+    return Cost(words=0.0, messages=0.0, flops=2.0 * n1 * n2 * r,
+                hbm_words=float(n1 * n2 + 2 * n2 * r + n1 * r))
+
+
 # ---------------------------------------------------------------------------
 # Variant costs — Nyström  (B = A·Omega ; C = Omega^T·B)
 # ---------------------------------------------------------------------------
@@ -334,6 +346,17 @@ def nystrom_local_cost(n: int, r: int) -> Cost:
                 flops=2.0 * n * n * r + 2.0 * n * r * r,
                 hbm_words=(hbm_roofline_words(n, n, r) + n * r
                            + _t_words(r, r, n) + r * r))
+
+
+def nystrom_local_torch_cost(n: int, r: int) -> Cost:
+    """One-card Nyström pair with Omega materialized
+    (``nystrom_reference``): A read, Omega written by ``gen_omega`` and
+    read, B written; then Omega and B read again by ``Omega^T·B`` and C
+    written.  Words, messages and FLOPs are the reference's
+    ``nystrom_local_cost``."""
+    return Cost(words=0.0, messages=0.0,
+                flops=2.0 * n * n * r + 2.0 * n * r * r,
+                hbm_words=float(n * n + 5 * n * r + r * r))
 
 
 # ---------------------------------------------------------------------------

@@ -3,38 +3,59 @@
 of ranks, and the bounded async :class:`IngestQueue` in front of it."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 from repro_torch.core.sketch import make_grid_groups
+from repro_torch.parallel.grad_compress import world_size
 from repro_torch.plan.model import choose_bucket_edges, probe_machine
+from repro_torch.plan.planner import Plan, plan_sketch
 from repro_torch.stream.ingest import IngestQueue
 from repro_torch.stream.service import SketchService
 
 
 def make_sketch_service(grid=None, plan=None,
+                        shape: Optional[Tuple[int, int, int]] = None,
                         max_resident: Optional[int] = None,
                         spill_dir: Optional[str] = None,
                         device=None) -> SketchService:
     """The streaming-sketch serving entry point: many streams on one card
     (``device=None``; pass ``device="cpu"`` for the plain path).
 
-    ``grid=(p1, p2, p3)`` places a distributed service: every stream
-    sharded over that grid of the default process group's ranks
-    (``make_grid_groups``, which every rank must call in the same order),
-    each update running Alg. 1 (``SketchService(mesh=...)``).
-    ``grid="auto"`` and ``plan`` need the planner and raise
-    ``NotImplementedError``, as does ``spill_dir``.  ``max_resident`` is
-    the admission budget: colder non-pinned streams move to host memory
-    and are restored bitwise on next touch.
+    grid:
+      * ``None`` — local mode;
+      * ``(p1, p2, p3)`` — a distributed service: every stream sharded
+        over that grid of the default process group's ranks
+        (``make_grid_groups``, which every rank must call in the same
+        order), each update running Alg. 1 (``SketchService(mesh=...)``);
+      * ``"auto"`` — the grid ``plan_sketch`` chooses for the dominant
+        stream shape, ``shape=(n1, n2, r)``, at the world's size.
+    plan: a :class:`repro_torch.plan.Plan` (``plan_stream`` or
+    ``plan_sketch``; wins over ``grid``): its grid places the service, and
+    a single-device plan gives local mode.  ``spill_dir`` raises
+    ``NotImplementedError``.  ``max_resident`` is the admission budget:
+    colder non-pinned streams move to host memory and are restored
+    bitwise on next touch.
     """
-    if plan is not None or grid == "auto":
-        raise NotImplementedError(
-            "grid='auto' / plan= need plan_stream, which is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 7b); pass a (p1, p2, p3) "
-            "grid")
+    kw = dict(max_resident=max_resident, spill_dir=spill_dir, device=device)
+    if plan is None and grid == "auto":
+        if shape is None:
+            raise ValueError('grid="auto" needs the dominant stream shape: '
+                             'shape=(n1, n2, r)')
+        plan = plan_sketch(*shape, P=world_size())
+    if plan is not None:
+        if not isinstance(plan, Plan):
+            raise TypeError(f"plan must be a repro_torch.plan.Plan "
+                            f"(plan_stream or plan_sketch); got {plan!r}")
+        if not plan.executable:
+            raise ValueError(
+                f"plan {plan.variant!r} for dims={plan.dims}, "
+                f"P={plan.n_procs} is analytic-only (no executable grid "
+                f"divides the shape) — no service grid can host it")
+        if plan.grid is None:        # a single-device plan: local mode
+            return SketchService(**kw)
+        grid = plan.grid
     mesh = None if grid is None else make_grid_groups(*grid)
-    return SketchService(mesh=mesh, max_resident=max_resident,
-                         spill_dir=spill_dir, device=device)
+    return SketchService(mesh=mesh, **kw)
 
 
 def make_ingest_queue(service: SketchService, depth: int = 256,

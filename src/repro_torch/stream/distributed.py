@@ -44,8 +44,8 @@ from repro_torch.core.nystrom import (nystrom_second_stage_no_redist,
                                       nystrom_second_stage_redist,
                                       nystrom_second_stage_two_grid_fused)
 from repro_torch.core.sketch import (GridGroups, gather_output, grid_ordered,
-                                     input_block, output_block,
-                                     resolve_device, seed_keys)
+                                     input_block, make_grid_groups,
+                                     output_block, resolve_device, seed_keys)
 from repro_torch.kernels.local import (fold_rows_block, sketch_block,
                                        sketch_t_block)
 from repro_torch.obs import trace as obs_trace
@@ -60,15 +60,19 @@ __all__ = ["corange_block", "stream_blocks", "gather_corange",
 
 
 def _grid_of(mesh) -> GridGroups:
-    """``mesh`` as a GridGroups on which this rank holds a block."""
+    """``mesh`` as a GridGroups on which this rank holds a block; a
+    :class:`repro_torch.plan.Plan` in its place gives
+    ``make_grid_groups(*plan.grid)`` (collective over the world)."""
+    from repro_torch.plan.planner import Plan
+    if isinstance(mesh, Plan):
+        if mesh.grid is None:
+            raise ValueError(f"plan {mesh.variant!r} carries no processor "
+                             f"grid")
+        mesh = make_grid_groups(*mesh.grid)
     if not isinstance(mesh, GridGroups):
-        if getattr(mesh, "grid", None) is not None:
-            raise NotImplementedError(
-                "a plan in place of the grid needs plan_stream / "
-                "plan_sketch, which are not ported (ROADMAP.md Queue 1, "
-                "item 7); pass make_grid_groups(p1, p2, p3)")
         raise TypeError(f"mesh must be a GridGroups "
-                        f"(core.sketch.make_grid_groups); got {mesh!r}")
+                        f"(core.sketch.make_grid_groups) or a "
+                        f"repro_torch.plan.Plan; got {mesh!r}")
     if mesh.coords is None:
         raise ValueError(f"rank {mesh.rank} is past the grid {mesh.shape}: "
                          f"a sharded stream needs a block on every rank")
@@ -272,8 +276,9 @@ class ShardedStreamingSketch:
     row block.
 
     ``mesh`` is ``core.sketch.make_grid_groups(p1, p2, p3)``, holding
-    this rank (a plan in its place needs the planner, ROADMAP.md Queue 1
-    item 7); ``device=None`` means the card.  Sparse kinds are refused,
+    this rank, or a :class:`repro_torch.plan.Plan` (``plan_stream`` /
+    ``plan_sketch``) whose grid becomes it; ``device=None`` means the
+    card.  Sparse kinds are refused,
     as in the reference.  The reference's per-update obs-ledger audit is
     not ported (item 8).
     """

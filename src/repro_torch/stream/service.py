@@ -134,8 +134,9 @@ class SketchService:
     >>> svc.sketch(sid)                              # the live Y = A·Omega
     >>> svc.reconstruct(sid, rank=16)                # one-pass estimate
 
-    ``mesh`` (a ``core.sketch.make_grid_groups`` grid holding this rank)
-    selects grid mode; ``device=None`` means the card.
+    ``mesh`` (a ``core.sketch.make_grid_groups`` grid holding this rank,
+    or a ``repro_torch.plan.Plan`` whose grid becomes one) selects grid
+    mode; ``device=None`` means the card.
     """
 
     def __init__(self, mesh=None, max_resident: Optional[int] = None,

@@ -992,3 +992,72 @@ def test_auto_edge_round_bitwise_equal_solo_on_card(dev, dtype):
     for s, r in zip(sids, rids):
         assert torch.equal(_bits(svc.sketch(s)), _bits(ref.sketch(r)))
         assert torch.equal(_bits(svc.corange(s)), _bits(ref.corange(r)))
+
+
+@pytest.fixture
+def sm90(dev):
+    """The planner's card tests price on the H100 entry and run the
+    kernels built for sm_90a."""
+    if torch.cuda.get_device_capability(dev) != (9, 0):
+        pytest.skip(f"needs an sm_90 card (the H100 entry and the sm_90a "
+                    f"kernels); this is {torch.cuda.get_device_name(dev)}")
+    return dev
+
+
+def _planned(plan, variant):
+    import dataclasses
+    return dataclasses.replace(plan, variant=variant)
+
+
+def test_one_card_sketch_plans_on_the_card(sm90):
+    """``probe_machine()`` plans carry the H100 entry; each one-card
+    sketch variant's ``execute`` is bitwise the call it names, the kernel
+    variant launches ``sketch_fwd``, and the two agree at the f32
+    tolerance."""
+    from repro_torch.core.sketch import sketch_reference
+    from repro_torch.kernels import ops
+    from repro_torch.plan import H100_GLOO, plan_sketch
+    g = torch.Generator(device=sm90).manual_seed(3)
+    A = torch.randn(300, 520, device=sm90, generator=g)
+    plan = plan_sketch(300, 520, 24, P=1)
+    assert plan.machine == H100_GLOO
+    assert [c.variant for c in plan.candidates][0] == plan.variant
+    reset_launches()
+    fused = _planned(plan, "cuda_fused").execute(A, seed=9)
+    assert LAUNCHES["sketch_fwd"] == 1
+    plain = _planned(plan, "local_torch").execute(A, seed=9)
+    assert torch.equal(fused, ops.sketch_matmul(A, seed=9, r=24))
+    assert torch.equal(plain, sketch_reference(A, 9, 24))
+    assert fused.device.type == plain.device.type == "cuda"
+    _close(fused, plain)
+
+
+def test_one_card_nystrom_and_stream_plans_on_the_card(sm90):
+    """The same for Nyström (B and C) and for a stream fed in
+    ``chunk_rows`` slabs (Y and W bitwise a ``StreamingSketch`` fed the
+    same slabs, Y bitwise the one-shot ``sketch_fwd``)."""
+    from repro_torch.core.nystrom import nystrom_reference
+    from repro_torch.kernels import ops
+    from repro_torch.plan import H100_GLOO, plan_nystrom, plan_stream
+    g = torch.Generator(device=sm90).manual_seed(4)
+    X = torch.randn(384, 12, device=sm90, generator=g)
+    S = X @ X.T
+    plan = plan_nystrom(384, 32, P=1)
+    assert plan.machine == H100_GLOO
+    Bf, Cf = _planned(plan, "cuda_fused").execute(S, seed=5)
+    Bp, Cp = _planned(plan, "local_torch").execute(S, seed=5)
+    B0, C0 = ops.nystrom_fused(S, seed=5, r=32)
+    B1, C1 = nystrom_reference(S, 5, 32)
+    assert torch.equal(Bf, B0) and torch.equal(Cf, C0)
+    assert torch.equal(Bp, B1) and torch.equal(Cp, C1)
+    _close(Bf, Bp)
+    _close(Cf, Cp)
+    splan = plan_stream(384, 384, 32, P=1, chunk_rows=128, corange=True)
+    assert (splan.machine, splan.variant) == (H100_GLOO, "stream_local")
+    st = splan.execute(S, seed=5)
+    ref = StreamingSketch(StreamConfig(n1=384, n2=384, r=32, seed=5))
+    for row0 in range(0, 384, 128):
+        ref.update_rows(row0, S[row0:row0 + 128])
+    assert torch.equal(st.sketch, ref.sketch)
+    assert torch.equal(st.corange_sketch, ref.corange_sketch)
+    assert torch.equal(st.sketch, B0)

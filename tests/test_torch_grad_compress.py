@@ -29,10 +29,12 @@ from repro.configs import get_config as jax_config
 from repro.core.compat import shard_map
 from repro.models import transformer as jtf
 from repro.parallel import grad_compress as jgc
+from repro.plan import PRESETS as JPRESETS
 from repro.plan import plan_train_compression as jplan
 from repro_torch.configs import get_config
 from repro_torch.models import lm_init
 from repro_torch.parallel import grad_compress as tgc
+from repro_torch.plan import PRESETS as TPRESETS
 from repro_torch.plan import explain_train_compression, plan_train_compression
 
 from torch_dist_helper import exchange_worker, run_workers
@@ -124,8 +126,26 @@ def test_plan_matches_reference_full_gemma(gemma_full_shapes, world,
         assert words == got.exchange_words
         assert tgc.comm_words_exact(tshapes) == got.raw_words
     assert "totals" in explain_train_compression(got)
-    with pytest.raises(NotImplementedError):
-        plan_train_compression(tshapes, rank=8, P=world, objective="seconds")
+    # the seconds objective, on the cpu entry (the reference's numbers):
+    # the reference's decisions and notes, the words unchanged, each leaf
+    # compressed iff its sketched seconds are the fewer
+    jsec = jplan(jshapes, rank=8, P=world, objective="seconds",
+                 machine=JPRESETS["cpu"])
+    sec = plan_train_compression(tshapes, rank=8, P=world,
+                                 objective="seconds",
+                                 machine=TPRESETS["cpu"])
+    assert (sec.objective, sec.dtype, sec.kind, sec.machine) == \
+        ("seconds", "float32", "normal", "cpu")
+    assert sec.n_compressed == jsec.n_compressed == 0
+    assert sec.lower_bound_words == sec.exchange_words == sec.raw_words
+    for d, w in zip(sec.decisions, jsec.decisions, strict=True):
+        assert (d.name, d.compress, d.note) == (w.name, w.compress, w.note)
+        assert (d.raw_cost.words, d.comp_cost.words) == \
+            (w.raw_cost.words, w.comp_cost.words)
+        assert d.compress == (d.comp_seconds < d.raw_seconds)
+        if world > 1:
+            assert d.raw_seconds == w.raw_seconds
+    assert "sketch s" in explain_train_compression(sec)
 
 
 def test_exchange_one_worker_matches_reference(one_worker):

@@ -19,6 +19,7 @@ once on 4 fake XLA devices.  Inputs are numpy from a seed, S = X·Xᵀ/n, at
   * layouts bitwise: the all-to-all, and Redist's B column blocks as
     No-Redist's B re-laid out.
 """
+import dataclasses
 import json
 import os
 import pathlib
@@ -37,6 +38,7 @@ from repro_torch.core import grid as tgrid
 from repro_torch.core import nystrom as nys
 from repro_torch.core import sketch as sk
 from repro_torch.kernels.local import sketch_t_block
+from repro_torch.plan import PRESETS, plan_nystrom
 from torch_dist_helper import alg2_worker, run_workers
 
 WORLD = 4
@@ -396,8 +398,25 @@ def test_bound_driven_needs_the_two_grid_variants():
 @pytest.mark.parametrize("kw", [{"variant": "plan"}, {"plan": object()}],
                          ids=["variant", "plan"])
 def test_plan_needs_the_planner(kw):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        nys.nystrom_auto(torch.zeros(64, 64), SEED, 16, P_procs=WORLD, **kw)
+    """``variant="plan"`` and ``plan=`` run the planner's choice (on a world
+    of four: ``tests/test_torch_planner.py``); an analytic-only plan, a
+    one-card kernel plan and an object that is no plan are refused with
+    the port's messages, before any group is made."""
+    if "plan" in kw:
+        with pytest.raises(TypeError, match="must be a repro_torch.plan"):
+            nys.nystrom_auto(torch.zeros(64, 64), SEED, 16, P_procs=WORLD,
+                             **kw)
+        kw = {"plan": plan_nystrom(30, 7, P=8, machine=PRESETS["cpu"])}
+        assert not kw["plan"].executable
+        one = plan_nystrom(64, 16, P=1, machine=PRESETS["cpu"])
+        one = dataclasses.replace(one, variant="cuda_fused")
+        with pytest.raises(ValueError, match="call plan.execute instead"):
+            nys.nystrom_auto(torch.zeros(64, 64), SEED, 16, P_procs=WORLD,
+                             plan=one)
+    # (n = 30, r = 7) divides no grid of P = 8; so the planned call on
+    # variant="plan" is the analytic-only plan too
+    with pytest.raises(ValueError, match="is analytic-only"):
+        nys.nystrom_auto(torch.zeros(30, 30), SEED, 7, P_procs=8, **kw)
 
 
 def test_unknown_variant_is_refused():

@@ -30,6 +30,7 @@ from repro.core.sketch import sketch_reference as j_sketch_reference
 from repro.plan.planner import _best_executable_alg1_grid as j_best_grid
 from repro_torch.core import grid as tgrid
 from repro_torch.core import sketch as sk
+from repro_torch.plan import PRESETS, plan_sketch
 from repro_torch.plan.model import alg1_communicating_cost
 from torch_dist_helper import alg1_worker, run_workers
 
@@ -276,7 +277,18 @@ def test_sparse_kinds_are_not_ported(kind):
 
 
 def test_plan_grid_needs_the_planner():
-    A = torch.zeros(16, 48)
-    for kw in ({"grid": "plan"}, {"plan": object()}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            sk.rand_matmul_auto(A, SEED, R, P_procs=4, **kw)
+    """``grid="plan"`` and ``plan=`` run the planner's choice (on a world
+    of four: ``tests/test_torch_planner.py``); what is no runnable Alg.-1
+    plan is refused with the port's messages, before any group is made."""
+    A = torch.zeros(N1, N2)
+    with pytest.raises(TypeError, match="must be a repro_torch.plan.Plan"):
+        sk.rand_matmul_auto(A, SEED, R, P_procs=WORLD, plan=object())
+    bad = plan_sketch(7, 7, 3, P=WORLD, machine=PRESETS["cpu"])
+    for kw in ({"grid": "plan"}, {"plan": bad}):
+        with pytest.raises(ValueError, match="analytic-only"):
+            sk.rand_matmul_auto(torch.zeros(7, 7), SEED, 3, P_procs=WORLD,
+                                **kw)
+    one = plan_sketch(N1, N2, R, P=1, machine=PRESETS["cpu"])
+    assert one.variant == "cuda_fused"
+    with pytest.raises(ValueError, match="call plan.execute instead"):
+        sk.rand_matmul_auto(A, SEED, R, P_procs=WORLD, plan=one)

@@ -46,6 +46,7 @@ from repro_torch.core.grid import alg1_bandwidth_words
 from repro_torch.core.sketch import GridGroups
 from repro_torch.parallel import collectives as col
 from repro_torch.plan import model as tmodel
+from repro_torch.plan import plan_stream
 from repro_torch.serve import make_sketch_service
 from repro_torch.stream import (ShardedStreamingSketch, SketchService,
                                 StreamConfig, nystrom_finalize)
@@ -494,17 +495,37 @@ def test_sparse_kinds_are_refused(kind):
 
 
 def test_a_plan_in_place_of_the_grid_needs_the_planner():
+    """A plan's grid places a sharded stream or a grid service (on a world
+    of four: ``tests/test_torch_planner.py``).  Here, with no world: an
+    object that only looks like a plan is refused, a plan with no grid
+    carries none, ``grid="auto"`` needs the stream shape, and a
+    single-device plan gives a local-mode service."""
     class Plan:
         grid = (WORLD, 1, 1)
     cfg = StreamConfig(n1=N1, n2=N2, r=R)
     for fn in (lambda: ShardedStreamingSketch(cfg, Plan(), device="cpu"),
                lambda: SketchService(mesh=Plan(), device="cpu"),
-               lambda: make_sketch_service(plan=Plan(), device="cpu"),
-               lambda: make_sketch_service(grid="auto", device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 7"):
+               lambda: make_sketch_service(plan=Plan(), device="cpu")):
+        with pytest.raises(TypeError, match="repro_torch.plan.Plan"):
             fn()
     with pytest.raises(TypeError, match="GridGroups"):
         ShardedStreamingSketch(cfg, object(), device="cpu")
+    one = plan_stream(N1, N2, R, P=1, machine=tmodel.PRESETS["cpu"])
+    assert one.grid is None
+    for fn in (lambda: ShardedStreamingSketch(cfg, one, device="cpu"),
+               lambda: SketchService(mesh=one, device="cpu")):
+        with pytest.raises(ValueError,
+                           match="^plan 'stream_local' carries no processor "
+                                 "grid$"):
+            fn()
+    with pytest.raises(ValueError, match=re.escape(
+            'grid="auto" needs the dominant stream shape: shape=(n1, n2, '
+            'r)')):
+        make_sketch_service(grid="auto", device="cpu")
+    for svc in (make_sketch_service(plan=one, device="cpu"),
+                make_sketch_service(grid="auto", shape=(N1, N2, R),
+                                    device="cpu")):
+        assert svc.mesh is None and svc.device.type == "cpu"
 
 
 def test_a_rank_past_the_grid_is_refused():

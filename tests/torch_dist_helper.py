@@ -689,3 +689,160 @@ def stream_dist_card_worker(rank, world, n, r, slab, seed):
             torch.equal(streams[(2, 2, 1)].Y, full.Y), words,
             torch.equal(C, C1), launches,
             (st1.Y.device.type, st1.W.device.type))
+
+
+def planner_worker(rank, world, spec):
+    """One rank of the planner's distributed cases on the CPU: each
+    planned call beside the explicit call of the entry point it names, on
+    the ``cpu`` machine entry.  ``spec`` holds ``seed``, ``sketch`` (name
+    -> (A, r): ``Plan.execute`` of ``plan_sketch`` against ``rand_matmul``
+    on its grid, and ``rand_matmul_auto(grid="plan")`` against the same
+    call on the plan's grid), ``S`` and ``s_r`` (a symmetric A:
+    ``Plan.execute`` of ``plan_nystrom`` forced to each of
+    ``nystrom_variants`` against the call it names, and
+    ``nystrom_auto(variant="plan")`` / ``plan=`` against the explicit
+    variant), ``stream`` (name -> (A, r, chunk_rows): ``Plan.execute`` of
+    ``plan_stream`` against a ``ShardedStreamingSketch`` on the plan's
+    grid, the same stream placed by the plan itself, and a
+    ``SketchService(mesh=plan)``), and ``service`` (A and r:
+    ``make_sketch_service(grid="auto", shape=...)`` against
+    ``make_sketch_service(grid=...)``).  Returns, per call, whether it was
+    bitwise the explicit call, the words this rank received on each side,
+    the plan's (variant, grid, q_grid, predicted words) and the full
+    results as numpy."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import nystrom as nys
+    from repro_torch.core import sketch as sk
+    from repro_torch.parallel import collectives as col
+    from repro_torch.plan import (PRESETS, plan_nystrom, plan_sketch,
+                                  plan_stream)
+    from repro_torch.serve import make_sketch_service
+    from repro_torch.stream import (ShardedStreamingSketch, SketchService,
+                                    StreamConfig)
+    from repro_torch.stream.distributed import gather_corange
+
+    cpu = PRESETS["cpu"]
+    seed = spec["seed"]
+
+    def arr(t):
+        return None if t is None else t.numpy().copy()
+
+    def call(fn):
+        col.reset_comm()
+        res = fn()
+        return res, col.comm_words()
+
+    def same(a, b):
+        if a is None or b is None:
+            return a is None and b is None
+        return torch.equal(a, b)
+
+    def about(plan):
+        return (plan.variant, plan.grid, plan.q_grid, plan.predicted_words)
+
+    out = {"sketch": {}, "nystrom": {}, "stream": {}}
+    for name, (A, r) in spec["sketch"].items():
+        A = torch.from_numpy(np.array(A))
+        plan = plan_sketch(*A.shape, r, P=world, machine=cpu)
+        blk, w_exec = call(lambda: plan.execute(A, seed, device="cpu"))
+        g = sk.make_grid_groups(*plan.grid)
+        ref, w_ref = call(lambda: sk.rand_matmul(sk.input_block(A, g), seed,
+                                                 r, g))
+        (auto, gm, _), w_auto = call(
+            lambda: sk.rand_matmul_auto(A, seed, r, grid="plan"))
+        (expl, _, _), w_expl = call(
+            lambda: sk.rand_matmul_auto(A, seed, r, grid=plan.grid))
+        out["sketch"][name] = {
+            "plan": about(plan), "auto_grid": gm.shape,
+            "bitwise": (same(blk, ref), same(auto, expl)),
+            "words": (w_exec, w_ref, w_auto, w_expl),
+            "B": arr(sk.gather_output(blk, g))}
+    S, r = torch.from_numpy(np.array(spec["S"])), spec["s_r"]
+    n = S.shape[0]
+    direct = {"alg2_no_redist": nys.nystrom_no_redist,
+              "alg2_redist": nys.nystrom_redist}
+    two_grid = {"alg2_bound_driven": nys.nystrom_two_grid,
+                "alg2_bound_driven_fused": nys.nystrom_two_grid_fused}
+    for variant in spec["nystrom_variants"]:
+        plan = plan_nystrom(n, r, P=world, machine=cpu, variant=variant)
+        (B, C), w_exec = call(lambda: plan.execute(S, seed, device="cpu"))
+        if plan.variant in direct:
+            g = sk.make_grid_groups(*plan.grid)
+            (B0, C0), w_ref = call(lambda: direct[plan.variant](
+                sk.input_block(S, g), seed, r, g))
+            layout = plan.variant[len("alg2_"):]
+            (B1, C1, _, got), w_auto = call(lambda: nys.nystrom_auto(
+                S, seed, r, plan=plan))
+            (B2, C2, _, _), w_expl = call(lambda: nys.nystrom_auto(
+                S, seed, r, variant=layout))
+            full = (nys.nystrom_gather(B, g, layout),
+                    nys.nystrom_gather(C, g, layout))
+        else:
+            p, q = plan.grid, plan.q_grid
+            (B0, C0), w_ref = call(lambda: two_grid[plan.variant](
+                sk.input_block(S, sk.make_grid_groups(*p)), seed, r, p=p,
+                q=q))
+            (B1, C1, _, got), w_auto = call(lambda: nys.nystrom_auto(
+                S, seed, r, plan=plan))
+            (B2, C2), w_expl = (B0, C0), w_ref
+            gq = sk.make_grid_groups(*q)
+            full = (nys.two_grid_gather(B, gq, "B"),
+                    nys.two_grid_gather(C, gq, "C"))
+        out["nystrom"][variant] = {
+            "plan": about(plan), "auto_variant": got,
+            "bitwise": (same(B, B0) and same(C, C0),
+                        same(B1, B2) and same(C1, C2)),
+            "words": (w_exec, w_ref, w_auto, w_expl),
+            "B": arr(full[0]), "C": arr(full[1])}
+    (B, C, _, got), w_auto = call(lambda: nys.nystrom_auto(
+        S, seed, r, variant="plan"))
+    out["nystrom_plan"] = (got, arr(B), arr(C), w_auto)
+    for name, (A, r, k) in spec["stream"].items():
+        A = torch.from_numpy(np.array(A))
+        n1, n2 = A.shape
+        plan = plan_stream(n1, n2, r, P=world, chunk_rows=k, corange=True,
+                           machine=cpu)
+        cfg = StreamConfig(n1=n1, n2=n2, r=r, seed=seed, corange=True)
+        g = sk.make_grid_groups(*plan.grid)
+        st, w_exec = call(lambda: plan.execute(A, seed, device="cpu"))
+        ref = ShardedStreamingSketch(cfg, g, device="cpu")
+        by_plan = ShardedStreamingSketch(cfg, plan, device="cpu")
+        col.reset_comm()
+        for row0 in range(0, n1, k):
+            ref.update_rows(row0, A[row0:row0 + k])
+        w_ref = col.comm_words()
+        for row0 in range(0, n1, k):
+            by_plan.update_rows(row0, A[row0:row0 + k])
+        svc, svc_ref = (SketchService(mesh=plan, device="cpu"),
+                        SketchService(mesh=g, device="cpu"))
+        sid, sid_ref = svc.open(cfg), svc_ref.open(cfg)
+        svc.update(sid, A)
+        svc_ref.update(sid_ref, A)
+        out["stream"][name] = {
+            "plan": about(plan), "slabs": -(-n1 // k),
+            "bitwise": (same(st.Y, ref.Y) and same(st.W, ref.W),
+                        same(by_plan.Y, ref.Y) and same(by_plan.W, ref.W),
+                        same(svc.sketch(sid), svc_ref.sketch(sid_ref))
+                        and same(svc.corange(sid),
+                                 svc_ref.corange(sid_ref))),
+            "words": (w_exec, w_ref),
+            "Y": arr(sk.gather_output(st.Y, g)),
+            "W": arr(gather_corange(st.W, g))}
+    A, r = spec["service"]
+    A = torch.from_numpy(np.array(A))
+    shape = (*A.shape, r)
+    svc = make_sketch_service(grid="auto", shape=shape, device="cpu")
+    grid = plan_sketch(*shape, P=world, machine=cpu).grid
+    svc_ref = make_sketch_service(grid=grid, device="cpu")
+    cfg = StreamConfig(n1=shape[0], n2=shape[1], r=r, seed=seed)
+    sid, sid_ref = svc.open(cfg), svc_ref.open(cfg)
+    _, w = call(lambda: svc.update(sid, A))
+    _, w_ref = call(lambda: svc_ref.update(sid_ref, A))
+    out["service"] = {
+        "grid": svc.mesh.shape, "ref_grid": grid,
+        "bitwise": (same(svc.sketch(sid), svc_ref.sketch(sid_ref))
+                    and same(svc.corange(sid), svc_ref.corange(sid_ref))),
+        "words": (w, w_ref)}
+    return out
