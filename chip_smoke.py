@@ -308,7 +308,31 @@ and the planner (``plan_sketch``, ``plan_nystrom``, ``plan_stream``):
                   "auto")``'s one full update, each bitwise the same entry
                   point with the plan's grid or variant passed explicitly,
                   its words a rank those phases 12-15 count and at most the
-                  plan's, and its slowest wall beside the plan's seconds.
+                  plan's, and its slowest wall beside the plan's seconds;
+
+and the measured autotuner (``autotune``):
+
+ 18. autotune   — (a) on one card: ``autotune`` of phase 17's three
+                  one-card plans on a fresh cache under build/ (each
+                  candidate timed with CUDA events, median of 3 after a
+                  warm-up, on its own seeded synthetic A; printed beside
+                  its predicted seconds, the analytic pick beside the
+                  measured one), the tuned plan bitwise the direct call
+                  of its variant on phases 1-5's A, a second ``autotune``
+                  on a new cache object a pure hit (its timer raises), a
+                  preset hit (the shipped ``PRESET_ENTRIES``, else this
+                  run's entry) bitwise its direct call; the records
+                  written to build/repro_torch/autotune_sweep.json;
+                  (b) on four ranks of the card over gloo
+                  (``_autotune_rank``): ``autotune`` of the P = 4 sketch
+                  and Nystrom plans, each rank on a cache of its own: one
+                  tuned plan on every rank, bitwise its explicit call with
+                  phases 12-14's words, rank 0's file alone written, a
+                  second call a hit; (c) the fit: ``mem_get_info`` beside
+                  the largest candidate's bytes, and each kernel's shared
+                  memory (``kernel_smem_bytes``) held to
+                  ``cudaFuncGetAttributes`` and the H100 entry's
+                  ``smem_bytes``.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -3459,6 +3483,322 @@ def phase_plan_tables():
             "words_compressed": words.n_compressed, "differ": differ}
 
 
+# -- phase 18: the measured autotuner ------------------------------------------
+
+AT_WORLD = 4
+AT_TOP_K = 3
+AT_DIR = ROOT / "build" / "repro_torch"
+AT_CACHE = AT_DIR / "autotune_cache.json"
+AT_SWEEP = AT_DIR / "autotune_sweep.json"
+
+
+def _forbidden_timer(fn):
+    raise AssertionError("a cache or preset hit ran the timer")
+
+
+def _about(plan) -> tuple:
+    return (plan.variant, plan.grid, plan.q_grid, plan.chunk_rows)
+
+
+def _record_line(prefix: str, rec: dict, machine, pick: bool) -> str:
+    where = (f" grid={rec['grid']}" if rec["grid"] else "") + (
+        f" q={rec['q_grid']}" if rec["q_grid"] else "")
+    return (f"{prefix} {rec['variant']}{where} chunk_rows="
+            f"{rec['chunk_rows']}{' (the pick)' if pick else ''}: predicted "
+            f"{_seconds(rec, machine) * 1e3:.4f} ms, measured "
+            f"{rec['seconds'] * 1e3:.4f} ms")
+
+
+def phase_autotune_one_card(dev, A, card: str, LAUNCHES, reset_launches):
+    """Phase 18 (a): ``autotune`` of the one-card sketch, Nystrom and
+    stream plans at phases 1-5's shape on a fresh cache (CUDA events,
+    median of 3 after a warm-up, on its own synthetic A); each tuned plan
+    bitwise the direct call of its variant on phases 1-5's A; a second
+    ``autotune`` on a new cache object at the same path a pure hit; a
+    preset hit executed.  The records go to ``AT_SWEEP``."""
+    from repro_torch.core.nystrom import nystrom_reference
+    from repro_torch.core.sketch import sketch_reference
+    from repro_torch.kernels import ops
+    from repro_torch.plan import (PRESET_ENTRIES, AutotuneCache, autotune,
+                                  cache_key, explain, plan_nystrom,
+                                  plan_sketch, plan_stream, probe_machine,
+                                  save_sweep)
+    from repro_torch.stream import StreamConfig, StreamingSketch
+
+    machine = probe_machine()
+    name, power = (x.strip() for x in card.split(",", 1))
+    AT_DIR.mkdir(parents=True, exist_ok=True)
+    AT_CACHE.unlink(missing_ok=True)
+    cfg = StreamConfig(N, N, r=R, seed=SEED)
+    plans = {"sketch": plan_sketch(N, N, R),
+             "nystrom": plan_nystrom(N, R),
+             "stream": plan_stream(N, N, R, chunk_rows=SLAB,
+                                   l=cfg.sketch_l, corange=True)}
+
+    def stream_direct(k):
+        st = StreamingSketch(cfg, device=dev)
+        for r0 in range(0, N, k):
+            st.update_rows(r0, A[r0:r0 + k])
+        return st.sketch, st.corange_sketch
+
+    direct = {
+        ("sketch", "cuda_fused"): lambda p: ops.sketch_matmul(A, seed=SEED,
+                                                              r=R),
+        ("sketch", "local_torch"): lambda p: sketch_reference(A, SEED, R),
+        ("nystrom", "cuda_fused"): lambda p: ops.nystrom_fused(A, seed=SEED,
+                                                               r=R),
+        ("nystrom", "local_torch"): lambda p: nystrom_reference(A, SEED, R),
+        ("stream", "stream_local"): lambda p: stream_direct(p.chunk_rows)}
+
+    def run(task, plan):
+        out = plan.execute(A, seed=SEED, device=dev)
+        return (out.sketch, out.corange_sketch) if task == "stream" else out
+
+    out, records, entries = {}, [], {}
+    for task, plan in plans.items():
+        recs = []
+        t0 = time.perf_counter()
+        tuned = autotune(plan, cache=str(AT_CACHE), top_k=AT_TOP_K,
+                         records=recs, presets={})
+        tune_s = time.perf_counter() - t0
+        check(tuned.measured_seconds is not None and len(recs) >= 2,
+              f"phase 18 (a): {task} was not measured ({tuned.notes})")
+        for rec in recs:
+            rec.update(device_kind=name.replace(" ", "_"), power_limit=power)
+            print(_record_line(f"[autotune] (a) {task}:", rec, machine,
+                               _about(tuned) == (rec["variant"], None, None,
+                                                 rec["chunk_rows"])))
+        records += recs
+        key = (task, tuned.variant)
+        check(key in direct, f"phase 18 (a): no direct call for {key}")
+        reset_launches()
+        got = run(task, tuned)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        want = direct[key](tuned)
+        check(_bitwise(got, want), f"phase 18 (a): the tuned {task} plan "
+                                   f"{_about(tuned)} is not bitwise its "
+                                   f"direct call")
+        del got, want
+        check(launches.get("gen_omega" if tuned.variant == "local_torch"
+                           else "sketch_fwd", 0) > 0,
+              f"phase 18 (a): the tuned {task} plan launched {launches}")
+        again = AutotuneCache(AT_CACHE)
+        hit = autotune(plan, cache=again, timer=_forbidden_timer,
+                       presets={})
+        check(again.hits == 1 and _about(hit) == _about(tuned),
+              f"phase 18 (a): the second {task} autotune was not a pure "
+              f"hit ({again.hits} hits, {_about(hit)})")
+        k = cache_key(plan)
+        entries[k] = again.get(k)
+        shipped = k in PRESET_ENTRIES
+        presets = PRESET_ENTRIES if shipped else {k: entries[k]}
+        pre = autotune(plan, timer=_forbidden_timer, presets=presets)
+        got = run(task, pre)
+        want = direct[(task, pre.variant)](pre)
+        check(_bitwise(got, want), f"phase 18 (a): the {task} preset plan "
+                                   f"{_about(pre)} is not bitwise its "
+                                   f"direct call")
+        del got, want
+        torch.cuda.empty_cache()
+        print(f"[autotune] (a) {task}: the model picked {plan.variant} "
+              f"(predicted {plan.predicted_seconds * 1e3:.4f} ms), the tuner "
+              f"{tuned.variant} chunk_rows={tuned.chunk_rows} (measured "
+              f"{tuned.measured_seconds * 1e3:.4f} ms; tuning took "
+              f"{tune_s:.2f} s); bitwise its direct call, launches "
+              f"{launches}; again a pure hit, no timer call; "
+              + ("the shipped preset " if shipped else "a preset of this "
+                 "run's entry ")
+              + f"{_about(pre)} executed bitwise its direct call"
+              + (f", {'the same as' if _about(pre) == _about(tuned) else 'NOT'}"
+                 f" this run's pick" if shipped else ""))
+        print(explain(tuned))
+        out[task] = {"model": plan.variant, "tuned": _about(tuned),
+                     "measured_s": tuned.measured_seconds,
+                     "predicted_s": tuned.predicted_seconds,
+                     "tune_s": tune_s, "launches": launches,
+                     "preset": _about(pre), "shipped": shipped}
+    save_sweep(records, AT_SWEEP)
+    print(f"[autotune] (a) {len(records)} records written to "
+          f"{AT_SWEEP.relative_to(ROOT)}; measured entries "
+          + json.dumps(entries))
+    out["entries"] = entries
+    return out
+
+
+def _autotune_rank(rank, world, cache_dir, device="cuda"):
+    """Phase 18 (b), one rank: ``autotune`` of the P = 4 sketch and
+    Nystrom plans on a cache of its own (``cache_dir/rank<r>.json``), the
+    tuned plan against the explicit call it names, then a second
+    ``autotune`` that must hit (``device`` other than the card only to
+    rehearse the phase on the CPU)."""
+    import os
+
+    import torch.distributed as dist
+    from repro_torch.core import nystrom as nys
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.grid import alg1_bandwidth_words
+    from repro_torch.kernels.sketch_matmul import LAUNCHES, reset_launches
+    from repro_torch.parallel import collectives as col
+    from repro_torch.plan import (AutotuneCache, autotune, plan_nystrom,
+                                  plan_sketch)
+
+    dev = torch.device(device, 0)
+    A = make_matrix(dev)
+    same_matrix(A, rank, world)
+    out = {}
+    for task, plan in (("sketch", plan_sketch(N, N, R, P=world)),
+                       ("nystrom", plan_nystrom(N, R, P=world))):
+        path = os.path.join(cache_dir, f"{task}_rank{rank}.json")
+        recs = []
+        dist.barrier()
+        t0 = time.perf_counter()
+        tuned = autotune(plan, cache=path, top_k=AT_TOP_K, records=recs,
+                         presets={}, device=dev)
+        tune_s = time.perf_counter() - t0
+        dist.barrier()
+        reset_launches()
+        col.reset_comm()
+        got = tuned.execute(A, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        words, launches = col.comm_words(), {k: v for k, v in
+                                             LAUNCHES.items() if v}
+        col.reset_comm()
+        if task == "sketch":
+            g = sk.make_grid_groups(*tuned.grid)
+            want = sk.rand_matmul(sk.input_block(A, g), SEED, R, g)
+            bitwise = _bitwise(got, want)
+            counted = alg1_bandwidth_words(N, N, R, *tuned.grid)
+        else:
+            g = sk.make_grid_groups(*tuned.grid)
+            fn = {"alg2_no_redist": nys.nystrom_no_redist,
+                  "alg2_redist": nys.nystrom_redist}.get(tuned.variant)
+            if fn is not None:
+                want = fn(sk.input_block(A, g), SEED, R, g)
+            else:
+                fn = (nys.nystrom_two_grid_fused
+                      if tuned.variant == "alg2_bound_driven_fused"
+                      else nys.nystrom_two_grid)
+                want = fn(sk.input_block(A, g), SEED, R, p=tuned.grid,
+                          q=tuned.q_grid)
+            bitwise = _bitwise(tuple(got), tuple(want))
+            counted = _alg2_counted(tuned.variant, tuned.grid, tuned.q_grid,
+                                    rank)
+        words_ref = col.comm_words()
+        del got, want
+        check(bitwise, f"rank {rank}: the tuned {task} plan "
+                       f"{_about(tuned)} is not bitwise its explicit call")
+        check(words == words_ref == counted
+              and words <= tuned.predicted_words,
+              f"rank {rank}: the tuned {task} plan moved {words} words, the "
+              f"explicit call {words_ref}, phases 12-14 count {counted}, "
+              f"the plan predicts {tuned.predicted_words}")
+        dist.barrier()
+        written = os.path.exists(path)
+        again = AutotuneCache(path) if rank == 0 else None
+        hit = autotune(plan, cache=again, timer=_forbidden_timer,
+                       presets={}, device=dev)
+        check(_about(hit) == _about(tuned),
+              f"rank {rank}: the second {task} autotune gave {_about(hit)}")
+        torch.cuda.empty_cache()
+        out[task] = {"tuned": _about(tuned), "words": words,
+                     "measured_s": tuned.measured_seconds,
+                     "predicted_words": tuned.predicted_words,
+                     "tune_s": tune_s, "launches": launches,
+                     "written": written,
+                     "hit": None if again is None else again.hits,
+                     "records": recs}
+    return out
+
+
+def phase_autotune_ranks():
+    """Phase 18 (b): ``autotune`` of the P = 4 sketch and Nystrom plans on
+    AT_WORLD ranks of cuda:0 over gloo: one tuned plan on every rank,
+    bitwise its explicit call with phases 12-14's words, rank 0 alone
+    writing the cache, and a second call a hit."""
+    import shutil
+    import tempfile
+
+    from repro_torch.plan import (H100_GLOO, PRESETS, cache_key,
+                                  plan_nystrom, plan_sketch)
+    h100 = PRESETS[H100_GLOO]
+    print(f"[autotune] (b) {AT_WORLD} ranks on cuda:0 over gloo: autotune "
+          f"(top_k={AT_TOP_K}) of plan_sketch(P={AT_WORLD}) and "
+          f"plan_nystrom(P={AT_WORLD}), each rank on a cache of its own")
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    try:
+        results = spawn_ranks(18, _autotune_rank, AT_WORLD, (cache_dir,))
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    for task in ("sketch", "nystrom"):
+        got = [res[task] for res in results]
+        check(all(g["tuned"] == got[0]["tuned"] for g in got),
+              f"phase 18 (b): the ranks tuned {task} differently: "
+              f"{[g['tuned'] for g in got]}")
+        check([g["written"] for g in got] == [True] + [False] * (AT_WORLD - 1),
+              f"phase 18 (b): {task}'s cache files {[g['written'] for g in got]}")
+        check(got[0]["hit"] == 1, f"phase 18 (b): rank 0's second {task} "
+                                  f"call was not a hit")
+        for rank, g in enumerate(got):
+            print(f"[autotune] (b) rank {rank}: {task} tuned to {g['tuned']} "
+                  f"in {g['tune_s']:.2f} s (measured {g['measured_s']:.4f} s,"
+                  f" the slowest rank's); bitwise the explicit call; "
+                  f"{g['words']} words (predicted {g['predicted_words']:g}); "
+                  f"launches {g['launches']}")
+        for rec in got[0]["records"]:
+            print(_record_line(f"[autotune] (b) {task}:", rec, h100,
+                               got[0]["tuned"][:3] == (
+                                   rec["variant"],
+                                   tuple(rec["grid"]) if rec["grid"] else None,
+                                   tuple(rec["q_grid"]) if rec["q_grid"]
+                                   else None))
+                  + " (the slowest rank's)")
+    entries = {}
+    for task, plan in (("sketch", plan_sketch(N, N, R, P=AT_WORLD)),
+                       ("nystrom", plan_nystrom(N, R, P=AT_WORLD))):
+        variant, grid, q_grid, chunk_rows = results[0][task]["tuned"]
+        entries[cache_key(plan)] = {
+            "variant": variant, "grid": list(grid),
+            "q_grid": list(q_grid) if q_grid else None,
+            "chunk_rows": chunk_rows, "source": "measured",
+            "seconds": results[0][task]["measured_s"]}
+    print(f"[autotune] (b) every rank tuned the same plans; rank 0 alone "
+          f"wrote each cache; the second calls were hits; measured entries "
+          + json.dumps(entries))
+    return results, entries
+
+
+def phase_autotune_fit(sweeps) -> dict:
+    """Phase 18 (c): the fit on the card: the free device memory beside the
+    largest candidate's bytes, and each kernel's shared memory a block
+    (the tile constants, ``kernel_smem_bytes``) against the H100 entry's
+    ``smem_bytes`` and ``cudaFuncGetAttributes``."""
+    from repro_torch.kernels.sketch_matmul import (kernel_smem_attributes,
+                                                   kernel_smem_bytes)
+    from repro_torch.plan import H100_GLOO, PRESETS
+    from repro_torch.plan.autotune import _measurable_candidates, device_bytes
+    machine = PRESETS[H100_GLOO]
+    free, total = torch.cuda.mem_get_info()
+    largest = max(((device_bytes(c), c) for plan in sweeps
+                   for c in _measurable_candidates(plan, machine, AT_TOP_K)),
+                  key=lambda t: t[0])
+    print(f"[autotune] (c) mem_get_info: {free} free of {total} bytes; the "
+          f"largest candidate, {_about(largest[1])} on P = "
+          f"{largest[1].n_procs}, needs {largest[0]} bytes a rank")
+    table, read = kernel_smem_bytes(), kernel_smem_attributes()
+    for name, (static, dyn) in table.items():
+        print(f"[autotune] (c) {name}: {static} static + {dyn} dynamic bytes "
+              f"of shared memory a block (cudaFuncGetAttributes "
+              f"{read[name][0]}, the launcher asks {read[name][1]}); the "
+              f"entry's smem_bytes {machine.smem_bytes}")
+    check(read == table, f"phase 18 (c): the kernels' shared memory "
+                         f"{read} is not the tile constants' {table}")
+    check(all(s + d <= machine.smem_bytes for s, d in table.values()),
+          "phase 18 (c): a kernel does not fit one SM")
+    return {"free": free, "total": total, "largest": largest[0],
+            "smem": table}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3794,6 +4134,28 @@ def main() -> int:
                   for res in plan_ranks], "card": card}))
     print(f"[phases] 17 done at {time.perf_counter() - t_start:.1f} s "
           f"(phase 17: {time.perf_counter() - t17:.1f} s)")
+
+    # -- 18. the measured autotuner ------------------------------------------
+    t18 = time.perf_counter()
+    A = make_matrix(dev)
+    tuned_one = phase_autotune_one_card(dev, A, card, LAUNCHES,
+                                        reset_launches)
+    del A
+    gc.collect()
+    torch.cuda.empty_cache()
+    tuned_ranks, rank_entries = phase_autotune_ranks()
+    from repro_torch.plan import plan_nystrom, plan_sketch, plan_stream
+    fit = phase_autotune_fit([
+        plan_sketch(N, N, R), plan_nystrom(N, R),
+        plan_stream(N, N, R, chunk_rows=SLAB, l=L, corange=True),
+        plan_sketch(N, N, R, P=AT_WORLD), plan_nystrom(N, R, P=AT_WORLD)])
+    print("[autotune] summary " + json.dumps({
+        "one_card": tuned_one, "ranks": [
+            {task: {k: v for k, v in res[task].items() if k != "records"}
+             for task in res} for res in tuned_ranks],
+        "rank_entries": rank_entries, "fit": fit, "card": card}))
+    print(f"[phases] 18 done at {time.perf_counter() - t_start:.1f} s "
+          f"(phase 18: {time.perf_counter() - t18:.1f} s)")
 
     total = [sum(gemm_times[c][i] for c in "abc") for i in range(3)]
     bound3 = sum(gemm_times[c][3][0] for c in "abc")

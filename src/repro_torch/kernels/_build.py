@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _VP, _U32, _INT, _LL, _F32 = (ctypes.c_void_p, ctypes.c_uint32,
                               ctypes.c_int, ctypes.c_longlong, ctypes.c_float)
+_PI = ctypes.POINTER(ctypes.c_int)
 _OMEGA = (_U32, _U32, _U32, _U32, _U32, _INT, _F32, _VP)
 SIGNATURES = {
     "rt_gen_omega": (_VP, _INT, _INT) + _OMEGA,
@@ -43,6 +44,10 @@ SIGNATURES = {
                                           _VP),
     "rt_sparse_fold": (_VP,) + (_INT,) * 4 + (_LL, _LL) + (_VP,) * 6
                       + (_INT,) * 7 + (_VP,),
+    "rt_sketch_fwd_smem": (_INT, _PI, _PI),
+    "rt_sketch_t_smem": (_PI, _PI),
+    "rt_fold_rows_smem": (_PI, _PI),
+    "rt_sparse_fold_smem": (_INT, _PI, _PI),
 }
 
 

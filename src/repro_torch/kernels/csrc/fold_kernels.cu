@@ -288,4 +288,17 @@ int rt_fold_rows(const void* call, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The shared memory a block of fold_rows_kernel takes, for the planner's
+// fit: *static_bytes from cudaFuncGetAttributes; it asks for no dynamic
+// shared memory.
+int rt_fold_rows_smem(int* static_bytes, int* dynamic_bytes) {
+  using namespace repro_torch;
+  cudaFuncAttributes attr;
+  const auto k = fold_rows_kernel<float, float, 4, true>;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, k);
+  if (err == cudaSuccess) *static_bytes = static_cast<int>(attr.sharedSizeBytes);
+  *dynamic_bytes = 0;
+  return static_cast<int>(err);
+}
+
 }  // extern "C"

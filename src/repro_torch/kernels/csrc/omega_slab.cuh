@@ -125,5 +125,16 @@ inline bool misaligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 != 0;
 }
 
+// cudaFuncGetAttributes' sharedSizeBytes of `kernel` into *bytes: the
+// static shared memory a block takes, for the planner's fit
+// (kernel_smem_bytes in kernels/sketch_matmul.py).
+template <typename F>
+cudaError_t static_smem(F kernel, int* bytes) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) *bytes = static_cast<int>(attr.sharedSizeBytes);
+  return err;
+}
+
 }  // namespace
 }  // namespace repro_torch

@@ -523,4 +523,42 @@ int rt_sketch_fwd(const void* A, const void* acc, void* out, void* scratch,
                           st));
 }
 
+// The shared memory a block of this file's kernels takes, for the
+// planner's fit: *static_bytes from cudaFuncGetAttributes, *dynamic_bytes
+// what the launch asks for.  which: 0 gen_omega_kernel, 1
+// omega_slab_draw_kernel, 2 split_reduce_kernel, 3 sketch_fwd_gemm_kernel,
+// 4 / 5 / 6 sketch_fwd_narrow_kernel for n <= 4 / 8 / 16.
+int rt_sketch_fwd_smem(int which, int* static_bytes, int* dynamic_bytes) {
+  using namespace repro_torch;
+  cudaError_t err = cudaErrorInvalidValue;
+  int dyn = 0;
+  if (which == 0) {
+    const auto k = gen_omega_kernel;
+    err = static_smem(k, static_bytes);
+  } else if (which == 1) {
+    const auto k = omega_slab_draw_kernel;
+    err = static_smem(k, static_bytes);
+  } else if (which == 2) {
+    const auto k = split_reduce_kernel<float>;
+    err = static_smem(k, static_bytes);
+  } else if (which == 3) {
+    const auto k = sketch_fwd_gemm_kernel<kA16, float>;
+    err = static_smem(k, static_bytes);
+  } else if (which == 4) {
+    const auto k = sketch_fwd_narrow_kernel<4, kA16, float>;
+    err = static_smem(k, static_bytes);
+    dyn = Narrow<4>::kSmem;
+  } else if (which == 5) {
+    const auto k = sketch_fwd_narrow_kernel<8, kA16, float>;
+    err = static_smem(k, static_bytes);
+    dyn = Narrow<8>::kSmem;
+  } else if (which == 6) {
+    const auto k = sketch_fwd_narrow_kernel<16, kA16, float>;
+    err = static_smem(k, static_bytes);
+    dyn = Narrow<16>::kSmem;
+  }
+  *dynamic_bytes = dyn;
+  return static_cast<int>(err);
+}
+
 }  // extern "C"

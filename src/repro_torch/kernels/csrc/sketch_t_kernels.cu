@@ -271,4 +271,14 @@ int rt_sketch_t(const void* B, const void* acc, void* out, void* scratch,
                          st);
 }
 
+// The shared memory a block of sketch_t_gemm_kernel takes, for the
+// planner's fit: *static_bytes from cudaFuncGetAttributes; it asks for no
+// dynamic shared memory.
+int rt_sketch_t_smem(int* static_bytes, int* dynamic_bytes) {
+  using namespace repro_torch;
+  const auto k = sketch_t_gemm_kernel<kB16, float>;
+  *dynamic_bytes = 0;
+  return static_cast<int>(static_smem(k, static_bytes));
+}
+
 }  // extern "C"

@@ -424,4 +424,27 @@ int rt_sparse_fold(void* acc, int dtype, int nseg, int width, int nnz,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The shared memory a block of S1 takes, for the planner's fit:
+// *static_bytes from cudaFuncGetAttributes, *dynamic_bytes the most a
+// launch asks for (the tile form's f32 tile of kTileRows rows and its
+// kTC + 1 offsets; the rows form asks for none).  which: 0 the rows form,
+// 1 the tile form.
+int rt_sparse_fold_smem(int which, int* static_bytes, int* dynamic_bytes) {
+  using namespace repro_torch;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaErrorInvalidValue;
+  int dyn = 0;
+  if (which == 0) {
+    const auto k = sparse_fold_rows_kernel<float, true, false>;
+    err = cudaFuncGetAttributes(&attr, k);
+  } else if (which == 1) {
+    const auto k = sparse_fold_tile_kernel<float, true, false>;
+    err = cudaFuncGetAttributes(&attr, k);
+    dyn = 4 * (kTileRows * kPitch + kRowBytes / 4 + 1);
+  }
+  if (err == cudaSuccess) *static_bytes = static_cast<int>(attr.sharedSizeBytes);
+  *dynamic_bytes = dyn;
+  return static_cast<int>(err);
+}
+
 }  // extern "C"

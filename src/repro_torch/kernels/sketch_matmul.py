@@ -44,6 +44,7 @@ refused, and adds one to ``LAUNCHES[name]`` once the launch is accepted
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import operator
 import struct
@@ -725,3 +726,94 @@ def sparse_fold_cuda(acc: torch.Tensor, ptr: torch.Tensor, val: torch.Tensor,
             plan["tj"], plan["smem"], *plan["grid"], _stream(acc.device))
     _launched(rc, name)
     return acc
+
+
+# ---------------------------------------------------------------------------
+# shared memory a block of each kernel takes (the planner's fit)
+# ---------------------------------------------------------------------------
+
+# The k depth of the tiled GEMMs' shared-memory stages (kBK of
+# csrc/sketch_kernels.cu:134 and csrc/sketch_t_kernels.cu:65); each keeps
+# two stages of a kBK x kBM tile of one operand and a kBK x kBN tile of the
+# other, in f32 (sketch_kernels.cu:151-152, sketch_t_kernels.cu:87-88).
+SKETCH_FWD_BK = 16
+SKETCH_T_BK = 8
+# The narrow sketch_fwd kernel stages Omega's NP columns in chunks of
+# 24576 / NP rows, each column padded by 4 words, in dynamic shared memory
+# (Narrow<NP>::kSmem, sketch_kernels.cu:296-302).
+_NARROW_CHUNK_WORDS = 24576
+
+
+def _narrow_smem(np_: int) -> int:
+    return 4 * np_ * (_NARROW_CHUNK_WORDS // np_ + 4)
+
+
+def kernel_smem_bytes() -> dict:
+    """Shared memory a block of each of the port's kernels takes,
+    ``{kernel: (static bytes, dynamic bytes)}``, from the tile constants
+    of ``csrc/`` (the reference's ``vmem_fit_bytes``: the port's tiles are
+    fixed, so one number a kernel).  The dynamic bytes are the most a
+    launch asks for.  ``kernel_smem_attributes`` reads the same numbers
+    on the card."""
+    fwd = 2 * SKETCH_FWD_BK * (SKETCH_FWD_TILE + SKETCH_FWD_TILE) * 4
+    t = 2 * SKETCH_T_BK * (SKETCH_T_TILE + SKETCH_T_TILE) * 4
+    tile = sparse_fold_plan(1, SPARSE_TILE_ROWS, 1, torch.float32)["smem"]
+    return {"gen_omega_kernel": (0, 0),
+            "omega_slab_draw_kernel": (0, 0),
+            "split_reduce_kernel": (0, 0),
+            "sketch_fwd_gemm_kernel": (fwd, 0),
+            "sketch_fwd_narrow_kernel<4>": (0, _narrow_smem(4)),
+            "sketch_fwd_narrow_kernel<8>": (0, _narrow_smem(8)),
+            "sketch_fwd_narrow_kernel<16>": (0, _narrow_smem(16)),
+            "sketch_t_gemm_kernel": (t, 0),
+            "fold_rows_kernel": (0, 0),
+            "sparse_fold_rows_kernel": (0, 0),
+            "sparse_fold_tile_kernel": (0, tile)}
+
+
+def sketch_fwd_kernels(n: int) -> tuple:
+    """The kernels one ``sketch_fwd`` call of ``n`` output columns
+    launches: the Omega slab's draw, the narrow or tiled product, and the
+    split reduce (launched only when split)."""
+    if sketch_fwd_narrow(n):
+        np_ = 4 if n <= 4 else 8 if n <= 8 else 16
+        body = f"sketch_fwd_narrow_kernel<{np_}>"
+    else:
+        body = "sketch_fwd_gemm_kernel"
+    return ("omega_slab_draw_kernel", body, "split_reduce_kernel")
+
+
+SKETCH_T_KERNELS = ("omega_slab_draw_kernel", "sketch_t_gemm_kernel",
+                    "split_reduce_kernel")
+
+
+def kernel_smem_attributes() -> dict:
+    """:func:`kernel_smem_bytes` read on the card: each kernel's
+    ``cudaFuncGetAttributes`` ``sharedSizeBytes`` and the dynamic bytes
+    its launcher asks for, from the built library."""
+    lib = _build.library()
+    s, d = ctypes.c_int(), ctypes.c_int()
+    out = {}
+
+    def read(name, rc):
+        if rc != 0:
+            msg = lib.rt_error_string(rc).decode()
+            raise KernelLaunchError(f"cudaFuncGetAttributes of {name}: "
+                                    f"error {rc} ({msg})")
+        out[name] = (s.value, d.value)
+    fwd = ("gen_omega_kernel", "omega_slab_draw_kernel",
+           "split_reduce_kernel", "sketch_fwd_gemm_kernel",
+           "sketch_fwd_narrow_kernel<4>", "sketch_fwd_narrow_kernel<8>",
+           "sketch_fwd_narrow_kernel<16>")
+    for i, name in enumerate(fwd):
+        read(name, lib.rt_sketch_fwd_smem(i, ctypes.byref(s),
+                                          ctypes.byref(d)))
+    read("sketch_t_gemm_kernel",
+         lib.rt_sketch_t_smem(ctypes.byref(s), ctypes.byref(d)))
+    read("fold_rows_kernel",
+         lib.rt_fold_rows_smem(ctypes.byref(s), ctypes.byref(d)))
+    for i, name in enumerate(("sparse_fold_rows_kernel",
+                              "sparse_fold_tile_kernel")):
+        read(name, lib.rt_sparse_fold_smem(i, ctypes.byref(s),
+                                           ctypes.byref(d)))
+    return out

@@ -1,20 +1,27 @@
-"""repro_torch.plan — the cost model and the execution planner (the
-reference's ``repro.plan`` less its measured autotuner, ROADMAP item 7c).
+"""repro_torch.plan — the cost model, the execution planner and its
+measured autotuner (the reference's ``repro.plan``).
 
 ``plan_sketch`` / ``plan_nystrom`` / ``plan_stream`` price every variant
 the port can run (Alg. 1 grids, Alg. 2 redist / no_redist / two-grid, the
 one-card ``cuda_fused`` kernels and ``local_torch``, streaming ingest,
 the sparse family) on a :class:`MachineModel`, audit the winner against
 the lower bounds, and return a :class:`Plan` whose ``execute`` makes the
-call it names; ``explain`` renders the decision.
+call it names; ``autotune`` refines the choice by timing the candidates
+on the device; ``explain`` renders the decision.
 
   model.py    — machine entries and analytic per-variant costs
   planner.py  — candidates, Plan, dispatch, the gradient-exchange plan
-  autotune.py — calibration of the machine model from measured records
+  autotune.py — the measured autotuner, its cache and shipped decisions,
+                and the calibration of the machine model from its records
   explain.py  — reports (regimes, crossovers, bound gaps)
 """
-from .autotune import (calibrate_machine_model, load_sweep,  # noqa: F401
-                       save_sweep)
+# ``autotune`` is the module, callable as its ``autotune`` function
+# (plan/autotune.py), so that ``repro_torch.plan.autotune(plan)`` tunes, as
+# the reference's does, and the module's names stay reachable from it.
+from . import autotune  # noqa: F401
+from .autotune import (PRESET_ENTRIES, AutotuneCache,  # noqa: F401
+                       cache_key, calibrate_machine_model, default_timer,
+                       load_sweep, save_sweep, shape_bucket, sweep_records)
 from .explain import (bound_report, explain,  # noqa: F401
                       explain_train_compression, nystrom_crossover_P,
                       regime_sweep, sketch_zero_comm_limit)

@@ -90,7 +90,10 @@ def explain(plan: Plan) -> str:
                  f"{_fmt(plan.predicted_hbm_words)} device-memory "
                  f"words/proc, est {_fmt(plan.predicted_seconds)} s")
     if plan.measured_seconds is not None:
-        lines.append(f"          measured {_fmt(plan.measured_seconds)} s")
+        lines.append(f"          measured {_fmt(plan.measured_seconds)} s "
+                     f"(autotuned)")
+    for note in plan.notes:
+        lines.append(f"  autotune: {note}")
     if (plan.task == "nystrom" and plan.grid and plan.q_grid
             and tuple(plan.grid) != tuple(plan.q_grid)):
         n, r = plan.dims

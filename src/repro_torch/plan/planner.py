@@ -42,8 +42,8 @@ What differs from the reference, and why:
     the port needs one.
   * ``P=None`` is the default process group's world size (1 without one).
 
-The ranking is analytic; refining it with measured times is the
-autotuner's (ROADMAP item 7c, not ported).
+The ranking is analytic; ``plan.autotune`` refines it with times measured
+on the device.
 """
 from __future__ import annotations
 
@@ -126,7 +126,12 @@ class Plan:
     chunk_rows: Optional[int] = None
     corange: bool = False                      # stream plans only
     sketch_l: Optional[int] = None             # stream plans only
-    measured_seconds: Optional[float] = None   # the autotuner's (item 7c)
+    measured_seconds: Optional[float] = None   # set by plan.autotune
+    nnz: Optional[float] = None                # stored-sparse A's nonzeros
+    # the Omega kind asked for: ``kind`` differs where a sparse variant
+    # won and substituted CountSketch; the dense candidates draw this one
+    requested_kind: Optional[str] = None
+    notes: Tuple[str, ...] = ()                # the autotuner's, for explain
 
     @property
     def bound_gap_words(self) -> float:
@@ -357,7 +362,7 @@ def plan_sketch(n1: int, n2: int, r: int, P: Optional[int] = None,
                         cands, lb, regime)
     if nnz is not None and plan.variant in ("local_sparse", "alg1_sparse"):
         plan = dataclasses.replace(plan, kind=skind)
-    return plan
+    return dataclasses.replace(plan, nnz=nnz)
 
 
 def _note_sparse_losses(cands, kind: str, skind: str, nnz: int,
@@ -541,7 +546,7 @@ def plan_stream(n1: int, n2: int, r: int, P: Optional[int] = None,
     if nnz is not None and plan.variant == "stream_sparse":
         plan = dataclasses.replace(plan, kind=skind)
     return dataclasses.replace(plan, chunk_rows=chunk_rows, corange=corange,
-                               sketch_l=l)
+                               sketch_l=l, nnz=nnz)
 
 
 # ---------------------------------------------------------------------------
@@ -707,4 +712,5 @@ def _finish_plan(task: str, dims: Tuple[int, ...], P: int, dtype: str,
         predicted_hbm_words=chosen.cost.hbm_words,
         predicted_seconds=chosen.seconds,
         lower_bound_words=lb, regime=regime, candidates=cands,
-        machine=machine.name, executable=chosen.executable)
+        machine=machine.name, executable=chosen.executable,
+        requested_kind=kind)

@@ -1061,3 +1061,67 @@ def test_one_card_nystrom_and_stream_plans_on_the_card(sm90):
     assert torch.equal(st.sketch, ref.sketch)
     assert torch.equal(st.corange_sketch, ref.corange_sketch)
     assert torch.equal(st.sketch, B0)
+
+
+def test_default_timer_times_a_sleep_kernel(sm90):
+    """``default_timer`` reads CUDA events on the current stream: a sleep
+    kernel of twice the cycles takes twice the time, and the events see
+    no more than the host clock around a synchronize does."""
+    import time
+
+    from repro_torch.plan import default_timer
+    cycles = 20_000_000                     # about 10 ms at the SM clock
+    one = default_timer(lambda: torch.cuda._sleep(cycles))
+    two = default_timer(lambda: torch.cuda._sleep(2 * cycles))
+    assert 1.8 <= two / one <= 2.2
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(cycles)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = sorted(walls)[1]
+    assert 0.7 * wall <= one <= 1.05 * wall
+
+
+def test_kernel_shared_memory_is_the_tile_constants(sm90):
+    """``kernel_smem_bytes`` (from the tile constants of csrc/) against
+    ``cudaFuncGetAttributes`` and the dynamic bytes each launcher asks
+    for; every kernel fits one SM of the H100 entry."""
+    from repro_torch.kernels.sketch_matmul import (kernel_smem_attributes,
+                                                   kernel_smem_bytes)
+    from repro_torch.plan import H100_GLOO, PRESETS
+    got = kernel_smem_attributes()
+    assert got == kernel_smem_bytes()
+    smem = torch.cuda.get_device_properties(sm90) \
+        .shared_memory_per_multiprocessor
+    assert PRESETS[H100_GLOO].smem_bytes == smem
+    assert all(sum(b) <= smem for b in got.values())
+
+
+def test_autotune_on_the_card_executes_its_winner(sm90, tmp_path):
+    """A small sketch tuned on the card with CUDA events: the winner is a
+    one-card candidate, executes bitwise its direct call, and a second
+    call on a new cache at the same path is a pure hit."""
+    from repro_torch.core.sketch import sketch_reference
+    from repro_torch.kernels import ops
+    from repro_torch.plan import AutotuneCache, autotune, plan_sketch
+    path = tmp_path / "tune.json"
+    plan = plan_sketch(1024, 2048, 64, P=1)
+    records = []
+    tuned = autotune(plan, cache=str(path), records=records, presets={})
+    assert sorted(r["variant"] for r in records) == ["cuda_fused",
+                                                      "local_torch"]
+    assert tuned.measured_seconds == min(r["seconds"] for r in records) > 0
+    g = torch.Generator(device=sm90).manual_seed(5)
+    A = torch.randn(1024, 2048, device=sm90, generator=g)
+    direct = {"cuda_fused": lambda: ops.sketch_matmul(A, seed=7, r=64),
+              "local_torch": lambda: sketch_reference(A, 7, 64)}
+    assert torch.equal(tuned.execute(A, seed=7), direct[tuned.variant]())
+
+    def forbidden(fn):
+        raise AssertionError("a hit ran the timer")
+    cache = AutotuneCache(path)
+    hit = autotune(plan, cache=cache, timer=forbidden, presets={})
+    assert cache.hits == 1 and hit.variant == tuned.variant

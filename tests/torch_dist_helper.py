@@ -846,3 +846,133 @@ def planner_worker(rank, world, spec):
                     and same(svc.corange(sid), svc_ref.corange(sid_ref))),
         "words": (w, w_ref)}
     return out
+
+
+def autotune_worker(rank, world, spec):
+    """One rank of the autotuner's rank agreement on the CPU, on the
+    ``cpu`` machine entry.  Each rank's timer calls the candidate once
+    (the collectives run on every rank in one order) and returns a
+    seconds of its own: rank ``i % world`` sees candidate ``i`` at
+    ``3 - 0.1·i``, every other rank at 1, so a rank alone would pick
+    another candidate than the slowest-rank winner, the last one.
+    ``spec`` holds ``seed``, ``dir`` (a directory for the caches),
+    ``sketch`` (A, r), ``S`` and ``s_r`` (a symmetric A) and ``stream``
+    (A, r, chunk_rows).  Each task is tuned against a cache at
+    ``dir/<task>_rank<rank>.json``, its plan executed beside the
+    explicit call it names, then tuned again (a timer that raises) for
+    the hit; last, the sketch with a preset that only rank 0 is given.
+    Returns per task the timed candidates, this rank's and the records'
+    seconds, the tuned and the hit plans, whether the execution was
+    bitwise, and this rank's cache counts."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import nystrom as nys
+    from repro_torch.core import sketch as sk
+    from repro_torch.plan import (PRESETS, AutotuneCache, autotune,
+                                  cache_key, plan_nystrom, plan_sketch,
+                                  plan_stream)
+    from repro_torch.stream import ShardedStreamingSketch, StreamConfig
+
+    cpu = PRESETS["cpu"]
+    seed = spec["seed"]
+
+    def about(plan):
+        return (plan.variant, plan.grid, plan.q_grid, plan.chunk_rows,
+                plan.predicted_words, plan.measured_seconds)
+
+    def timer_for(seen):
+        def timer(fn):
+            i = len(seen)
+            fn()
+            secs = 3.0 - 0.1 * i if i % world == rank else 1.0
+            seen.append(secs)
+            return secs
+        return timer
+
+    def forbidden(fn):
+        raise AssertionError("a cache hit ran the timer")
+
+    A = torch.from_numpy(np.array(spec["sketch"][0]))
+    r = spec["sketch"][1]
+    S = torch.from_numpy(np.array(spec["S"]))
+    s_r = spec["s_r"]
+    Ast = torch.from_numpy(np.array(spec["stream"][0]))
+    st_r, k = spec["stream"][1], spec["stream"][2]
+    plans = {"sketch": plan_sketch(*A.shape, r, P=world, machine=cpu),
+             "nystrom": plan_nystrom(S.shape[0], s_r, P=world, machine=cpu),
+             "stream": plan_stream(*Ast.shape, st_r, P=world, chunk_rows=k,
+                                   corange=True, machine=cpu)}
+
+    def explicit(task, plan):
+        if task == "sketch":
+            g = sk.make_grid_groups(*plan.grid)
+            return plan.execute(A, seed, device="cpu"), sk.rand_matmul(
+                sk.input_block(A, g), seed, r, g)
+        if task == "nystrom":
+            got = plan.execute(S, seed, device="cpu")
+            g = sk.make_grid_groups(*plan.grid)
+            fn = {"alg2_no_redist": nys.nystrom_no_redist,
+                  "alg2_redist": nys.nystrom_redist}.get(plan.variant)
+            if fn is not None:
+                return got, fn(sk.input_block(S, g), seed, s_r, g)
+            fn = (nys.nystrom_two_grid_fused
+                  if plan.variant == "alg2_bound_driven_fused"
+                  else nys.nystrom_two_grid)
+            return got, fn(sk.input_block(S, g), seed, s_r, p=plan.grid,
+                           q=plan.q_grid)
+        st = plan.execute(Ast, seed, device="cpu")
+        cfg = StreamConfig(n1=Ast.shape[0], n2=Ast.shape[1], r=st_r,
+                           seed=seed, corange=True)
+        ref = ShardedStreamingSketch(cfg, sk.make_grid_groups(*plan.grid),
+                                     device="cpu")
+        for row0 in range(0, Ast.shape[0], plan.chunk_rows):
+            ref.update_rows(row0, Ast[row0:row0 + plan.chunk_rows])
+        return (st.Y, st.W), (ref.Y, ref.W)
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return all(same(x, y) for x, y in zip(a, b))
+        if a is None or b is None:
+            return a is None and b is None
+        return torch.equal(a, b)
+
+    out = {}
+    for task, plan in plans.items():
+        path = os.path.join(spec["dir"], f"{task}_rank{rank}.json")
+        seen, records = [], []
+        cache = AutotuneCache(path)
+        tuned = autotune(plan, cache=cache, timer=timer_for(seen),
+                         device="cpu", machine=cpu, presets={},
+                         records=records)
+        got, want = explicit(task, tuned)
+        dist.barrier()
+        files = [os.path.exists(os.path.join(spec["dir"],
+                                             f"{task}_rank{i}.json"))
+                 for i in range(world)]
+        again_cache = AutotuneCache(path)
+        again = autotune(plan, cache=again_cache, timer=forbidden,
+                         device="cpu", machine=cpu, presets={})
+        out[task] = {"tuned": about(tuned), "again": about(again),
+                     "local": seen,
+                     "records": [(rec["variant"],
+                                  tuple(rec["grid"]) if rec["grid"] else None,
+                                  tuple(rec["q_grid"]) if rec["q_grid"]
+                                  else None, rec["chunk_rows"],
+                                  rec["seconds"]) for rec in records],
+                     "bitwise": same(got, want), "files": files,
+                     "counts": (cache.hits, cache.misses, again_cache.hits,
+                                again_cache.misses)}
+    plan = plans["sketch"]
+    entry = {"variant": "alg1", "grid": list(spec["preset_grid"]),
+             "q_grid": None, "chunk_rows": None, "source": "measured",
+             "seconds": 1.0}
+    presets = {cache_key(plan, device="cpu"): entry} if rank == 0 else {}
+    pre = autotune(plan, timer=forbidden, device="cpu", machine=cpu,
+                   presets=presets)
+    got, want = explicit("sketch", pre)
+    out["preset"] = {"plan": about(pre), "bitwise": same(got, want)}
+    return out
