@@ -332,7 +332,39 @@ and the measured autotuner (``autotune``):
                   the largest candidate's bytes, and each kernel's shared
                   memory (``kernel_smem_bytes``) held to
                   ``cudaFuncGetAttributes`` and the H100 entry's
-                  ``smem_bytes``.
+                  ``smem_bytes``;
+
+and the communication ledger (``repro_torch.obs``):
+
+ 19. ledger     — (a) on one card under ``install_observability()``:
+                  phase 17's three one-card ``Plan.execute`` calls (one
+                  analytic ``plan.execute[...]`` record each, its
+                  ``cache_key``, one call, a wall > 0), the service at
+                  phases 6-8's stream shape (``update`` of one row slab,
+                  ``update_batch`` of 8 lanes, ``update_ragged`` of 64
+                  lanes) and ``update_sparse`` / ``update_sparse_batch``
+                  with phase 16's ``StreamConfig`` and first COO slab:
+                  each observed site 0 words at a 0 floor (bound fraction
+                  1.0, drift 0.0), the sparse records ``2·nnz`` words;
+                  the launches of the run (counts reset just before);
+                  ``honesty_report`` with the H100 entry's ``byte_bw / 4``
+                  words a second; then the ledger's hot-path cost:
+                  ``update_ragged`` rounds (16 lanes of 64 rows at phase
+                  8's width) with and without observability, interleaved,
+                  the ratio of the minima printed (no gate); (b) on four
+                  ranks of the card over gloo (``_obs_rank``):
+                  ``ShardedStreamingSketch.update`` and ``update_rows`` of
+                  one slab on (4,1,1), (2,2,1), (1,2,2), a grid service's
+                  ``update`` on (2,2,1), ``nystrom_two_grid_fused`` on
+                  ((4,1,1), (1,1,4)) and the P = 4 sketch and Nystrom
+                  ``Plan.execute``: on every rank each measured site's
+                  words equal the rank's ``COMM`` delta and the words
+                  phases 12-15 count for the call, at drift 0; then a
+                  stale decision (the P = 4 sketch's 0 predicted words
+                  and its cache key, run on (2,2,1)) and
+                  ``revalidate_autotune`` on a temporary cache holding
+                  phase 18's keys: only the flagged key is popped, and a
+                  second call pops nothing; (c) the phase under 90 s.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -3799,6 +3831,368 @@ def phase_autotune_fit(sweeps) -> dict:
             "smem": table}
 
 
+# -- phase 19: the communication ledger --------------------------------------
+
+OBS_WORLD = 4
+OBS_GRIDS = [(4, 1, 1), (2, 2, 1), (1, 2, 2)]
+OBS_SERVICE_GRID = (2, 2, 1)
+OBS_FUSED = ((4, 1, 1), (1, 1, 4))
+OBS_DRILL_GRID = (2, 2, 1)               # where the stale decision runs
+OBS_LANES = 64                           # (a)'s update_ragged lanes
+OBS_BATCH = (8, 128)                     # (a)'s update_batch: lanes, rows
+OBS_HOT_LANES, OBS_HOT_K, OBS_HOT_PAIRS = 16, 64, 40
+OBS_SECONDS = 90                         # (c): the phase's time limit
+
+
+def obs_hot_path(dev, card: str) -> dict:
+    """Phase 19 (a), the ledger's hot-path cost: ``update_ragged`` rounds
+    (OBS_HOT_LANES lanes of OBS_HOT_K rows at phase 8's width, each ended
+    by a synchronize) timed on the host clock, untraced and traced
+    interleaved (the reference's ``tests/test_obs.py`` overhead test):
+    the tracer and ledger are installed once and reused, the minimum of
+    each class kept.  Printed, not gated."""
+    from repro_torch import obs
+    from repro_torch.stream import SketchService, StreamConfig
+    svc = SketchService()
+    sids = [svc.open(StreamConfig(S_N1, S_N2, r=S_R, seed=s))
+            for s in range(OBS_HOT_LANES)]
+    items = [(sid, np.ones((OBS_HOT_K, S_N2), np.float32), 0)
+             for sid in sids]
+
+    def timed():
+        t0 = time.perf_counter()
+        svc.update_ragged(items)
+        svc.sync()
+        return time.perf_counter() - t0
+
+    timed()                                 # warm every path
+    tracer = obs.Tracer(max_spans=1_000_000)
+    ledger = obs.CommLedger()
+    obs.install_tracer(tracer)
+    obs.install_ledger(ledger)
+    timed()                                 # the site's first call
+    obs.uninstall_observability()
+    untraced = traced = math.inf
+    for _ in range(OBS_HOT_PAIRS):
+        untraced = min(untraced, timed())
+        obs.install_tracer(tracer)
+        obs.install_ledger(ledger)
+        try:
+            traced = min(traced, timed())
+        finally:
+            obs.uninstall_observability()
+    site = ledger.site("service.update_ragged")
+    check(site is not None and site.calls == OBS_HOT_PAIRS + 1
+          and site.measured_words == 0.0,
+          f"phase 19 (a): the hot path's ledger site {site}")
+    ratio = traced / untraced
+    print(f"[ledger] (a) hot path: update_ragged of {OBS_HOT_LANES} lanes x "
+          f"{OBS_HOT_K} rows ({S_N1}x{S_N2}, r={S_R}), {OBS_HOT_PAIRS} "
+          f"interleaved pairs, host clock around a synchronized round: "
+          f"untraced min {untraced * 1e3:.4f} ms, traced (tracer + ledger) "
+          f"min {traced * 1e3:.4f} ms, traced/untraced {ratio:.4f} ({card})")
+    del svc
+    torch.cuda.empty_cache()
+    return {"untraced_s": untraced, "traced_s": traced, "ratio": ratio}
+
+
+def phase_obs_one_card(dev, card: str, LAUNCHES, reset_launches) -> dict:
+    """Phase 19 (a): one card under ``install_observability()``."""
+    from repro_torch import obs
+    from repro_torch.parallel import collectives as col
+    from repro_torch.plan import (H100_GLOO, PRESETS, cache_key,
+                                  plan_nystrom, plan_sketch, plan_stream)
+    from repro_torch.stream import SketchService, SparseRows, StreamConfig
+    machine = PRESETS[H100_GLOO]
+    cfg = StreamConfig(N, N, r=R, seed=SEED)
+    plans = {"sketch": plan_sketch(N, N, R), "nystrom": plan_nystrom(N, R),
+             "stream": plan_stream(N, N, R, chunk_rows=SLAB,
+                                   l=cfg.sketch_l, corange=True)}
+    # every payload made before the counts are reset
+    rng = np.random.default_rng(19)
+    ks = [int(k) for k in rng.integers(1, S_KMAX + 1, OBS_LANES)]
+    lanes = [(rng.standard_normal((k, S_N2), dtype=np.float32),
+              int(rng.integers(0, S_N1 - k + 1))) for k in ks]
+    H_one = rng.standard_normal((S_KMAX, S_N2), dtype=np.float32)
+    nb, kb = OBS_BATCH
+    H_batch = rng.standard_normal((nb, kb, S_N2), dtype=np.float32)
+    slab = SparseRows(*sparse_coo(np.random.default_rng(0), SLAB, N,
+                                  SP_DISTINCT, SP_REPEATS), (SLAB, N))
+    A = make_matrix(dev)
+    torch.cuda.synchronize()
+    tracer, ledger, _ = obs.install_observability()
+    try:
+        reset_launches()
+        col.reset_comm()
+        t0 = time.perf_counter()
+        for task, plan in plans.items():
+            out = plan.execute(A, seed=SEED, device=dev)
+            del out
+        del A
+        svc = SketchService()
+        sids = [svc.open(StreamConfig(S_N1, S_N2, r=S_R, seed=s))
+                for s in range(OBS_LANES)]
+        svc.update(sids[0], H_one, row0=0)
+        svc.update_batch(sids[:nb], H_batch, row0=[i * kb for i in range(nb)])
+        svc.update_ragged([(sid, H, r0) for sid, (H, r0) in zip(sids, lanes)])
+        sp = SketchService()
+        sp_sids = [sp.open(cfg), sp.open(StreamConfig(N, N, r=R,
+                                                      seed=SEED + 1))]
+        sp.update_sparse(sp_sids[0], slab, row0=0)
+        sp.update_sparse_batch(sp_sids, [slab, slab], row0=[SLAB, 2 * SLAB])
+        svc.sync()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        words = col.comm_words()
+        states = [svc.sketch(s) for s in sids] + [sp.sketch(s)
+                                                  for s in sp_sids]
+        check(all(torch.isfinite(Y).all().item() for Y in states),
+              "phase 19 (a): a non-finite stream after the ledger's run")
+        del svc, sp, states
+    finally:
+        obs.uninstall_observability()
+    torch.cuda.empty_cache()
+    check(words == 0, f"phase 19 (a): {words} words counted on one card")
+    print(f"[ledger] (a) one card: 3 plans executed, the service's "
+          f"update / update_batch ({nb} lanes of {kb} rows) / update_ragged "
+          f"({OBS_LANES} lanes, heights in [1, {S_KMAX}]) at {S_N1}x{S_N2}, "
+          f"r={S_R}, update_sparse / update_sparse_batch (2 lanes) of "
+          f"{slab.nnz} entries at {N}x{N}, r={R}, in {wall:.3f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} } ({card})")
+    for name in ("sketch_fwd", "sketch_t", "fold_rows", "sparse_fold"):
+        check(launches.get(name, 0) > 0,
+              f"phase 19 (a): {name} never launched under the ledger")
+    sites = ledger.sites()
+    for task, plan in plans.items():
+        name = f"plan.execute[{task}/{plan.variant}]"
+        got = [s for s in sites if s.name == name]
+        check(len(got) == 1 and got[0].calls == 1 and got[0].wall_s > 0
+              and got[0].cache_key == cache_key(plan)
+              and got[0].measured_words is None
+              and got[0].predicted_words == plan.predicted_words,
+              f"phase 19 (a): {name}: {got}")
+    for name in ("service.update[local]", "service.update_batch",
+                 "service.update_ragged"):
+        got = [s for s in sites if s.name == name]
+        check(got and all((s.measured_words_per_call, s.predicted_words,
+                           s.lower_bound_words, s.bound_fraction, s.drift)
+                          == (0.0, 0.0, 0.0, 1.0, 0.0) for s in got),
+              f"phase 19 (a): {name} is not 0 words at a 0 floor: {got}")
+    ragged = sum(s.calls for s in sites if s.name == "service.update_ragged")
+    sparse = sorted((s.predicted_words, s.lower_bound_words, s.calls)
+                    for s in sites if s.name == "service.update[sparse]")
+    nnz = slab.nnz
+    check(sparse == [(2.0 * nnz, float(nnz), 1), (4.0 * nnz, 2.0 * nnz, 1)]
+          and all(s.measured_words is None for s in sites
+                  if s.name == "service.update[sparse]"),
+          f"phase 19 (a): the sparse records {sparse}")
+    report = obs.honesty_report(ledger,
+                                machine_words_per_s=machine.byte_bw / 4)
+    print(f"[ledger] (a) honesty report, one card ({card}; roofline_frac "
+          f"at the H100 entry's byte_bw / 4 = {machine.byte_bw / 4:.6g} "
+          f"words/s; wall_s is the host clock, not synchronized):")
+    print(report)
+    print(f"[ledger] (a) {len(ledger)} sites; update_ragged {ragged} "
+          f"buckets observed, each 0 words at a 0 floor; the sparse "
+          f"records {sparse} (predicted 2·nnz, floor nnz, no measured "
+          f"words) ({card})")
+    hot = obs_hot_path(dev, card)
+    return {"wall_s": wall, "launches": launches, "sites": len(ledger),
+            "report": report, "hot": hot,
+            "rows": [dict(r, card=card) for r in obs.report_rows(ledger)]}
+
+
+def _obs_rank(rank, world, entries, cache_dir, card, device="cuda"):
+    """Phase 19 (b), one rank (``device`` other than the card only to
+    rehearse the phase on the CPU)."""
+    import os
+
+    import torch.distributed as dist
+    from repro_torch import obs
+    from repro_torch.core import nystrom as nys
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.grid import alg1_bandwidth_words
+    from repro_torch.kernels.sketch_matmul import LAUNCHES, reset_launches
+    from repro_torch.parallel import collectives as col
+    from repro_torch.plan import (AutotuneCache, cache_key, plan_nystrom,
+                                  plan_sketch, stream_update_cost)
+    from repro_torch.stream import (ShardedStreamingSketch, SketchService,
+                                    StreamConfig)
+
+    dev = torch.device(device, 0)
+    A = make_matrix(dev)
+    same_matrix(A, rank, world)
+    cfg = StreamConfig(N, N, r=R, seed=SEED)
+    L = cfg.sketch_l
+    groups = {g: sk.make_grid_groups(*g) for g in OBS_GRIDS}
+    p, q = OBS_FUSED
+    plans = {"sketch": plan_sketch(N, N, R, P=world),
+             "nystrom": plan_nystrom(N, R, P=world)}
+    _, ledger, _ = obs.install_observability()
+    rows = []
+    names = ("sketch_fwd", "sketch_t", "fold_rows", "gen_omega")
+    launches = dict.fromkeys(names, 0)
+
+    def call(tag, want, fn):
+        """One call between barriers, its counts reset just before it;
+        every site it touched beside the rank's COMM delta."""
+        before = {id(s): (s.calls, s.measured_words or 0.0)
+                  for s in ledger.sites()}
+        dist.barrier()
+        reset_launches()
+        col.reset_comm()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = col.comm_words()
+        check(delta == want, f"rank {rank}: {tag} received {delta} words, "
+                             f"phases 12-15 count {want}")
+        for k in names:
+            launches[k] += LAUNCHES[k]
+        touched = [s for s in ledger.sites()
+                   if s.calls != before.get(id(s), (0, 0.0))[0]]
+        measured = [s for s in touched if s.measured_words is not None]
+        check(len(measured) <= 1, f"rank {rank}: {tag} touched "
+                                  f"{len(measured)} measured sites")
+        for s in touched:
+            words = (None if s.measured_words is None
+                     else s.measured_words - before.get(id(s),
+                                                        (0, 0.0))[1])
+            if words is not None:
+                check(words == delta == want and s.drift == 0.0,
+                      f"rank {rank}: {tag} {s.name}: measured {words}, COMM "
+                      f"delta {delta}, phases 12-15 count {want}, drift "
+                      f"{s.drift}")
+            rows.append({"tag": tag, "name": s.name, "calls": s.calls,
+                         "words": words, "comm": delta, "want": want,
+                         "pred": s.predicted_words,
+                         "floor": s.lower_bound_words,
+                         "bound_fraction": s.bound_fraction,
+                         "drift": s.drift, "cache_key": s.cache_key,
+                         "wall_s": wall})
+        return out
+
+    for grid in OBS_GRIDS:
+        p1, p2, p3 = grid
+        st = ShardedStreamingSketch(cfg, groups[grid], device=dev)
+        want = (alg1_bandwidth_words(N, N, R, *grid)
+                + 2 * (p1 - 1) * L * N // (p1 * p2 * p3))
+        call(f"update {grid}", want, lambda: st.update(A))
+        r0 = SD_ORDER[0] * SLAB
+        call(f"update_rows {grid}",
+             stream_update_cost(SLAB, N, R, L, grid=grid).words,
+             lambda: st.update_rows(r0, A[r0:r0 + SLAB]))
+        del st
+        torch.cuda.empty_cache()
+    g = groups[OBS_SERVICE_GRID]
+    svc = SketchService(mesh=g, device=dev)
+    sid = svc.open(cfg)
+    p1, p2, p3 = OBS_SERVICE_GRID
+    call(f"service.update {OBS_SERVICE_GRID}",
+         alg1_bandwidth_words(N, N, R, *OBS_SERVICE_GRID)
+         + 2 * (p1 - 1) * L * N // (p1 * p2 * p3),
+         lambda: svc.update(sid, A))
+    del svc
+    torch.cuda.empty_cache()
+    gp = groups[p]
+    A_blk = sk.input_block(A, gp)
+    out = call(f"nystrom_two_grid_fused {p} {q}", TG_WORDS[(p, q, R)][1],
+               lambda: nys.nystrom_two_grid_fused(A_blk, SEED, R, p=p, q=q))
+    del out
+    for task, plan in plans.items():
+        if task == "sketch":
+            want = alg1_bandwidth_words(N, N, R, *plan.grid)
+        else:
+            want = _alg2_counted(plan.variant, plan.grid, plan.q_grid, rank)
+        out = call(f"Plan.execute {task} P={world}", want,
+                   lambda: plan.execute(A, seed=SEED, device=dev))
+        del out
+    # a stale decision: the P = 4 sketch's (4,1,1) prediction and cache
+    # key, run on another grid
+    stale = plans["sketch"]
+    gd = sk.make_grid_groups(*OBS_DRILL_GRID)
+    dist.barrier()
+    with obs.observing("drill.stale_decision", (A, OBS_DRILL_GRID),
+                       predicted_words=stale.predicted_words,
+                       lower_bound_words=stale.lower_bound_words,
+                       cache_key=cache_key(stale)) as ob:
+        sk.rand_matmul(sk.input_block(A, gd), SEED, R, gd)
+    torch.cuda.synchronize()
+    drill_words = ob.site.measured_words
+    check(drill_words == alg1_bandwidth_words(N, N, R, *OBS_DRILL_GRID),
+          f"rank {rank}: the drill moved {drill_words} words")
+    cache = AutotuneCache(os.path.join(cache_dir, f"rank{rank}.json"))
+    for key, entry in entries.items():
+        cache.put(key, entry)
+    flags = obs.drift_flags(ledger)
+    flagged = []
+    for s, _ in flags:
+        if s.cache_key and s.cache_key in entries and s.cache_key not in \
+                flagged:
+            flagged.append(s.cache_key)
+    popped = obs.revalidate_autotune(ledger, cache)
+    again = obs.revalidate_autotune(ledger, cache)
+    left = sorted(k for k in entries if cache.get(k) is not None)
+    check([s.name for s, _ in flags] == ["drill.stale_decision"],
+          f"rank {rank}: drift flags {[(s.name, d) for s, d in flags]}")
+    check(popped == flagged == [cache_key(stale)] and again == []
+          and left == sorted(set(entries) - set(popped)),
+          f"rank {rank}: revalidate_autotune popped {popped} (flagged "
+          f"{flagged}), then {again}; left {left}")
+    report = obs.honesty_report(ledger)
+    obs.uninstall_observability()
+    return {"rows": rows, "launches": launches, "report": report,
+            "flags": [(s.name, s.drift, s.cache_key) for s, _ in flags],
+            "popped": popped, "again": again, "left": left,
+            "drill_words": drill_words, "card": card}
+
+
+def phase_obs_ranks(entries: dict, card: str) -> list:
+    """Phase 19 (b): the ledger on OBS_WORLD ranks of cuda:0 over gloo."""
+    import shutil
+    import tempfile
+    print(f"[ledger] (b) {OBS_WORLD} ranks on cuda:0 over gloo at A = "
+          f"{N}x{N}, r = {R}: update and update_rows on {OBS_GRIDS}, a grid "
+          f"service on {OBS_SERVICE_GRID}, nystrom_two_grid_fused on "
+          f"{OBS_FUSED}, the P = {OBS_WORLD} plans; a stale decision on "
+          f"{OBS_DRILL_GRID}; {len(entries)} autotune keys from phase 18")
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_ledger_")
+    try:
+        results = spawn_ranks(19, _obs_rank, OBS_WORLD,
+                              (entries, cache_dir, card))
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    tags = []
+    for row in results[0]["rows"]:
+        if (row["tag"], row["name"]) not in tags:
+            tags.append((row["tag"], row["name"]))
+    for tag, name in tags:
+        got = [r for res in results for r in res["rows"]
+               if r["tag"] == tag and r["name"] == name]
+        check(len(got) == OBS_WORLD, f"phase 19 (b): {tag} {name} on "
+                                     f"{len(got)} ranks")
+        top = max(got, key=lambda r: (r["comm"], r["words"] or 0))
+        words = ("-" if top["words"] is None
+                 else f"{max(r['words'] for r in got):.0f}")
+        print(f"[ledger] (b) {tag}: {name} largest over ranks: meas_words "
+              f"{words}, COMM delta {max(r['comm'] for r in got):.0f}, "
+              f"phases 12-15 count {top['want']:.0f}; pred_words "
+              f"{top['pred']:.6g}, thm_floor {top['floor']:.6g}, bound_frac "
+              f"{top['bound_fraction']}, drift {top['drift']}; slowest wall "
+              f"{max(r['wall_s'] for r in got):.4f} s ({card})")
+    res0 = results[0]
+    same = all(r["popped"] == res0["popped"] and r["left"] == res0["left"]
+               for r in results)
+    print(f"[ledger] (b) drift flags {res0['flags']}; revalidate_autotune "
+          f"popped {res0['popped']}, then {res0['again']}; keys left "
+          f"{res0['left']} (every rank the same: {same})")
+    print(f"[ledger] (b) rank 0's honesty report ({card}):")
+    print(res0["report"])
+    check(same, "phase 19 (b): the ranks popped differently")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4156,6 +4550,27 @@ def main() -> int:
         "rank_entries": rank_entries, "fit": fit, "card": card}))
     print(f"[phases] 18 done at {time.perf_counter() - t_start:.1f} s "
           f"(phase 18: {time.perf_counter() - t18:.1f} s)")
+
+    # -- 19. the communication ledger -----------------------------------------
+    t19 = time.perf_counter()
+    obs_one = phase_obs_one_card(dev, card, LAUNCHES, reset_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(AT_CACHE) as f:
+        entries = dict(json.load(f)["entries"])
+    entries.update(rank_entries)
+    obs_ranks = phase_obs_ranks(entries, card)
+    t19 = time.perf_counter() - t19
+    check(t19 < OBS_SECONDS, f"phase 19 took {t19:.1f} s, not under "
+                             f"{OBS_SECONDS} s")
+    print("[ledger] summary " + json.dumps({
+        "one_card": {k: v for k, v in obs_one.items() if k != "report"},
+        "ranks": [{k: res[k] for k in ("rows", "launches", "flags", "popped",
+                                       "again", "left")}
+                  for res in obs_ranks],
+        "seconds": t19, "card": card}, default=str))
+    print(f"[phases] 19 done at {time.perf_counter() - t_start:.1f} s "
+          f"(phase 19: {t19:.1f} s; {card})")
 
     total = [sum(gemm_times[c][i] for c in "abc") for i in range(3)]
     bound3 = sum(gemm_times[c][3][0] for c in "abc")

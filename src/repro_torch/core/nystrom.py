@@ -33,10 +33,14 @@ P((p1, p2), p3) to P(q1, (q3, q2)) by one counted uneven all-to-all
 sketches C's partial and reduce-scatters it over q1.  B comes out in the
 q-layout and C in P((q2, q1), q3) (``two_grid_block``).
 
-The second stages take a ``salt``, so a streamed accumulator can finalize
-through them.  On the card the first stage is the ``sketch_fwd`` kernel
-and the second ``sketch_t``; the dense Omega is never formed and never
-moves.  The distributed entry points run where the caller's tensors lie.
+The fused forms are comm-ledger sites (``obs.ledger``:
+``nystrom.two_grid_fused``, ``nystrom.stage2_two_grid_fused``): the words
+this rank received beside ``alg2_fused_cost`` and the Theorem-3 floor
+(``_fused_audit``).  The second stages take a ``salt``, so a streamed
+accumulator can finalize through them.  On the card the first stage is
+the ``sketch_fwd`` kernel and the second ``sketch_t``; the dense Omega is
+never formed and never moves.  The distributed entry points run where the
+caller's tensors lie.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.obs import ledger as obs_ledger
 from repro_torch.obs import trace as obs_trace
 
 from .sketch import (GridGroups, _dense_only, grid_ordered, input_block,
@@ -334,6 +339,22 @@ def _second_stage(B_blk: torch.Tensor, seed, r: int, gp: GridGroups,
     return b_q, reduce_scatter(c_part, gq.p1_group, q1)
 
 
+def _fused_audit(n: int, r: int, p, q) -> Tuple[float, float]:
+    """(predicted words, Theorem-3 floor) of the fused two-grid forms —
+    the ledger's reference numbers (the reference's ``_fused_audit``):
+    ``plan.model.alg2_fused_cost``, the stage collectives plus the
+    Redistribute at what moves, and ``nystrom_lower_bound`` (0 where the
+    bound does not apply, r >= n)."""
+    from repro_torch.plan import model as M
+    from .lower_bounds import nystrom_lower_bound
+    try:
+        floor = nystrom_lower_bound(n, r, p[0] * p[1] * p[2])
+    except ValueError:                  # the paper assumes r < n
+        floor = 0.0
+    words = M.alg2_fused_cost(n, r, tuple(p), tuple(q)).words
+    return float(words), float(floor)
+
+
 def _same_P(p, q) -> None:
     if math.prod(p) != math.prod(q):
         raise ValueError(f"grids must factor the same P: {p} vs {q}")
@@ -406,8 +427,12 @@ def nystrom_second_stage_two_grid_fused(
         return nystrom_second_stage_two_grid(B_blk, seed, r, gq.shape,
                                              p=gp.shape, kind=kind,
                                              salt=salt)
-    with obs_trace.span("nystrom.stage2_two_grid_fused", cat="nystrom",
-                        n=n, r=r, p=list(gp.shape), q=list(gq.shape)):
+    with (obs_ledger.observing("nystrom.stage2_two_grid_fused",
+                               (B_blk, gp.shape, gq.shape),
+                               _fused_audit, (n, r, gp.shape, gq.shape),
+                               itemsize=B_blk.dtype.itemsize),
+          obs_trace.span("nystrom.stage2_two_grid_fused", cat="nystrom",
+                         n=n, r=r, p=list(gp.shape), q=list(gq.shape))):
         return _second_stage(B_blk, seed, r, gp, gq, n, kind, salt)
 
 
@@ -480,8 +505,12 @@ def nystrom_two_grid_fused(A_blk: Optional[torch.Tensor], seed, r: int,
     if two_grid_shared_mesh(gp.shape, gq.shape) is None:
         return nystrom_two_grid(A_blk, seed, r, p=gp.shape, q=gq.shape,
                                 kind=kind)
-    with obs_trace.span("nystrom.two_grid_fused", cat="nystrom", n=n, r=r,
-                        p=list(gp.shape), q=list(gq.shape)):
+    with (obs_ledger.observing("nystrom.two_grid_fused",
+                               (A_blk, gp.shape, gq.shape),
+                               _fused_audit, (n, r, gp.shape, gq.shape),
+                               itemsize=A_blk.dtype.itemsize),
+          obs_trace.span("nystrom.two_grid_fused", cat="nystrom", n=n, r=r,
+                         p=list(gp.shape), q=list(gq.shape))):
         B = rand_matmul(A_blk, seed, r, gp, kind=kind)
         return _second_stage(B, seed, r, gp, gq, n, kind, 0)
 

@@ -6,8 +6,9 @@ ragged batching behind the bounded async queue) on one card.
 
 ``--device`` defaults to the card (and fails without one); ``--device cpu``
 runs the plain torch path.  ``--metrics`` dumps the Prometheus text of the
-metrics registry after the run, ``--trace-out FILE`` writes a
-Chrome/Perfetto trace of it.
+metrics registry after the run, ``--trace-out FILE`` installs the tracer
+and the comm ledger (``obs.install_observability``), writes a
+Chrome/Perfetto trace of the run and prints the ledger's honesty report.
 
 The reference's LM workload and its chaos scenarios are not ported yet.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 import argparse
 import time
 
+from repro_torch import obs
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
@@ -130,22 +132,26 @@ def build_parser() -> argparse.ArgumentParser:
                          "process metrics registry after the run")
     ap.add_argument("--trace-out", metavar="FILE", default=None,
                     help="write a Chrome/Perfetto trace (trace_event JSON) "
-                         "of the run to FILE")
+                         "of the run to FILE; also prints the comm-ledger "
+                         "honesty report")
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    tracer = (obs_trace.install_tracer() if args.trace_out is not None
-              else None)
+    tracing = args.trace_out is not None
+    if tracing:
+        tracer, ledger, _ = obs.install_observability()
     try:
         out = run_sketch(args)
     finally:
-        if tracer is not None:
+        if tracing:
             tracer.export_chrome(args.trace_out)
             print(f"[serve] trace written to {args.trace_out} "
                   f"({len(tracer.spans)} spans)")
-            obs_trace.uninstall_tracer()
+            if len(ledger):
+                print(obs.honesty_report(ledger))
+            obs.uninstall_observability()
         if args.metrics:
             print(obs_metrics.get_metrics().prometheus_text(), end="")
     return out

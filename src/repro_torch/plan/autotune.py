@@ -133,8 +133,9 @@ class AutotuneCache:
 
     def pop(self, key: str) -> Optional[dict]:
         """Drop one entry, so that the next ``autotune`` at ``key``
-        measures again.  Returns it, or None when the key was absent
-        (nothing is written then)."""
+        measures again (``obs.report.revalidate_autotune`` pops the keys
+        of the comm-ledger sites whose words drifted).  Returns it, or
+        None when the key was absent (nothing is written then)."""
         hit = self._entries.pop(key, None)
         if hit is not None:
             self._flush()

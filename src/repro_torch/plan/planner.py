@@ -41,6 +41,19 @@ What differs from the reference, and why:
   * No ``allow_pallas`` argument and no "needs TPU" candidate: nothing in
     the port needs one.
   * ``P=None`` is the default process group's world size (1 without one).
+  * The P > 1 Nyström pick can differ.  Every candidate's words,
+    messages and FLOPs are the reference's; its device-memory words price
+    the port's bodies.  At q = (1, 1, P) the second stage's ``sketch_t``
+    draws its Omega slab into a K × ceil4(m) scratch, whatever the
+    output's width (``sketch_t_plan(4096, 1, 65536)`` allocates
+    1,073,741,824 bytes for a 4096 × 1 output), and that price makes the
+    fused candidate memory-bound.  Where the reference picks
+    ``alg2_bound_driven_fused`` on q = (1, 1, P) the port can pick
+    ``alg2_no_redist``, which moves more words: at (n, r, P) = (256, 128,
+    32) 15,872 against 992, at (4096, 256, 256) 65,280 against 4,080, at
+    (8192, 4096, 4096) 16,773,120 against 8,190
+    (``tests/test_torch_planner.py``, the ``f1`` cases).  A ``sketch_t``
+    path for thin outputs with no scratch would move these picks back.
 
 The ranking is analytic; ``plan.autotune`` refines it with times measured
 on the device.
@@ -49,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -176,6 +190,7 @@ class Plan:
                     f"the default process group "
                     f"(torch.distributed.init_process_group)")
         from repro_torch.core.rng import resolve_device
+        from repro_torch.obs import ledger as obs_ledger
         from repro_torch.obs import trace as obs_trace
         device = resolve_device(device)
         A = torch.as_tensor(A).to(device)
@@ -184,13 +199,25 @@ class Plan:
                "stream": self._execute_stream}.get(self.task)
         if run is None:
             raise ValueError(self.task)
-        # The reference records this call in its CommLedger here
-        # (src/repro/plan/planner.py:146-173); the port's ledger is
-        # ROADMAP item 8.
+        led = obs_ledger.get_ledger()
+        t0 = time.perf_counter() if led is not None else 0.0
         with obs_trace.span("plan.execute", cat="plan", task=self.task,
                             variant=self.variant, dims=list(self.dims),
                             P=self.n_procs):
-            return run(A, seed, device)
+            out = run(A, seed, device)
+        if led is not None:
+            # analytic site: execute dispatches into the entry points,
+            # whose own sites measure; the cache_key ties drift flags back
+            # to plan.autotune
+            from .autotune import cache_key
+            led.record(f"plan.execute[{self.task}/{self.variant}]",
+                       predicted_words=self.predicted_words,
+                       lower_bound_words=self.lower_bound_words,
+                       itemsize=_itemsize(self.dtype),
+                       cache_key=cache_key(self, device=device),
+                       wall_s=time.perf_counter() - t0,
+                       detail=(self.dims, self.n_procs))
+        return out
 
     def _execute_sketch(self, A, seed, device):
         r = self.dims[2]

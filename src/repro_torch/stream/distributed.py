@@ -27,14 +27,16 @@ counted in ``parallel.collectives.COMM``.
 
 Every rank of the world must be a rank of the grid (a stream block on
 each); the caller runs ``torch.distributed.init_process_group`` and
-``core.sketch.make_grid_groups``.  The reference's obs-ledger audit of
-each update (predicted words and the Theorem-2 floor) is not ported
-(ROADMAP.md Queue 1 item 8).
+``core.sketch.make_grid_groups``.  Each update of
+:class:`ShardedStreamingSketch` is a comm-ledger site
+(``stream.update``, ``stream.update_rows``; ``obs.ledger``): the words
+this rank received beside the planner's prediction and the Theorem-2
+floor (``ShardedStreamingSketch._audit``).
 """
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -48,6 +50,7 @@ from repro_torch.core.sketch import (GridGroups, gather_output, grid_ordered,
                                      output_block, resolve_device, seed_keys)
 from repro_torch.kernels.local import (fold_rows_block, sketch_block,
                                        sketch_t_block)
+from repro_torch.obs import ledger as obs_ledger
 from repro_torch.obs import trace as obs_trace
 from repro_torch.parallel.collectives import (all_gather, all_reduce,
                                               gather_blocks, reduce_scatter)
@@ -56,6 +59,7 @@ from .state import StreamConfig, validate_row_block
 
 __all__ = ["corange_block", "stream_blocks", "gather_corange",
            "corange_update", "sharded_update", "sharded_update_rows",
+           "update_audit",
            "nystrom_finalize", "ShardedStreamingSketch"]
 
 
@@ -260,6 +264,37 @@ def _nystrom_finalize(Y_blk, cfg, g, variant):
     raise ValueError(variant)
 
 
+def update_audit(cfg: StreamConfig, grid,
+                 k: Optional[int] = None) -> Tuple[float, float]:
+    """The planner's predicted words and the Theorem-2 floor of one update
+    on ``grid`` — the comm ledger's reference numbers.
+
+    ``k=None`` prices a full-shape update — Alg. 1 on the grid plus (when
+    the co-range sketch is on) the all-reduce over p1 of the Psi partial,
+    ``2(1 - 1/p1)·l·n2/(p2·p3)``.  Integer ``k`` prices an
+    ``update_rows`` slab of k rows (``stream_update_cost``; its W update
+    is local).  The floor is ``matmul_lower_bound`` of the rows priced, or
+    0 where the bound does not apply (r >= n2)."""
+    from repro_torch.core.lower_bounds import matmul_lower_bound
+    from repro_torch.plan import model as M
+    p1, p2, p3 = grid
+    if k is None:
+        pred = M.alg1_cost(cfg.n1, cfg.n2, cfg.r, grid).words
+        if cfg.corange:
+            pred += (2.0 * (1.0 - 1.0 / p1)
+                     * cfg.sketch_l * cfg.n2 / (p2 * p3))
+        rows = cfg.n1
+    else:
+        pred = M.stream_update_cost(k, cfg.n2, cfg.r, cfg.sketch_l,
+                                    grid=grid, corange=cfg.corange).words
+        rows = k
+    try:
+        floor = matmul_lower_bound(rows, cfg.n2, cfg.r, p1 * p2 * p3)
+    except ValueError:                  # the paper assumes r < n2
+        floor = 0.0
+    return float(pred), float(floor)
+
+
 class ShardedStreamingSketch:
     """Streaming (Y, W) accumulator over a (p1, p2, p3) grid of ranks.
 
@@ -279,8 +314,8 @@ class ShardedStreamingSketch:
     this rank, or a :class:`repro_torch.plan.Plan` (``plan_stream`` /
     ``plan_sketch``) whose grid becomes it; ``device=None`` means the
     card.  Sparse kinds are refused,
-    as in the reference.  The reference's per-update obs-ledger audit is
-    not ported (item 8).
+    as in the reference.  With a ledger installed (``obs.ledger``) each
+    update is observed at the reference's site, against :meth:`_audit`.
     """
 
     def __init__(self, cfg: StreamConfig, mesh, device=None):
@@ -295,6 +330,16 @@ class ShardedStreamingSketch:
         self.Y, self.W = blocks["Y"], blocks["W"]
         self.keys = seed_keys(cfg.seed)
         self.num_updates = 0
+        self._audits = {}   # slab rows k (or None) -> (pred words, floor)
+
+    def _audit(self, k: Optional[int]) -> Tuple[float, float]:
+        """Ledger reference numbers (:func:`update_audit`), memoized per
+        slab height (the reference's ``_audit``)."""
+        hit = self._audits.get(k)
+        if hit is None:
+            hit = self._audits[k] = update_audit(self.cfg, self.mesh.shape,
+                                                 k)
+        return hit
 
     def _as(self, H) -> torch.Tensor:
         return torch.as_tensor(H).to(device=self.device,
@@ -307,9 +352,13 @@ class ShardedStreamingSketch:
         if tuple(H.shape) != (cfg.n1, cfg.n2):
             raise ValueError(f"update shape {tuple(H.shape)} != "
                              f"({cfg.n1}, {cfg.n2})")
-        with obs_trace.span("stream.update", cat="stream"):
-            sharded_update(cfg, self.keys, self.Y, self.W, self._as(H),
-                           self.mesh)
+        H = self._as(H)
+        with (obs_ledger.observing("stream.update",
+                                   (self.Y, self.W, H, self.mesh.shape),
+                                   self._audit, (None,),
+                                   itemsize=cfg.dtype.itemsize),
+              obs_trace.span("stream.update", cat="stream")):
+            sharded_update(cfg, self.keys, self.Y, self.W, H, self.mesh)
         self.num_updates += 1
         return self
 
@@ -317,10 +366,15 @@ class ShardedStreamingSketch:
         """Rows [row0, row0 + k) arrive additively as a (k, n2) slab, the
         same on every rank (:func:`sharded_update_rows`)."""
         validate_row_block(self.cfg, row0, tuple(H.shape))
-        with obs_trace.span("stream.update_rows", cat="stream",
-                            k=H.shape[0]):
+        k = H.shape[0]
+        H = self._as(H)
+        with (obs_ledger.observing("stream.update_rows",
+                                   (self.Y, self.W, H, self.mesh.shape),
+                                   self._audit, (k,),
+                                   itemsize=self.cfg.dtype.itemsize),
+              obs_trace.span("stream.update_rows", cat="stream", k=k)):
             sharded_update_rows(self.cfg, self.keys, self.Y, self.W,
-                                int(row0), self._as(H), self.mesh)
+                                int(row0), H, self.mesh)
         self.num_updates += 1
         return self
 

@@ -52,6 +52,13 @@ Sparse payloads (local mode only, as in the reference):
     signature and slab height; lane i is bitwise ``update_sparse`` of
     stream i alone.
 
+With a ledger installed (``obs.ledger``) every ingest path is a comm-ledger
+site under the reference's name: ``service.update[dist]`` (against
+:meth:`SketchService._dist_audit`), ``service.update[local]``,
+``service.update_batch`` and ``service.update_ragged`` (observed: 0 words
+predicted at a 0 floor on one device) and ``service.update[sparse]`` (an
+analytic record of the COO payload's ``2·nnz`` words).
+
 Not in this slice (each raises ``NotImplementedError``): ``spill_dir``
 (ROADMAP Queue 1 item 9) and ``reshard`` (``stream/elastic.py``, item 9).
 """
@@ -65,12 +72,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.sketch import gather_output, resolve_device, seed_keys
+from repro_torch.obs import ledger as obs_ledger
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
 from .distributed import (_grid_of, check_divisible, gather_corange,
                           nystrom_finalize, refuse_sparse, sharded_update,
-                          stream_blocks)
+                          stream_blocks, update_audit)
 from .state import (SparseRows, StreamConfig, _local_sig,
                     local_rowblock_ragged, local_sparse_batch, nystrom_local,
                     rowblock_update, snap_bucket, sparse_rowblock_update,
@@ -154,6 +162,7 @@ class SketchService:
         self._clock = itertools.count(1)    # LRU clock for eviction
         self._updates_total = 0             # service-lifetime, survives close
         self._lane_batches = 0              # one per fold launch
+        self._audit: Dict[Tuple, Tuple[float, float]] = {}
         m = obs_metrics.get_metrics()
         self._m_updates = m.counter(
             "sketch_updates_total", "stream updates applied, by ingest path")
@@ -278,6 +287,19 @@ class SketchService:
         return _Stream(ev.cfg, ev.keys, tree["Y"], tree.get("W"),
                        num_updates=ev.num_updates, qos=ev.qos)
 
+    def _dist_audit(self, cfg: StreamConfig) -> Tuple[float, float]:
+        """(planner-predicted words, Theorem-2 floor) of ONE full-shape
+        grid-mode update — the ledger's reference numbers for
+        ``service.update[dist]`` (the reference's ``_dist_audit``):
+        ``stream.distributed.update_audit`` of a full-shape update, as
+        ``ShardedStreamingSketch`` prices it.  Memoized per stream
+        signature."""
+        key = _local_sig(cfg)
+        hit = self._audit.get(key)
+        if hit is None:
+            hit = self._audit[key] = update_audit(cfg, self.mesh.shape)
+        return hit
+
     # -- ingest ------------------------------------------------------------
 
     def update(self, sid: int, H, row0: Optional[int] = None):
@@ -298,14 +320,23 @@ class SketchService:
                 raise ValueError(f"{tuple(H.shape)} != ({cfg.n1}, "
                                  f"{cfg.n2})")
             if self.mesh is not None:
-                with obs_trace.span("service.update", cat="service",
-                                    mode="dist"):
+                with (obs_ledger.observing("service.update[dist]",
+                                           (st.Y, st.W, H, self.mesh.shape),
+                                           self._dist_audit, (cfg,),
+                                           itemsize=cfg.dtype.itemsize),
+                      obs_trace.span("service.update", cat="service",
+                                     mode="dist")):
                     sharded_update(cfg, st.keys, st.Y, st.W, H, self.mesh)
                 return self._applied(st, "dist")
             row0 = 0
         row0 = int(row0)
         validate_row_block(cfg, row0, tuple(H.shape))
-        with obs_trace.span("service.update", cat="service", mode="local"):
+        # local mode: predicted AND floor are 0 words (one device) — the
+        # ledger checks that the update moves nothing
+        with (obs_ledger.observing("service.update[local]", (st.Y, st.W, H),
+                                   itemsize=cfg.dtype.itemsize),
+              obs_trace.span("service.update", cat="service",
+                             mode="local")):
             rowblock_update(cfg, st.keys, st.Y, st.W, row0, H)
         return self._applied(st, "single")
 
@@ -321,14 +352,15 @@ class SketchService:
         The payload is (indices + values), ``2·nnz`` words
         (``plan.model.sparse_payload_words``) instead of the dense slab's
         ``k·n2``; the fold is ``stream.state.sparse_rowblock_update`` (on
-        the card the S1 kernel), bitwise the reference's.  The reference
-        also records a ``service.update[sparse]`` ledger site here; that
-        waits for the port's ``obs/ledger.py`` (ROADMAP Queue 1, item 8).
+        the card the S1 kernel), bitwise the reference's.  The payload is
+        recorded at the ``service.update[sparse]`` ledger site, an
+        analytic one, as in the reference.
         """
         self._local_only("update_sparse", _SPARSE_WHY)
         st = self._touch(sid)
         row0 = int(row0)
         sp.validate(st.cfg, row0)
+        self._record_sparse(st.cfg, sp.nnz, ("nnz", sp.nnz))
         with obs_trace.span("service.update", cat="service", mode="sparse"):
             sparse_rowblock_update(st.cfg, st.keys, st.Y, st.W, row0, sp)
         return self._applied(st, "sparse")
@@ -342,8 +374,8 @@ class SketchService:
         destinations and nothing is summed across lanes, so lane i is
         bitwise :meth:`update_sparse` of stream i alone
         (``stream.state.local_sparse_batch``: two S1 launches a lane on the
-        card).  The reference's ledger record waits for item 8, as in
-        :meth:`update_sparse`.
+        card).  The lanes' payloads are recorded together at the
+        ``service.update[sparse]`` ledger site, as in the reference.
         """
         self._local_only("update_sparse_batch", _SPARSE_WHY)
         sids = list(sids)
@@ -373,6 +405,8 @@ class SketchService:
                 raise ValueError(f"lanes must share one slab height; "
                                  f"{sp.shape[0]} != {k}")
             sp.validate(sts[0].cfg, r0)
+        tot = sum(sp.nnz for sp in sps)
+        self._record_sparse(sts[0].cfg, tot, ("nnz", tot, "lanes", n))
         with obs_trace.span("service.update_sparse_batch", cat="service",
                             lanes=n):
             local_sparse_batch([(st.cfg, st.keys, st.Y, st.W, r0)
@@ -382,6 +416,18 @@ class SketchService:
             st.num_updates += 1
         self._updates_total += n
         return self
+
+    @staticmethod
+    def _record_sparse(cfg: StreamConfig, nnz: int, detail) -> None:
+        """The ``service.update[sparse]`` record: the COO payload's
+        ``sparse_payload_words(nnz)`` predicted, ``nnz`` the floor."""
+        led = obs_ledger.get_ledger()
+        if led is not None:
+            from repro_torch.plan.model import sparse_payload_words
+            led.record("service.update[sparse]",
+                       predicted_words=sparse_payload_words(nnz),
+                       lower_bound_words=float(nnz),
+                       itemsize=cfg.dtype.itemsize, detail=detail)
 
     def _local_only(self, what: str, why: str = _BATCH_WHY) -> None:
         if self.mesh is not None:
@@ -443,7 +489,11 @@ class SketchService:
             validate_row_block(cfg0, r0, tuple(H.shape[1:]))
         k = H.shape[1]
         Hb = H.to(device=self.device, dtype=cfg0.dtype).contiguous()
-        with obs_trace.span("service.update_batch", cat="service", lanes=n):
+        with (obs_ledger.observing("service.update_batch",
+                                   (sts[0].Y, sts[0].W, Hb),
+                                   itemsize=cfg0.dtype.itemsize),
+              obs_trace.span("service.update_batch", cat="service",
+                             lanes=n)):
             self._apply_lanes([(st, r0, k) for st, r0 in zip(sts, row0s)],
                               Hb, "batch")
         return self
@@ -501,9 +551,14 @@ class SketchService:
                 (st, H, row0, k))
         for (_, kb), group in buckets.items():
             n = len(group)
-            with obs_trace.span("service.update_ragged", cat="service",
-                                lanes=n, bucket=kb):
-                Hb = self._stage(group, kb, group[0][0].cfg, pad_value)
+            st0, cfg = group[0][0], group[0][0].cfg
+            with (obs_ledger.observing(
+                    "service.update_ragged",
+                    (st0.Y, st0.W, (n, kb, cfg.n2), cfg.dtype),
+                    itemsize=cfg.dtype.itemsize),
+                  obs_trace.span("service.update_ragged", cat="service",
+                                 lanes=n, bucket=kb)):
+                Hb = self._stage(group, kb, cfg, pad_value)
                 self._apply_lanes([(st, row0, k) for st, _, row0, k in group],
                                   Hb, "ragged")
             real = sum(g[3] for g in group)

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models.api import ModelAPI, param_leaves, unflatten_like
+from repro_torch.obs import ledger as obs_ledger
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.parallel.grad_compress import (
@@ -106,6 +107,13 @@ def make_dp_compressed_step(api: ModelAPI, cfg: ModelConfig, run: RunConfig,
     nothing: pass a plan priced for the worker count the run stands for).
     The plan in use is ``step.plan``.  On the card, ``step.exchange`` holds
     the CUDA events recorded around the last exchange.
+
+    With a ledger installed (``obs.ledger``) each step is observed at the
+    ``train.dp_compressed_step`` site against the plan's exchange words
+    plus the loss scalar's mean, ``exchange_words + 1``, which is also the
+    floor: Omega is free (Theorem 2, regime 1), the factors and the loss
+    must move, so a drift of 0 says the step moved exactly the words the
+    planner priced.
     """
     from repro_torch.plan import plan_train_compression
 
@@ -113,6 +121,17 @@ def make_dp_compressed_step(api: ModelAPI, cfg: ModelConfig, run: RunConfig,
         if step.plan is None:
             step.plan = plan_train_compression(
                 state.params, run.grad_compress_rank, P=world_size(group))
+        if obs_ledger.get_ledger() is None:
+            return _step(state, batch)
+        words = step.plan.exchange_words + 1.0
+        leaves = tuple(t for _, t in param_leaves(state.params))
+        with obs_ledger.observing("train.dp_compressed_step",
+                                  leaves + tuple(batch.values()),
+                                  predicted_words=words,
+                                  lower_bound_words=words, itemsize=4):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch):
         world, me = world_size(group), worker_rank(group)
         if world > 1:
             batch = {k: v.chunk(world)[me] for k, v in batch.items()}

@@ -9,7 +9,14 @@ Held to:
     keeps number for number): every candidate's variant, grid, q-grid,
     words, messages and FLOPs, and the plan's bound and regime, on the
     cases of ``tests/test_plan.py`` and more; the chosen variant, grid,
-    q-grid and words wherever P > 1.  Variant names go through ``NAMES``;
+    q-grid and words at P > 1 on those cases.  They are not the same
+    wherever P > 1: a Nyström plan's device-memory words price the port's
+    bodies, and at q = (1, 1, P) the second stage's ``sketch_t`` draws a
+    K × ceil4(m) Omega scratch, which makes the fused candidate
+    memory-bound, so the port picks ``alg2_no_redist`` where the
+    reference picks ``alg2_bound_driven_fused`` (the ``f1`` cases pin
+    three such shapes; ``plan/planner.py``, "What differs").  Variant
+    names go through ``NAMES``;
     the reference's second (Pallas) pricing of each distributed variant
     has no counterpart in the port and is left out;
   * at P = 1 the port's own rule, since its device-memory words price
@@ -661,3 +668,56 @@ def test_distributed_make_sketch_service_auto(ranks):
         assert res["grid"] == res["ref_grid"] == (WORLD, 1, 1)
         assert res["bitwise"]
         assert res["words"][0] == res["words"][1]
+
+
+# ---------------------------------------------------------------------------
+# where the P > 1 Nyström pick departs from the reference's
+# ---------------------------------------------------------------------------
+
+#: (n, r, P, the reference's pick's words, the port's pick's words)
+F1_CASES = [(256, 128, 32, 992, 15872), (4096, 256, 256, 4080, 65280),
+            (8192, 4096, 4096, 8190, 16773120)]
+
+
+@pytest.mark.parametrize("n,r,P,ref_words,port_words", F1_CASES,
+                         ids=["f1-256-128-32", "f1-4096-256-256",
+                              "f1-8192-4096-4096"])
+def test_nystrom_pick_departs_where_the_sketch_t_scratch_is_priced(
+        n, r, P, ref_words, port_words):
+    """The reference picks the fused pair on q = (1, 1, P); the port
+    prices that candidate at the same words, messages and FLOPs, but its
+    ``sketch_t`` draws the whole K × ceil4(m) Omega slab of the thin
+    (r, r/P) output into a scratch, so the candidate is memory-bound and
+    slower than ``alg2_no_redist``, which the port picks although it moves
+    more words.  A ``sketch_t`` with no scratch for thin outputs would
+    move these picks back; such a change updates this test's body under
+    the same ids."""
+    j = j_plan_nystrom(n, r, P=P, machine=JCPU)
+    t = plan_nystrom(n, r, P=P, machine=CPU)
+    assert (j.variant, j.grid, j.q_grid) == (
+        "alg2_bound_driven_fused", (P, 1, 1), (1, 1, P))
+    assert (t.variant, t.grid, t.q_grid) == (
+        "alg2_no_redist", (P, 1, 1), (P, 1, 1))
+    assert (j.predicted_words, t.predicted_words) == (ref_words, port_words)
+    assert t.executable and j.executable
+    fused = _cands(t, False)[("alg2_bound_driven_fused", (P, 1, 1),
+                              (1, 1, P))]
+    jfused = _cands(j, True)[("alg2_bound_driven_fused", (P, 1, 1),
+                              (1, 1, P))]
+    assert (fused.cost.words, fused.cost.messages, fused.cost.flops) == (
+        jfused.cost.words, jfused.cost.messages, jfused.cost.flops)
+    assert fused.cost.words == ref_words and fused.executable
+    assert fused.cost.bottleneck(CPU) == "memory"
+    assert fused.seconds > t.predicted_seconds
+    assert fused.cost.hbm_words > jfused.cost.hbm_words
+    # the scratch: the K × ceil4(m) slab of stage 2's (r, r/P) output
+    from repro_torch.kernels.sketch_matmul import sketch_t_plan
+    plan = sketch_t_plan(r, r // P, n)
+    assert plan["scratch_bytes"] == 4 * n * (-(-r // 4) * 4)
+
+
+def test_sketch_t_scratch_of_a_thin_output_is_the_whole_slab():
+    """``sketch_t_plan(4096, 1, 65536)``: a 4096 × 1 output draws a
+    1,073,741,824-byte Omega scratch (F1's reason at n = 65536)."""
+    from repro_torch.kernels.sketch_matmul import sketch_t_plan
+    assert sketch_t_plan(4096, 1, 65536)["scratch_bytes"] == 1073741824

@@ -976,3 +976,143 @@ def autotune_worker(rank, world, spec):
     got, want = explicit("sketch", pre)
     out["preset"] = {"plan": about(pre), "bitwise": same(got, want)}
     return out
+
+
+def ledger_worker(rank, world, spec):
+    """One rank of the comm ledger's sites on the CPU, under
+    ``install_observability``.  ``spec`` holds ``seed``, ``H`` (an (n1,
+    n2) numpy matrix), ``r``, ``k`` (a slab's rows), ``grids``,
+    ``service_grids``, ``S`` (a symmetric (n, n) matrix), ``s_r``, ``p``
+    and ``q`` (the fused pair), ``drill_grid`` and ``dir`` (a directory
+    for each rank's autotune cache).  Calls, each tagged: per grid
+    ``ShardedStreamingSketch.update`` without and with the co-range and
+    ``update_rows`` of one slab; per service grid a grid service's
+    ``update``; ``nystrom_two_grid_fused`` and
+    ``nystrom_second_stage_two_grid_fused`` on (p, q); then the stale
+    decision drill: ``rand_matmul`` on ``drill_grid`` observed against the
+    0 words of a (P, 1, 1) decision (cache key ``k/stale``) and against
+    its own words (``k/fine``), ``drift_flags`` and ``revalidate_autotune``
+    twice.  Returns, per call, every site it touched (name, calls, words
+    by kind, prediction, floor, drift, bound fraction) beside this rank's
+    ``COMM`` words of the call, and the drill's flags, pops and the keys
+    left."""
+    import os
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import nystrom as nys
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.grid import alg1_bandwidth_words
+    from repro_torch.parallel import collectives as col
+    from repro_torch.plan.autotune import AutotuneCache
+    from repro_torch.stream import (ShardedStreamingSketch, SketchService,
+                                    StreamConfig)
+
+    seed, r = spec["seed"], spec["r"]
+    H = torch.from_numpy(spec["H"].copy())
+    S = torch.from_numpy(spec["S"].copy())
+    n1, n2 = H.shape
+    _, ledger, _ = obs.install_observability()
+    calls = []
+
+    def call(tag, fn):
+        before = {id(s): (s.calls, s.measured_words or 0.0)
+                  for s in ledger.sites()}
+        col.reset_comm()
+        res = fn()
+        comm = {k: v["words"] for k, v in col.COMM.items() if v["calls"]}
+        for s in ledger.sites():
+            c0, w0 = before.get(id(s), (0, 0.0))
+            if s.calls == c0:
+                continue
+            cw = s.collectives()
+            calls.append({
+                "tag": tag, "name": s.name, "calls": s.calls - c0,
+                "words": None if cw is None else s.measured_words - w0,
+                "by_kind": None if cw is None else dict(cw.by_kind),
+                "redistribute": None if cw is None
+                else cw.redistribute_total,
+                "pred": s.predicted_words, "floor": s.lower_bound_words,
+                "drift": s.drift, "bound_fraction": s.bound_fraction,
+                "comm": comm})
+        return res
+
+    groups = {g: sk.make_grid_groups(*g) for g in spec["grids"]}
+    for corange in (False, True):
+        cfg = StreamConfig(n1, n2, r=r, seed=seed, corange=corange)
+        for grid, g in groups.items():
+            st = ShardedStreamingSketch(cfg, g, device="cpu")
+            call(("update", grid, corange), lambda: st.update(H))
+    cfg = StreamConfig(n1, n2, r=r, seed=seed, corange=True)
+    for grid, g in groups.items():
+        st = ShardedStreamingSketch(cfg, g, device="cpu")
+        call(("update_rows", grid), lambda: st.update_rows(0, H[:spec["k"]]))
+    for grid in spec["service_grids"]:
+        svc = SketchService(mesh=sk.make_grid_groups(*grid), device="cpu")
+        sid = svc.open(cfg)
+        call(("service", grid), lambda: svc.update(sid, H))
+    p, q, s_r = spec["p"], spec["q"], spec["s_r"]
+    gp = sk.make_grid_groups(*p)
+    A_blk = sk.input_block(S, gp)
+    call(("fused", p, q), lambda: nys.nystrom_two_grid_fused(
+        A_blk, seed, s_r, p=p, q=q))
+    B_blk = sk.rand_matmul(A_blk, seed, s_r, gp)
+    call(("stage2_fused", p, q),
+         lambda: nys.nystrom_second_stage_two_grid_fused(B_blk, seed, s_r,
+                                                         q, p=p))
+
+    # the stale decision drill
+    dg = sk.make_grid_groups(*spec["drill_grid"])
+    cache = AutotuneCache(os.path.join(spec["dir"], f"rank{rank}.json"))
+    for key in ("k/stale", "k/fine", "k/other"):
+        cache.put(key, {"variant": "alg1"})
+    own = alg1_bandwidth_words(n1, n2, r, *spec["drill_grid"])
+    for name, pred, key in (("drill.stale", 0.0, "k/stale"),
+                            ("drill.fine", own, "k/fine")):
+        with obs.observing(name, (H,), predicted_words=pred,
+                           cache_key=key):
+            sk.rand_matmul(sk.input_block(H, dg), seed, r, dg)
+    flags = [(s.name, s.drift) for s, _ in obs.drift_flags(ledger)]
+    popped = obs.revalidate_autotune(ledger, cache)
+    again = obs.revalidate_autotune(ledger, cache)
+    left = sorted(k for k in ("k/stale", "k/fine", "k/other")
+                  if cache.get(k) is not None)
+    return {"calls": calls, "flags": flags, "popped": popped,
+            "again": again, "left": left,
+            "report": obs.honesty_report(ledger)}
+
+
+def dp_step_ledger_worker(rank, world, spec):
+    """One worker of ``make_dp_compressed_step`` on reduced gemma2-2b under
+    a comm ledger: the plan priced at this world size, one step on this
+    rank's share of ``spec["tokens"]`` / ``spec["labels"]``.  Returns the
+    ``train.dp_compressed_step`` site's figures, the plan's exchange
+    words and ``grad_compress.COMM``'s words of the step."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.models import get_api
+    from repro_torch.parallel import grad_compress as gc
+    from repro_torch.train import init_state, make_dp_compressed_step
+
+    cfg = get_config("gemma2-2b").reduced()
+    api = get_api(cfg)
+    run = RunConfig(steps=2, learning_rate=1e-3, warmup_steps=1,
+                    grad_compress_rank=spec["rank"])
+    # both priced at the process group's world size
+    state = init_state(api, cfg, run, 0, device="cpu")
+    step = make_dp_compressed_step(api, cfg, run)
+    batch = {"tokens": torch.from_numpy(spec["tokens"]).long(),
+             "labels": torch.from_numpy(spec["labels"]).long()}
+    _, ledger, _ = obs.install_observability()
+    gc.reset_comm()
+    step(state, batch)
+    s, plan = ledger.site("train.dp_compressed_step"), step.plan
+    return {"calls": s.calls, "measured": s.measured_words_per_call,
+            "by_kind": dict(s.collectives().by_kind),
+            "pred": s.predicted_words, "floor": s.lower_bound_words,
+            "drift": s.drift, "bound_fraction": s.bound_fraction,
+            "exchange_words": plan.exchange_words,
+            "n_compressed": plan.n_compressed, "comm": gc.COMM["words"]}
