@@ -364,7 +364,43 @@ and the communication ledger (``repro_torch.obs``):
                   and its cache key, run on (2,2,1)) and
                   ``revalidate_autotune`` on a temporary cache holding
                   phase 18's keys: only the flagged key is popped, and a
-                  second call pops nothing; (c) the phase under 90 s.
+                  second call pops nothing; (c) the phase under 90 s;
+
+and the roofline (``repro_torch.roofline``):
+
+ 20. roofline   — every main path through ``analyze_call`` (a warm-up,
+                  then one call under ``counting()``: the FLOPs, device
+                  bytes and collective bytes the port counts), priced on
+                  the card's rates (``h100_rates``), and timed: the median
+                  of 5 CUDA-event runs after the warm-up, the L2 flushed
+                  (a 256 MiB read) before each.  One card: (a) the
+                  one-shot sketch at phases 1-5's A through ``cuda_fused``
+                  (``ops.sketch_matmul``) and ``local_torch``
+                  (``sketch_reference``), (b) ``nystrom_fused``, (c) one
+                  4096-row stream slab, (d) one ``update_ragged`` round
+                  of 64 lanes of 1-256 rows at phases 6-8's shape, (e)
+                  ``update_rows_sparse`` of phase 16's first COO slab, (f)
+                  one gemma2-2b step at 4 x 1024 (taken in phase 11, where
+                  the model and state are held; model_flops 6·N·D on the
+                  bf16 peak); four ranks over gloo (``_roofline_rank``,
+                  ``chips=4``, the ranks' counts summed; median of 3,
+                  the slowest rank's; the link priced at gloo's peak,
+                  the fastest rate of any timed gather or reduce-scatter
+                  of 64 MiB or more in the rows' calls or a probe's, on
+                  any rank, since the H100 entry's fitted ``byte_bw`` is
+                  no peak, and a probe's best alone was beaten by a
+                  row's): (g) Alg. 1
+                  on (4,1,1) and (1,2,2), (h) ``nystrom_two_grid_fused``
+                  on ((4,1,1), (1,1,4)).
+                  Each row prints its counts, terms, bottleneck and
+                  ``t_bound``, its time and ``t_bound / measured`` (in
+                  (0, 1.05]), ``model_flops``, ``useful_ratio``,
+                  ``roofline_fraction`` and ``model_flops / (chips ·
+                  peak_flops · measured)``; then ``format_table``.  (a)'s
+                  counted FLOPs are 2·32768·32768·512 in both bodies; a
+                  four-rank row's collective bytes are its ranks' ``COMM``
+                  words x 4 summed, and ``plan.model``'s words x P x 4;
+                  the phase, (f) included, under 60 s.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -387,8 +423,6 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 N, R, SLAB, SEED = 32768, 512, 4096, 7
-PEAK_F32 = 67e12        # H100 SXM float32 FLOP/s outside the tensor cores
-PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 EPS32 = 2.0 ** -24
 NYSTROM_RCOND = 1e-4
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/sketch_kernels.cu"
@@ -489,12 +523,15 @@ def max_abs(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float((got.float() - ref.float()).abs().max())
 
 
-def time_ms(fn, reps: int = 5, inner: int = 1) -> float:
+def time_ms(fn, reps: int = 5, inner: int = 1, before=None) -> float:
     """Median of ``reps`` CUDA-event timings (each of ``inner`` calls,
-    divided by ``inner``) after one warm-up call."""
+    divided by ``inner``) after one warm-up call, each after ``before()``
+    (outside the events) when given."""
     fn()
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -529,7 +566,13 @@ def device_ms(fn, kernel: str, calls: int = 20, before=None):
 
 
 def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    """(ms, what binds): FLOPs at the card's f32 peak or bytes at its
+    device-memory rate, whichever is longer (``repro_torch.roofline``'s
+    rates)."""
+    from repro_torch.roofline import h100_rates
+    rates = h100_rates()
+    t_ops = flops / rates.peak("float32") * 1e3
+    t_bytes = nbytes / rates.hbm_bw * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -1378,12 +1421,13 @@ def phase_training(dev, LAUNCHES, reset_launches):
           f"exchange {ex_s * 1e3:.3f} ms, {ex_s / step_s:.4f} of the step; "
           f"peak memory {peak / 2 ** 30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)")
-    profile_step(step, state, make_batch(DataConfig(cfg.vocab, T_SEQ,
-                                                    T_BATCH, seed=0),
-                                         T_STEPS, dev))
-    del state, res, step
+    batch = make_batch(DataConfig(cfg.vocab, T_SEQ, T_BATCH, seed=0),
+                       T_STEPS, dev)
+    profile_step(step, state, batch)
+    train_row = roofline_train_row(step, state, batch, cfg, dev)
+    del state, res, step, batch
     torch.cuda.empty_cache()
-    return counts
+    return counts, train_row
 
 
 def profile_step(step, state, batch):
@@ -4193,6 +4237,323 @@ def phase_obs_ranks(entries: dict, card: str) -> list:
     return results
 
 
+# -- phase 20: the roofline ---------------------------------------------------
+
+RF_REPS, RF_RANK_REPS = 5, 3         # timed runs after the warm-up
+RF_WORLD = 4
+RF_GRIDS = [(4, 1, 1), (1, 2, 2)]    # (g): regime 1, and a grid that gathers
+RF_PAIR = ((4, 1, 1), (1, 1, 4))     # (h): phase 19's fused two-grid pair
+RF_LANES = 64                        # (d): one update_ragged round's lanes
+# gloo's peak on this machine: the fastest gather or reduce-scatter of the
+# four-rank rows and of a probe (an (8192, 8192) f32 block all-gathered over
+# (1,2,2)'s p3 fibers, 256 MiB received a rank, RF_RANK_REPS times) among
+# those that receive at least RF_PEAK_MIN_BYTES (a smaller call can find
+# part of its bytes already in the sockets' buffers)
+RF_PEAK_GRID, RF_PEAK_BLOCK = (1, 2, 2), (8192, 8192)
+RF_PEAK_MIN_BYTES = 64 * 2 ** 20
+RF_MAX_RATIO = 1.05                  # t_bound / measured, at most
+RF_SECONDS = 60                      # the phase's time limit, (f) included
+
+
+def roofline_row(name: str, fn, model_flops: float, dev, flush=None) -> dict:
+    """One one-card row of phase 20: ``analyze_call`` (a warm-up, then the
+    counted call), then ``time_ms`` (RF_REPS runs, each after ``flush``)."""
+    from repro_torch.roofline import analyze_call
+    terms = analyze_call(name, fn, model_flops=model_flops, device=dev)
+    return {"terms": terms.to_dict(),
+            "ms": time_ms(fn, RF_REPS, before=flush)}
+
+
+def roofline_train_row(step, state, batch, cfg, dev) -> dict:
+    """Phase 20 (f), taken in phase 11 where gemma2-2b's model and state are
+    held: one training step, model_flops = 6·N·D (``models.model_flops``,
+    N from ``count_params_split``).  Its operands far exceed the L2, so no
+    flush; its seconds are added to phase 20's."""
+    import types
+
+    from repro_torch.models import count_params_split, model_flops
+    t0 = time.perf_counter()
+    n_params, _ = count_params_split(cfg, state.params)
+    shape = types.SimpleNamespace(global_batch=T_BATCH, seq_len=T_SEQ,
+                                  kind="train")
+    row = roofline_row(f"(f) {cfg.name} step {T_BATCH}x{T_SEQ}",
+                       lambda: step(state, batch),
+                       model_flops(cfg, shape, n_params), dev)
+    row["seconds"] = time.perf_counter() - t0
+    return row
+
+
+def phase_roofline_one_card(dev) -> list:
+    """Phase 20 (a)-(e) on one card, the L2 flushed before each timed run
+    (a 256 MiB read)."""
+    from repro_torch.core.sketch import sketch_reference
+    from repro_torch.kernels import ops
+    from repro_torch.stream import (SketchService, SparseRows, StreamConfig,
+                                    StreamingSketch)
+    cfg = StreamConfig(N, N, r=R, seed=SEED)
+    L = cfg.sketch_l
+    rng = np.random.default_rng(20)
+    ks = [int(k) for k in rng.integers(1, S_KMAX + 1, RF_LANES)]
+    lanes = [(rng.standard_normal((k, S_N2), dtype=np.float32),
+              int(rng.integers(0, S_N1 - k + 1))) for k in ks]
+    slab = SparseRows(*sparse_coo(np.random.default_rng(0), SLAB, N,
+                                  SP_DISTINCT, SP_REPEATS), (SLAB, N))
+    A = make_matrix(dev)
+    flush = torch.empty(64 * 2 ** 20, device=dev).sum
+    sketch = 2.0 * N * N * R
+    rows = [roofline_row("(a) sketch cuda_fused",
+                         lambda: ops.sketch_matmul(A, seed=SEED, r=R),
+                         sketch, dev, flush),
+            roofline_row("(a) sketch local_torch",
+                         lambda: sketch_reference(A, SEED, R), sketch, dev,
+                         flush),
+            roofline_row("(b) nystrom_fused",
+                         lambda: ops.nystrom_fused(A, seed=SEED, r=R),
+                         sketch + 2.0 * N * R * R, dev, flush)]
+    st = StreamingSketch(cfg)
+    rows.append(roofline_row(f"(c) stream slab of {SLAB} rows",
+                             lambda: st.update_rows(0, A[:SLAB]),
+                             2.0 * SLAB * N * (R + L), dev, flush))
+    svc = SketchService()
+    scfg = [StreamConfig(S_N1, S_N2, r=S_R, seed=s) for s in range(RF_LANES)]
+    items = [(svc.open(c), H, r0) for c, (H, r0) in zip(scfg, lanes)]
+
+    def ragged():
+        svc.update_ragged(items)
+        svc.sync()
+    rows.append(roofline_row(
+        f"(d) update_ragged of {RF_LANES} lanes", ragged,
+        sum(2.0 * k * S_N2 * (S_R + scfg[0].sketch_l) for k in ks), dev,
+        flush))
+    del svc, st
+    st = StreamingSketch(cfg)
+    rows.append(roofline_row("(e) update_rows_sparse of slab 1",
+                             lambda: st.update_rows_sparse(0, slab),
+                             2.0 * slab.nnz * (R + L), dev, flush))
+    del st, A, flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def observe_link(col, seen: list, stage: dict):
+    """Time every flat all-gather and reduce-scatter that ``col`` (the
+    port's ``parallel.collectives``) makes from here on, a synchronize on
+    each side: each call appends ``(bytes this rank received / seconds,
+    kind, bytes, seconds, stage["name"])`` to ``seen``.  Returns the undo.
+    The calls are the port's own; only their clock is added."""
+    flats = {"all_gather": "_all_gather_flat",
+             "reduce_scatter": "_reduce_scatter_flat"}
+    originals = {kind: getattr(col, attr) for kind, attr in flats.items()}
+
+    def timed(kind, flat):
+        def call(out, inp, **kwargs):
+            cuda = inp.is_cuda
+            if cuda:
+                torch.cuda.synchronize(inp.device)
+            t0 = time.perf_counter()
+            res = flat(out, inp, **kwargs)
+            if cuda:
+                torch.cuda.synchronize(inp.device)
+            s = time.perf_counter() - t0
+            got = abs(out.numel() - inp.numel()) * inp.element_size()
+            seen.append((got / s, kind, got, s, stage["name"]))
+            return res
+        return call
+
+    for kind, attr in flats.items():
+        setattr(col, attr, timed(kind, originals[kind]))
+
+    def undo():
+        for kind, attr in flats.items():
+            setattr(col, attr, originals[kind])
+    return undo
+
+
+def link_probe(A) -> None:
+    """RF_RANK_REPS gloo all-gathers of RF_PEAK_BLOCK over RF_PEAK_GRID's
+    p3 fibers, every fiber at once, as Alg. 1 gathers, each after a
+    barrier: rates for ``observe_link`` apart from the rows' own calls."""
+    import torch.distributed as dist
+    from repro_torch.core import sketch as sk
+    from repro_torch.parallel import collectives as col
+    g = sk.make_grid_groups(*RF_PEAK_GRID)
+    x = A[:RF_PEAK_BLOCK[0], :RF_PEAK_BLOCK[1]].contiguous()
+    for _ in range(RF_RANK_REPS):
+        dist.barrier()
+        col.all_gather(x, 1, g.p3_group, RF_PEAK_GRID[2])
+
+
+def price_link(terms, link_bw: float):
+    """``terms`` with its collective term priced on ``link_bw`` bytes/s,
+    its bottleneck again the largest of the three terms."""
+    t = dataclasses.replace(
+        terms, link_bw=link_bw,
+        t_collective=terms.collective_bytes / (terms.chips * link_bw))
+    times = {"compute": t.t_compute, "memory": t.t_memory,
+             "collective": t.t_collective}
+    t.bottleneck = max(times, key=times.get)
+    return t
+
+
+def _roofline_rank(rank, world, t_spawn, device="cuda"):
+    """Phase 20 (g)-(h), one rank (``device`` other than the card only to
+    rehearse the phase on the CPU): ``link_probe``, then each call through
+    ``analyze_call(chips=world)`` (the ranks' counts summed, the fleet's
+    terms on every rank), the words this rank received a call (``COMM``),
+    ``plan.model``'s words for it, and the median of RF_RANK_REPS runs
+    (``default_timer``) between barriers; every gather and reduce-scatter
+    of all that timed by ``observe_link``.  gloo's peak is the fastest
+    rate of a call that received at least RF_PEAK_MIN_BYTES, on any rank,
+    and every row's terms are priced on it at the end; ``fastest`` is this
+    rank's fastest such call, ``marks`` the seconds since the parent's
+    spawn (``t_spawn``, wall clock) at which each stage ended."""
+    import torch.distributed as dist
+    from repro_torch.core import nystrom as nys
+    from repro_torch.core import sketch as sk
+    from repro_torch.parallel import collectives as col
+    from repro_torch.plan import alg1_cost, alg2_fused_cost, default_timer
+    from repro_torch.roofline import analyze_call
+
+    marks = [("started", time.time() - t_spawn)]
+    dev = torch.device(device, 0)
+    A = make_matrix(dev)
+    same_matrix(A, rank, world)
+    marks.append(("A made", time.time() - t_spawn))
+    seen, stage = [], {"name": "link_probe"}
+    out = []
+
+    def row(name, fn, model_words, mf):
+        stage["name"] = name
+        dist.barrier()
+        col.reset_comm()
+        terms = analyze_call(name, fn, chips=world, model_flops=mf,
+                             device=dev)
+        words = col.comm_words() / 2      # the warm-up and the counted call
+        dist.barrier()
+        s = default_timer(fn, warmup=0, iters=RF_RANK_REPS, device=dev)
+        out.append({"terms": terms, "words": words,
+                    "model_words": model_words, "ms": s * 1e3})
+        marks.append((name, time.time() - t_spawn))
+
+    undo = observe_link(col, seen, stage)
+    try:
+        link_probe(A)
+        marks.append(("link_probe", time.time() - t_spawn))
+        for grid in RF_GRIDS:
+            g = sk.make_grid_groups(*grid)
+            blk = sk.input_block(A, g)
+            row(f"(g) alg1 {grid}", lambda: sk.rand_matmul(blk, SEED, R, g),
+                alg1_cost(N, N, R, grid).words, 2.0 * N * N * R)
+            del blk
+        p, q = RF_PAIR
+        blk = sk.input_block(A, sk.make_grid_groups(*p))
+        row(f"(h) nystrom_two_grid_fused {p} {q}",
+            lambda: nys.nystrom_two_grid_fused(blk, SEED, R, p=p, q=q),
+            alg2_fused_cost(N, R, p, q).words,
+            2.0 * N * N * R + 2.0 * N * R * R)
+    finally:
+        undo()
+    fastest = max(c for c in seen if c[2] >= RF_PEAK_MIN_BYTES)
+    peak = torch.tensor([fastest[0]], dtype=torch.float64)
+    dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+    for res in out:
+        res["terms"] = price_link(res["terms"], float(peak)).to_dict()
+    return {"rows": out, "marks": marks, "fastest": fastest,
+            "calls": len(seen)}
+
+
+def phase_roofline_ranks() -> list:
+    """Phase 20 (g)-(h) on RF_WORLD ranks of cuda:0 over gloo: each row's
+    fleet collective bytes held to its ranks' ``COMM`` words and to
+    ``plan.model``'s; the row's time is the slowest rank's."""
+    from repro_torch.roofline import h100_rates
+    t_spawn = time.time()
+    results = spawn_ranks(20, _roofline_rank, RF_WORLD, (t_spawn,))
+    print("[roofline] rank 0's stages, seconds since the spawn: " + ", ".join(
+        f"{label} {t:.1f}" for label, t in results[0]["marks"]))
+    for rank, res in enumerate(results):
+        rate, kind, got, s, where = res["fastest"]
+        print(f"[roofline] rank {rank}: fastest of its {res['calls']} timed "
+              f"gathers and reduce-scatters of at least "
+              f"{RF_PEAK_MIN_BYTES} bytes: a {kind} in {where}, {got} bytes "
+              f"received in {s * 1e3:.4f} ms, {rate:.6g} B/s")
+    results = [res["rows"] for res in results]
+    fit = h100_rates().link_bw
+    peak = results[0][0]["terms"]["link_bw"]
+    print(f"[roofline] gloo's peak, the fastest of those calls on any rank: "
+          f"{peak:.6g} B/s received a rank ({2 ** 20 / peak * 1e3:.4f} ms "
+          f"a MiB); the H100 entry's fit {fit:.6g} B/s "
+          f"({2 ** 20 / fit * 1e3:.4f} ms a MiB)")
+    rows = []
+    for i, first in enumerate(results[0]):
+        every = [res[i] for res in results]
+        t = first["terms"]
+        check(all(e["terms"] == t for e in every),
+              f"phase 20: {t['name']}: the ranks' fleet terms differ")
+        counted = sum(e["words"] for e in every) * 4
+        model = first["model_words"] * RF_WORLD * 4
+        print(f"[roofline] {t['name']}: t_collective at gloo's measured "
+              f"peak {t['t_collective'] * 1e3:.4f} ms, at the H100 entry's "
+              f"fit {t['collective_bytes'] / (t['chips'] * fit) * 1e3:.4f} "
+              f"ms; collective bytes "
+              f"{t['collective_bytes']:.0f}, the ranks' COMM words x 4 "
+              f"{counted:.0f} ({[e['words'] for e in every]}), plan.model's "
+              f"words x P x 4 {model:.0f}; each rank's ms "
+              f"{[round(e['ms'], 4) for e in every]}")
+        check(t["collective_bytes"] == counted == model,
+              f"phase 20: {t['name']}: collective bytes "
+              f"{t['collective_bytes']}, COMM {counted}, model {model}")
+        rows.append({"terms": t, "ms": max(e["ms"] for e in every)})
+    return rows
+
+
+def roofline_report(rows: list, card: str, seconds: float) -> None:
+    """Phase 20's rows and table, and its checks."""
+    from repro_torch.roofline import format_table
+    for row in rows:
+        t, ms = row["terms"], row["ms"]
+        ratio = t["t_bound"] * 1e3 / ms
+        mf = t["model_flops"]
+        share = mf / (t["chips"] * t["peak_flops"] * ms * 1e-3)
+        row["ratio"], row["share"] = ratio, share
+        print(f"[roofline] {t['name']}: chips {t['chips']}; counted FLOPs "
+              f"{t['hlo_flops']:.0f}, device bytes {t['hlo_bytes']:.0f}, "
+              f"collective bytes {t['collective_bytes']:.0f} "
+              f"{t['collective_by_kind']}; t_compute "
+              f"{t['t_compute'] * 1e3:.4f} ms, t_memory "
+              f"{t['t_memory'] * 1e3:.4f} ms, t_collective "
+              f"{t['t_collective'] * 1e3:.4f} ms, bottleneck "
+              f"{t['bottleneck']}, t_bound {t['t_bound'] * 1e3:.4f} ms; "
+              f"measured {ms:.4f} ms, t_bound/measured {ratio:.4f}; "
+              f"model_flops {mf:.0f}, useful_ratio {t['useful_ratio']}, "
+              f"roofline_fraction {t['roofline_fraction']:.4f}, model_flops"
+              f"/(chips·peak_flops·measured) {share:.4f} (peak "
+              f"{t['peak_flops']:.4g} FLOP/s, link {t['link_bw']:.6g} B/s; "
+              f"peak memory "
+              f"{t['per_device_peak_memory']}; {card})")
+    print("[roofline] table (format_table):")
+    print(format_table([row["terms"] for row in rows]))
+    print("[roofline] summary " + json.dumps({
+        "rows": [{"terms": row["terms"], "ms": row["ms"],
+                  "t_bound_over_measured": row["ratio"],
+                  "model_share_of_peak": row["share"]} for row in rows],
+        "seconds": seconds, "card": card}))
+    gemm = 2 * N * N * R
+    for row in rows:
+        t = row["terms"]
+        check(0 < row["ratio"] <= RF_MAX_RATIO,
+              f"phase 20: {t['name']}: t_bound / measured = {row['ratio']} "
+              f"is outside (0, {RF_MAX_RATIO}]: a count or a rate is wrong")
+        if t["name"].startswith("(a)"):
+            check(t["hlo_flops"] == gemm,
+                  f"phase 20: {t['name']} counted {t['hlo_flops']} FLOPs, "
+                  f"not 2·{N}·{N}·{R} = {gemm}")
+    check(sum(row["terms"]["name"].startswith("(a)") for row in rows) == 2,
+          "phase 20: (a) needs both bodies")
+    check(seconds < RF_SECONDS, f"phase 20 took {seconds:.1f} s, not under "
+                                f"{RF_SECONDS} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4478,7 +4839,8 @@ def main() -> int:
     phase_exchange(dev, local, grad_compress)
     torch.cuda.empty_cache()
     print(f"[phases] 9-10 done at {time.perf_counter() - t_start:.1f} s")
-    train_counts = phase_training(dev, LAUNCHES, reset_launches)
+    train_counts, train_row = phase_training(dev, LAUNCHES,
+                                             reset_launches)
     print(f"[phases] 11 done at {time.perf_counter() - t_start:.1f} s")
     check(train_counts["gemm"] > 0 and train_counts["sketch_fwd"] > 0,
           "gemm or sketch_fwd never launched on the training path")
@@ -4571,6 +4933,17 @@ def main() -> int:
         "seconds": t19, "card": card}, default=str))
     print(f"[phases] 19 done at {time.perf_counter() - t_start:.1f} s "
           f"(phase 19: {t19:.1f} s; {card})")
+
+    # -- 20. the roofline -----------------------------------------------------
+    t20 = time.perf_counter()
+    rf_rows = phase_roofline_one_card(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rf_rows += [train_row] + phase_roofline_ranks()
+    t20 = time.perf_counter() - t20 + train_row["seconds"]
+    roofline_report(rf_rows, card, t20)
+    print(f"[phases] 20 done at {time.perf_counter() - t_start:.1f} s "
+          f"(phase 20: {t20:.1f} s, (f) included; {card})")
 
     total = [sum(gemm_times[c][i] for c in "abc") for i in range(3)]
     bound3 = sum(gemm_times[c][3][0] for c in "abc")

@@ -19,6 +19,7 @@ import torch
 from . import rng
 from .kinds import DENSE_KINDS, SPARSE_KINDS, VALID_KINDS, validate_kind
 from .rng import resolve_device
+from repro_torch.roofline import counts as _counts
 
 __all__ = ["DENSE_KINDS", "SPARSE_KINDS", "VALID_KINDS", "validate_kind",
            "resolve_device", "seed_keys", "omega_tile", "sparse_omega_map",
@@ -72,6 +73,14 @@ def _omega_tile_torch(key0: int, key1: int, row0, col0, rows: int,
         rows if n_total is None else n_total, salt, device)
 
 
+def _omega_work(seed, row0, col0, rows, cols, kind="normal",
+                dtype=torch.float32, *_, **__):
+    """A dense kind's tile is K8's work; a sparse kind's is torch ops."""
+    return (_counts.gen_omega_work(rows, cols, dtype)
+            if kind in DENSE_KINDS else None)
+
+
+@_counts.kernel("gen_omega", _omega_work)
 def omega_tile(seed, row0, col0, rows: int, cols: int,
                kind: str = "normal", dtype=torch.float32, salt: int = 0,
                r_total: Optional[int] = None, n_total: Optional[int] = None,

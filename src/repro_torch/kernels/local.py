@@ -44,6 +44,7 @@ from repro_torch.core.kinds import validate_kind
 
 from .sketch_matmul import (fold_rows_cuda, gemm_cuda, sketch_fwd_cuda,
                             sketch_t_cuda, sparse_fold_cuda)
+from repro_torch.roofline import counts as _counts
 
 BACKENDS = ("torch", "cuda", "auto")
 
@@ -136,6 +137,20 @@ def _dispatch(kernel, plain, X, seed, cols, out_shape, row0, col0, kind,
                   scale, acc, out_dtype, **extra)
 
 
+# Each dispatch counts its kernel's work inside ``roofline.counting()``
+# (one shape function a kernel, the same on the card and the CPU).
+
+def _fwd_work(A, seed, cols, *, acc=None, out_dtype=None, **_):
+    return _counts.sketch_fwd_work(A.shape[0], A.shape[1], cols, A.dtype,
+                                   out_dtype or A.dtype, acc is not None)
+
+
+def _t_work(B, seed, cols, *, acc=None, out_dtype=None, **_):
+    return _counts.sketch_t_work(cols, B.shape[0], B.shape[1], B.dtype,
+                                 out_dtype or B.dtype, acc is not None)
+
+
+@_counts.kernel("sketch_fwd", _fwd_work)
 def sketch_block(A: torch.Tensor, seed, cols: int, *, row0=0, col0=0,
                  kind: str = "normal", salt: int = 0, scale=None,
                  acc: Optional[torch.Tensor] = None, out_dtype=None,
@@ -154,6 +169,7 @@ def sketch_block(A: torch.Tensor, seed, cols: int, *, row0=0, col0=0,
                      out_dtype, backend, out=out)
 
 
+@_counts.kernel("sketch_t", _t_work)
 def sketch_t_block(B: torch.Tensor, seed, cols: int, *, row0=0, col0=0,
                    kind: str = "normal", salt: int = 0, scale=None,
                    acc: Optional[torch.Tensor] = None, out_dtype=None,
@@ -214,6 +230,17 @@ def _per_lane(v, n: int) -> list:
     return vals
 
 
+def _fold_work(y, d, start, nvalid=None):
+    lanes = [y] if isinstance(y, torch.Tensor) else list(y)
+    if not lanes:
+        return None
+    n = len(lanes)
+    return _counts.fold_rows_work(
+        lanes[0].shape[0], d.shape[-2], d.shape[-1], lanes[0].dtype, d.dtype,
+        _per_lane(start, n), None if nvalid is None else _per_lane(nvalid, n))
+
+
+@_counts.kernel("fold_rows", _fold_work)
 def fold_rows_block(y: Union[torch.Tensor, Sequence[torch.Tensor]],
                     d: torch.Tensor, start, nvalid=None):
     """``y <- y + [0_m; d; 0_m][start : start + m]`` IN PLACE — the
@@ -263,6 +290,12 @@ def _gemm_block_torch(A: torch.Tensor, B: torch.Tensor, alpha: float = 1.0,
     return out.to(out_dtype or A.dtype)
 
 
+def _gemm_work(A, B, *, acc=None, out_dtype=None, **_):
+    return _counts.gemm_work(A.shape[0], B.shape[1], A.shape[1], A.dtype,
+                             B.dtype, out_dtype or A.dtype, acc is not None)
+
+
+@_counts.kernel("gemm", _gemm_work)
 def gemm_block(A: torch.Tensor, B: torch.Tensor, *, alpha: float = 1.0,
                acc: Optional[torch.Tensor] = None, out_dtype=None,
                out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -362,12 +395,34 @@ def sparse_fold_block(acc: torch.Tensor, dest: torch.Tensor,
             raise ValueError(f"sparse_fold_block: {what} is {X.dtype}, acc "
                              f"{acc.dtype}: cast the entries first")
     if not acc.is_cuda:
-        return acc.copy_(_sparse_fold_torch(acc, dest, val, table, src, cell,
-                                            coef, axis, from_zero))
+        return _sparse_fold_plain(acc, dest, val, table, src, cell, coef,
+                                  axis, from_zero)
     ptr, entries = sparse_fold_operands(dest, acc.shape[axis], val, src,
                                         cell, coef)
-    return sparse_fold_cuda(acc, ptr, table=table, axis=axis,
-                            from_zero=from_zero, **entries)
+    return _sparse_fold_launch(acc, ptr, table=table, axis=axis,
+                               from_zero=from_zero, **entries)
+
+
+# The two bodies of sparse_fold_block, each counted as one S1 call; the
+# card's CSR build between them is torch ops, counted as such.
+
+def _s1_work(acc, index, val, table=None, src=None, cell=None, coef=None,
+             axis=0, from_zero=False):
+    return _counts.sparse_fold_work(
+        acc.shape[axis], acc.shape[1 - axis], val.shape[0], acc.dtype,
+        None if table is None else table.shape[0], from_zero)
+
+
+@_counts.kernel("sparse_fold", _s1_work)
+def _sparse_fold_plain(acc, dest, val, table, src, cell, coef, axis,
+                       from_zero):
+    return acc.copy_(_sparse_fold_torch(acc, dest, val, table, src, cell,
+                                        coef, axis, from_zero))
+
+
+@_counts.kernel("sparse_fold", _s1_work)
+def _sparse_fold_launch(acc, ptr, **kw):
+    return sparse_fold_cuda(acc, ptr, **kw)
 
 
 def sparse_fold_operands(dest: torch.Tensor, nseg: int, val: torch.Tensor,

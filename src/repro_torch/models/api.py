@@ -1,10 +1,13 @@
 """Uniform model API of the port (the reference's ``models/api.py``), for
-the dense family, and the parameter leaf order of the reference.
+the dense family, the parameter leaf order of the reference, and the
+useful FLOPs of a step (``model_flops``, ``count_params_split``,
+``count_active_params``).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -61,3 +64,41 @@ def unflatten_like(tree, leaves):
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree holds")
     return out
+
+
+def model_flops(cfg: ModelConfig, shape, n_params: Optional[int] = None,
+                n_active_params: Optional[int] = None) -> float:
+    """MODEL_FLOPS = 6·N·D (dense) or 6·N_active·D (MoE) for train;
+    2·N·D for inference-type shapes (forward only).  ``shape`` is anything
+    with ``global_batch``, ``seq_len`` and ``kind`` (train, prefill or
+    decode)."""
+    N = n_active_params or n_params or 0
+    D = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
+    mult = 6.0 if shape.kind == "train" else 2.0
+    return mult * N * D
+
+
+def count_params_split(cfg: ModelConfig, params_shapes=None):
+    """(total, expert) parameter counts from shapes alone: ``params_shapes``
+    a nested dict of tensors (any device), by default the model's own
+    leaves made on the ``meta`` device, which allocates nothing."""
+    if params_shapes is None:
+        params_shapes = get_api(cfg).init(0, cfg, "meta")
+    total = 0
+    expert = 0
+    for name, leaf in param_leaves(params_shapes):
+        sz = math.prod(int(s) for s in leaf.shape)
+        if cfg.n_experts and "moe" in name and any(
+                w in name for w in ("w_gate", "w_up", "w_down")):
+            expert += sz
+        else:
+            total += sz
+    return total + expert, expert
+
+
+def count_active_params(cfg: ModelConfig, params_shapes=None) -> int:
+    """Active params per token: MoE experts count at top_k/E weight."""
+    total, expert = count_params_split(cfg, params_shapes)
+    if cfg.n_experts:
+        return int(total - expert + expert * cfg.top_k / cfg.n_experts)
+    return int(total)

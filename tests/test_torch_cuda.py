@@ -1125,3 +1125,61 @@ def test_autotune_on_the_card_executes_its_winner(sm90, tmp_path):
     cache = AutotuneCache(path)
     hit = autotune(plan, cache=cache, timer=forbidden, presets={})
     assert cache.hits == 1 and hit.variant == tuned.variant
+
+
+def _counted_kernel_calls(device):
+    """The kernels' dispatches at fixed shapes, inputs made before the
+    block from a numpy seed: each call's counts, ``(launches, flops,
+    bytes)``, and the S1 update's launches alone (its card path builds
+    its CSR with torch ops, which the CPU's plain path does inside the
+    kernel's count)."""
+    from repro_torch.kernels import ops
+    from repro_torch.roofline import counting
+    from repro_torch.stream.state import SparseRows
+    rng = np.random.default_rng(32)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device)
+    A, B, W = t(40, 1024), t(1024, 5), t(24, 5)
+    G, H, acc = t(8, 1024), t(1024, 40), t(8, 40)
+    ys, d = [t(16, 8) for _ in range(3)], t(3, 4, 8)
+    calls = {
+        "sketch_fwd split": lambda: sketch_block(A, 7, 32),
+        "sketch_fwd narrow": lambda: sketch_block(A, 7, 8),
+        "sketch_t split acc": lambda: sketch_t_block(B, 7, 24, acc=W),
+        "gemm skinny acc": lambda: gemm_block(G, H, alpha=-1.0, acc=acc),
+        "fold_rows": lambda: fold_rows_block(ys, d, [16, 13, 40], [4, 2, 4]),
+        "gen_omega": lambda: ops.gen_omega(seed=7, n2=96, r=24,
+                                           device=device)}
+    out = {}
+    for name, fn in calls.items():
+        with counting() as c:
+            fn()
+        out[name] = (c.launches, c.flops, c.hbm_bytes)
+    cfg = StreamConfig(64, 128, r=8, seed=3)
+    st = StreamingSketch(cfg, device=device)
+    idx = rng.choice(16 * 128, size=200, replace=False)
+    sp = SparseRows((idx // 128).astype(np.int32),
+                    (idx % 128).astype(np.int32),
+                    rng.standard_normal(200).astype(np.float32), (16, 128))
+    with counting() as c:
+        st.update_rows_sparse(16, sp)
+    out["update_rows_sparse"] = c.launches
+    return out
+
+
+def test_roofline_counts_real_launches_as_on_the_cpu(sm90):
+    """Counted on the card, each kernel dispatch's launches equal the
+    launches ``LAUNCHES`` saw, and its launches, FLOPs and bytes equal the
+    CPU's count of the same calls at the same shapes."""
+    reset_launches()
+    card = _counted_kernel_calls(sm90)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    total = {}
+    for got in card.values():
+        for k, v in (got[0] if isinstance(got, tuple) else got).items():
+            total[k] = total.get(k, 0) + v
+    assert total == launched
+    assert card == _counted_kernel_calls("cpu")

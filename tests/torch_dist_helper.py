@@ -1116,3 +1116,31 @@ def dp_step_ledger_worker(rank, world, spec):
             "drift": s.drift, "bound_fraction": s.bound_fraction,
             "exchange_words": plan.exchange_words,
             "n_compressed": plan.n_compressed, "comm": gc.COMM["words"]}
+
+
+def roofline_worker(rank, world, A, seed, r, grids):
+    """One rank of the roofline's Alg. 1 case: each grid's call through
+    ``analyze_call(chips=world)`` (a warm-up, then the counted call; the
+    fleet's terms on every rank) and the words this rank received in one
+    call, by kind."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import sketch as sk
+    from repro_torch.parallel import collectives as col
+    from repro_torch.roofline import analyze_call
+
+    At = torch.from_numpy(np.array(A))
+    n1, n2 = At.shape
+    out = {}
+    for grid in grids:
+        g = sk.make_grid_groups(*grid)
+        blk = sk.input_block(At, g)
+        col.reset_comm()
+        terms = analyze_call(f"alg1 {grid}",
+                             lambda: sk.rand_matmul(blk, seed, r, g),
+                             chips=world, model_flops=2.0 * n1 * n2 * r,
+                             device="cpu")
+        out[grid] = (terms.to_dict(),
+                     {k: v["words"] // 2 for k, v in col.COMM.items()})
+    return out
