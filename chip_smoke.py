@@ -402,6 +402,41 @@ and the roofline (``repro_torch.roofline``):
                   words x 4 summed, and ``plan.model``'s words x P x 4;
                   the phase, (f) included, under 60 s.
 
+and recovery (``repro_torch.stream.elastic``, ``faults``, spill, WAL):
+
+ 21. recovery   — (a) on one card at phases 6-8's stream shape, under
+                  build/repro_torch/recovery/: ``run_chaos_scenario``
+                  kill-worker (32 streams, 4 updates each; WAL replay into
+                  a fresh service bitwise the run that never crashed),
+                  torn-write (``torn_steps == [2]``, ``latest_step == 1``,
+                  step 1 restored bitwise) and eviction-storm (16 streams,
+                  ``max_resident=1`` spilling to disk, bitwise); a
+                  co-range stream evicted to disk and touched again, Y and
+                  W bitwise, five times: the spill's write ms and MB/s,
+                  the restore's ms, and the replay's records/s and
+                  ``recover_s``; (b) on four ranks of the card over gloo
+                  (``_recovery_rank``) at phase 15's stream (A = 32768²,
+                  r = 512, l = 1025, co-range, seed 7, phase 15's slabs):
+                  ``reshard_stream`` (4,1,1) -> (2,2,1) -> (1,2,2) ->
+                  (2,1,1) -> (4,1,1) with a slab before each hop, Y and W
+                  bitwise the same slabs on the same grids with the state
+                  carried by gathers (the slabs on (2,2,1) and (1,2,2) sum
+                  over p2, so the stream that never moved is within
+                  f32_tol(n)), and (4,1,1) -> (2,1,1) -> (4,1,1) bitwise
+                  the stream that never moved; on every rank each hop's
+                  words = its ``COMM`` delta = ``rank_words`` = the ledger
+                  site's, drift 0, and their maximum
+                  ``stream_reshard_words``; a grid service's ``reshard``
+                  (2,2,1) -> (4,1,1) holding one stream spilled to disk,
+                  touched again bitwise; ``drain_reshard_resume`` (4,1,1)
+                  -> (2,1,1) -> (4,1,1) through grid-mode queues of
+                  different windows, bitwise the service never disturbed;
+                  each hop's wall, its slowest rank and its MiB; (c)
+                  ``python -m repro_torch.launch.serve --chaos all`` as a
+                  subprocess, exit 0; (d) sketch_fwd, fold_rows and
+                  sketch_t launched in (a) and on every rank of (b), the
+                  phase under 120 s.
+
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and the exit code is non-zero; without a CUDA card it exits 1 and prints no
@@ -4554,6 +4589,334 @@ def roofline_report(rows: list, card: str, seconds: float) -> None:
                                 f"{RF_SECONDS} s")
 
 
+# -- 21: recovery -------------------------------------------------------------
+
+RC_WORLD = 4
+RC_HOPS = [(2, 2, 1), (1, 2, 2), (2, 1, 1), (4, 1, 1)]   # from (4,1,1)
+RC_SHRINK = [(2, 1, 1), (4, 1, 1)]       # (b): the hops of the plain 4 -> 2 -> 4
+RC_SERVICE = ((2, 2, 1), (4, 1, 1))      # (b): a grid service's reshard
+RC_QUEUE_N1 = 2048                       # (b): the grid queue's delta rows
+RC_QUEUE_UPDATES = 3                     # (b): rounds of the grid queue
+RC_CYCLES = 5                            # (a): spill / restore cycles timed
+RC_DIR = ROOT / "build" / "repro_torch" / "recovery"
+RC_SECONDS = 120                         # the phase's time limit
+
+
+def _fresh_dir(path) -> str:
+    import shutil
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return str(path)
+
+
+def phase_recovery_one_card(dev, card: str, LAUNCHES,
+                            reset_launches) -> dict:
+    """Phase 21 (a): the one-card drills at phases 6-8's stream shape and
+    a co-range stream spilled to disk and touched again, timed."""
+    import os
+
+    from repro_torch.stream import SketchService, StreamConfig
+    from repro_torch.stream.faults import bits_equal, run_chaos_scenario
+
+    work = _fresh_dir(RC_DIR / "one_card")
+    shape = dict(n1=S_N1, n2=S_N2, r=S_R)
+    reset_launches()
+    out = {}
+    for name, kw in (("kill-worker", dict(streams=32, updates=4)),
+                     ("torn-write", {}),
+                     ("eviction-storm", dict(streams=16))):
+        t0 = time.perf_counter()
+        res = run_chaos_scenario(name, workdir=os.path.join(work, name),
+                                 verbose=False, device=dev, **shape, **kw)
+        res["wall_s"] = time.perf_counter() - t0
+        print(f"[recovery] (a) {name} at {S_N1}x{S_N2}, r = {S_R}: "
+              f"recovered={res['recovered']} {res} ({card})")
+        check(res["recovered"], f"phase 21: the {name} drill did not "
+                                f"recover: {res}")
+        out[name] = res
+    kw = out["kill-worker"]
+    print(f"[recovery] (a) WAL replay: {kw['replayed_records']} records "
+          f"({kw['replayed_words']} words) in recover_s "
+          f"{kw['recover_s']:.4f} s: "
+          f"{kw['replayed_records'] / kw['recover_s']:.1f} records/s, a "
+          f"fresh service included ({card})")
+    # a co-range stream evicted to disk and touched again, bitwise
+    svc = SketchService(spill_dir=os.path.join(work, "spill"), device=dev)
+    cfg = StreamConfig(seed=SEED, **shape)
+    sid = svc.open(cfg)
+    g = torch.Generator(device=dev).manual_seed(21)
+    svc.update(sid, torch.randn(S_KMAX, S_N2, generator=g, device=dev),
+               row0=S_N1 // 3)
+    Y, W = svc.sketch(sid).clone(), svc.corange(sid).clone()
+    nbytes = (Y.numel() + W.numel()) * Y.element_size()
+    writes, reads = [], []
+    for _ in range(RC_CYCLES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.evict(sid)
+        writes.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        got = svc.sketch(sid)
+        torch.cuda.synchronize()
+        reads.append(time.perf_counter() - t0)
+        check(bits_equal(got, Y) and bits_equal(svc.corange(sid), W),
+              "phase 21: the co-range stream restored from disk is not "
+              "bitwise")
+    w_ms, r_ms = (statistics.median(writes) * 1e3,
+                  statistics.median(reads) * 1e3)
+    print(f"[recovery] (a) spill of one co-range stream ({S_N1}x{S_R} Y + "
+          f"{cfg.sketch_l}x{S_N2} W, {nbytes} bytes) to disk and back, "
+          f"{RC_CYCLES} cycles, bitwise: write (ckpt.save, fsynced) "
+          f"{w_ms:.3f} ms, {nbytes / w_ms / 1e3:.1f} MB/s; restore (read, "
+          f"to the card, the directory removed) {r_ms:.3f} ms; each write "
+          f"{[round(x * 1e3, 3) for x in writes]} ms, each restore "
+          f"{[round(x * 1e3, 3) for x in reads]} ms ({card})")
+    out["spill"] = {"bytes": nbytes, "write_ms": w_ms, "restore_ms": r_ms,
+                    "writes_ms": [x * 1e3 for x in writes],
+                    "restores_ms": [x * 1e3 for x in reads]}
+    out["launches"] = {k: LAUNCHES[k] for k in ("sketch_fwd", "fold_rows",
+                                                "sketch_t")}
+    return out
+
+
+def _hop_timed(fn):
+    """``fn()`` between barriers, ended by a synchronize: (result, wall)."""
+    import torch.distributed as dist
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _recovery_rank(rank, world, work, device="cuda"):
+    """Phase 21 (b), one rank."""
+    import os
+
+    import torch.distributed as dist
+    from repro_torch.core import sketch as sk
+    from repro_torch.kernels.sketch_matmul import LAUNCHES, reset_launches
+    from repro_torch.obs import install_ledger, uninstall_ledger
+    from repro_torch.parallel import collectives as col
+    from repro_torch.stream import (IngestQueue, ShardedStreamingSketch,
+                                    SketchService, StreamConfig)
+    from repro_torch.stream import distributed as sd
+    from repro_torch.stream.elastic import (LEDGER_SITE,
+                                            drain_reshard_resume,
+                                            rank_words, reshard_stream)
+    from repro_torch.stream.faults import bits_equal
+
+    dev = torch.device(device)
+    lines = []
+
+    def say(msg):
+        lines.append(f"[recovery] rank {rank}: {msg}")
+
+    A = make_matrix(dev)
+    same_matrix(A, rank, world)
+    cfg = StreamConfig(N, N, r=R, seed=SEED)
+    slabs = [(s * SLAB, A[s * SLAB:(s + 1) * SLAB]) for s in SD_ORDER]
+    reset_launches()
+
+    def gathered(Y, W, g):
+        if g.coords is None:
+            return None
+        return sk.gather_output(Y, g), sd.gather_corange(W, g)
+
+    def same(a, b):
+        return all(bits_equal(x, y) for x, y in zip(a, b))
+
+    def hop(st, new):
+        """One observed hop: (stream, its record)."""
+        old = st.mesh.shape
+        led = install_ledger()
+        try:
+            col.reset_comm()
+            st2, wall = _hop_timed(lambda: reshard_stream(st, new))
+            words = col.COMM["redistribute"]["words"]
+            site = next(x for x in led.sites() if x.name == LEDGER_SITE)
+        finally:
+            uninstall_ledger()
+        want = rank_words(cfg, old, new, world)[rank]
+        check(words == want == site.measured_words_per_call
+              == site.predicted_words and site.drift == 0.0,
+              f"rank {rank}: hop {old} -> {new}: COMM {words}, rank_words "
+              f"{want}, ledger {site.measured_words_per_call} / "
+              f"{site.predicted_words}, drift {site.drift}")
+        return st2, {"old": old, "new": tuple(new), "words": words,
+                     "wall_s": wall}
+
+    # the hops of RC_HOPS with a slab before each, and the same slabs on the
+    # same grids with the state carried by gathers (never resharded live)
+    g0 = sk.make_grid_groups(world, 1, 1)
+    st = ShardedStreamingSketch(cfg, g0, device=dev)
+    Yf = torch.zeros(N, R, device=dev)
+    Wf = torch.zeros(cfg.sketch_l, N, device=dev)
+    grids = [(world, 1, 1)] + RC_HOPS
+    hops = []
+    for i, (r0, H) in enumerate(slabs[:len(grids)]):
+        g = sk.make_grid_groups(*grids[i])
+        if i:
+            st, rec = hop(st, grids[i])
+            hops.append(rec)
+        st.update_rows(r0, H)
+        if g.coords is not None:
+            blk = sd.stream_blocks(cfg, g, Yf, Wf, device=dev)
+            sd.sharded_update_rows(cfg, sk.seed_keys(SEED), blk["Y"],
+                                   blk["W"], r0, H, g)
+            Yf, Wf = gathered(blk["Y"], blk["W"], g)
+        dist.broadcast(Yf, 0)
+        dist.broadcast(Wf, 0)
+    check(same(gathered(st.Y, st.W, st.mesh), (Yf, Wf)),
+          f"rank {rank}: the stream resharded live along {grids} is not "
+          f"bitwise the same slabs on the same grids carried by gathers")
+    # the stream that never moved, on (4,1,1): the plain 4 -> 2 -> 4
+    # sequence is bitwise it; the sequence above sums slabs on p2 = 2
+    never = ShardedStreamingSketch(cfg, g0, device=dev)
+    z = ShardedStreamingSketch(cfg, g0, device=dev)
+    for i, (r0, H) in enumerate(slabs[:len(grids)]):
+        never.update_rows(r0, H)
+        if i < len(RC_SHRINK) + 1:
+            if i:
+                z, rec = hop(z, RC_SHRINK[i - 1])
+                hops.append(rec)
+            z.update_rows(r0, H)
+        if i == len(RC_SHRINK):
+            check(bits_equal(z.Y, never.Y) and bits_equal(z.W, never.W),
+                  f"rank {rank}: the stream resharded {RC_SHRINK} is not "
+                  f"bitwise the stream that never moved")
+    full_never = gathered(never.Y, never.W, g0)
+    errs = [rel_fro(a, b) for a, b in zip((Yf, Wf), full_never)]
+    check(max(errs) <= f32_tol(N), f"rank {rank}: the resharded stream "
+                                   f"departs from the one that never moved "
+                                   f"by {errs}")
+    say(f"(b) hops (4,1,1) -> {' -> '.join(map(str, RC_HOPS))} with a "
+        f"{SLAB}-row slab before each: Y and W bitwise the same slabs on "
+        f"the same grids carried by gathers, within {errs} of the stream "
+        f"that never moved (the (2,2,1) and (1,2,2) slabs sum over p2); "
+        f"(4,1,1) -> {' -> '.join(map(str, RC_SHRINK))}: bitwise the stream "
+        f"that never moved; every hop's words = COMM = rank_words = the "
+        f"ledger's, drift 0")
+    del never, z, Yf, Wf, full_never
+
+    # a grid service holding an evicted stream, spilled to disk
+    old, new = RC_SERVICE
+    svc = SketchService(mesh=sk.make_grid_groups(*old), max_resident=1,
+                        spill_dir=os.path.join(work, "service"),
+                        device=dev)
+    a = svc.open(cfg)
+    svc.update(a, A)
+    snap = gathered(svc.sketch(a), svc.corange(a), svc.mesh)
+    svc.open(StreamConfig(N, N, r=R, seed=SEED + 1))       # spills a
+    check(svc.num_evicted == 1, f"rank {rank}: no stream was evicted")
+    moved, wall = _hop_timed(lambda: svc.reshard(new))
+    got = gathered(svc.sketch(a), svc.corange(a), svc.mesh)
+    check(moved == 1 and same(got, snap),
+          f"rank {rank}: the evicted stream is not bitwise after the "
+          f"service's reshard {old} -> {new}")
+    say(f"(b) a grid service's reshard {old} -> {new} with one stream "
+        f"spilled to disk: {wall:.3f} s; the spilled stream touched again "
+        f"on {new}, bitwise")
+    service_wall = wall
+    del svc, snap, got
+
+    # drain -> reshard -> resume through grid-mode queues
+    qcfg = [StreamConfig(RC_QUEUE_N1, N, r=R, seed=SEED + s, corange=False)
+            for s in range(2)]
+    gen = torch.Generator().manual_seed(2100)
+    deltas = [[torch.randn(RC_QUEUE_N1, N, generator=gen).numpy()
+               for _ in qcfg] for _ in range(RC_QUEUE_UPDATES)]
+    ref = SketchService(mesh=g0, device=dev)
+    svc = SketchService(mesh=g0, device=dev)
+    rids = [ref.open(c) for c in qcfg]
+    sids = [svc.open(c) for c in qcfg]
+    arcs = []
+    with IngestQueue(svc, window=rank + 1) as q:
+        for u, grid in enumerate([(world // 2, 1, 1), (world, 1, 1), None]):
+            for sid, H in zip(sids, deltas[u]):
+                q.submit(sid, H)
+            if grid is not None:
+                # no barrier here: the queue's worker may still be applying
+                # this round
+                t0 = time.perf_counter()
+                arc = drain_reshard_resume(q, grid)
+                torch.cuda.synchronize()
+                arcs.append((grid, arc, time.perf_counter() - t0))
+        q.flush(raise_errors=True)
+    for row in deltas:
+        for rid, H in zip(rids, row):
+            ref.update(rid, H)
+    check(all(bits_equal(svc.sketch(s), ref.sketch(t))
+              for s, t in zip(sids, rids)),
+          f"rank {rank}: drain_reshard_resume is not bitwise the service "
+          f"that was never disturbed")
+    say(f"(b) drain_reshard_resume (4,1,1) -> (2,1,1) -> (4,1,1) through "
+        f"a grid-mode queue (window {rank + 1}), {RC_QUEUE_UPDATES} rounds "
+        f"of {len(qcfg)} {RC_QUEUE_N1}x{N} deltas: bitwise the service "
+        f"that was never disturbed; "
+        + ", ".join(f"{g}: {a} in {w:.3f} s" for g, a, w in arcs))
+    launches = {k: LAUNCHES[k] for k in ("sketch_fwd", "fold_rows",
+                                         "sketch_t")}
+    return {"lines": lines, "hops": hops, "launches": launches,
+            "service_wall_s": service_wall,
+            "arcs": [(g, a, w) for g, a, w in arcs]}
+
+
+def phase_recovery_ranks(card: str) -> list:
+    """Phase 21 (b) on RC_WORLD ranks of cuda:0 over gloo: each hop's
+    slowest rank, its words against ``stream_reshard_words``."""
+    from repro_torch.plan.model import stream_reshard_words
+    work = _fresh_dir(RC_DIR / "ranks")
+    results = spawn_ranks(21, _recovery_rank, RC_WORLD, (work,))
+    for res in results:
+        for line in res["lines"]:
+            print(line)
+    L = 2 * R + 1
+    for i, first in enumerate(results[0]["hops"]):
+        every = [res["hops"][i] for res in results]
+        old, new = first["old"], first["new"]
+        words = [e["words"] for e in every]
+        walls = [e["wall_s"] for e in every]
+        want = stream_reshard_words(N, R, old, new, l=L, n2=N, corange=True)
+        print(f"[recovery] (b) hop {old} -> {new}: wall {max(walls):.4f} s "
+              f"(slowest rank {walls.index(max(walls))}; each "
+              f"{[round(w, 4) for w in walls]}); words a rank {words}, "
+              f"{[round(w * 4 / 2 ** 20, 3) for w in words]} MiB, the most "
+              f"{max(words)} = stream_reshard_words {want:.0f} ({card})")
+        check(max(words) == want,
+              f"phase 21: hop {old} -> {new}: the most words a rank "
+              f"{max(words)}, stream_reshard_words {want}")
+    for name in ("sketch_fwd", "fold_rows", "sketch_t"):
+        n = [res["launches"][name] for res in results]
+        check(all(x > 0 for x in n), f"phase 21: {name} not launched on "
+                                     f"every rank: {n}")
+    return results
+
+
+def phase_recovery_launcher() -> float:
+    """Phase 21 (c): ``python -m repro_torch.launch.serve --chaos all`` on
+    the card, as a subprocess; exit 0."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--chaos", "all"],
+        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith("[chaos] ") and ": " in line:
+            print(f"[recovery] (c) {line}")
+    check(proc.returncode == 0, f"phase 21: --chaos all exited "
+                                f"{proc.returncode}:\n{proc.stdout[-3000:]}"
+                                f"\n{proc.stderr[-3000:]}")
+    print(f"[recovery] (c) python -m repro_torch.launch.serve --chaos all: "
+          f"exit 0 in {wall:.1f} s")
+    return wall
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4945,6 +5308,27 @@ def main() -> int:
     print(f"[phases] 20 done at {time.perf_counter() - t_start:.1f} s "
           f"(phase 20: {t20:.1f} s, (f) included; {card})")
 
+    # -- 21. recovery ---------------------------------------------------------
+    t21 = time.perf_counter()
+    recovery = phase_recovery_one_card(dev, card, LAUNCHES, reset_launches)
+    for name, n in recovery["launches"].items():
+        check(n > 0, f"phase 21: {name} never launched on one card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rc_ranks = phase_recovery_ranks(card)
+    rc_launcher = phase_recovery_launcher()
+    t21 = time.perf_counter() - t21
+    print("[recovery] summary " + json.dumps({
+        "one_card": recovery, "launcher_s": rc_launcher,
+        "ranks": [{k: res[k] for k in ("hops", "launches",
+                                       "service_wall_s", "arcs")}
+                  for res in rc_ranks],
+        "seconds": t21, "card": card}, default=str))
+    check(t21 < RC_SECONDS, f"phase 21 took {t21:.1f} s, not under "
+                            f"{RC_SECONDS} s")
+    print(f"[phases] 21 done at {time.perf_counter() - t_start:.1f} s "
+          f"(phase 21: {t21:.1f} s; {card})")
+
     total = [sum(gemm_times[c][i] for c in "abc") for i in range(3)]
     bound3 = sum(gemm_times[c][3][0] for c in "abc")
     rows.append(("gemm",
@@ -5011,6 +5395,14 @@ def main() -> int:
             kernels[-1]["alg2_two_grid"] = {
                 "launches": [res["launches"][name] for res in two_grid],
                 "calls": [res["calls"][name] for res in two_grid]}
+        if name in ("sketch_fwd", "sketch_t", "fold_rows"):
+            # phase 21: the launches of the one-card recovery paths and of
+            # each rank's reshards, queue and service (counts reset at the
+            # start of each)
+            kernels[-1]["recovery"] = {
+                "launches_one_card": recovery["launches"][name],
+                "launches_ranks": [res["launches"][name]
+                                   for res in rc_ranks]}
         if name in ("sketch_fwd", "sketch_t", "fold_rows"):
             # phase 15: each rank's launches over its distributed-stream
             # runs (counts reset just before each run), and the kernel

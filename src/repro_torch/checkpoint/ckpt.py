@@ -5,8 +5,16 @@ Layout: ``<dir>/step_<N>/`` holding ``tensors.pt`` (every tensor by name,
 on the CPU) and ``manifest.json`` (step, ``extra``, the names, and for a
 train state its step and optimizer count).  Everything is written into
 ``step_<N>.tmp``, fsynced, and published with one ``os.replace``, so a
-reader never sees a half-written step; ``latest_step`` reports only steps
-whose manifest and tensors load.
+reader never sees a half-written step.
+
+Torn steps, as in the reference.  A step is complete when its manifest
+parses, its ``tensors.pt`` loads and the two name the same tensors
+(:func:`is_complete`).  A torn one (a copy cut short, an older writer, or
+the ``ckpt.pre_commit`` fault point of ``stream/faults.py``, which fires
+between staging and the ``os.replace``) is never loaded: ``latest_step``
+skips it, an explicit ``restore`` / ``restore_tree`` of it raises
+:class:`TornCheckpointError`, ``torn_steps`` lists it and
+``quarantine_torn`` renames it to ``step_<N>.torn``.
 
 Two forms share that writer:
 
@@ -23,6 +31,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import re
 import shutil
 from typing import Dict, List, Optional, Tuple
@@ -32,6 +41,11 @@ import torch
 from repro_torch.models.api import param_leaves
 
 _STEP_RE = re.compile(r"^step_(\d{8})$")
+
+
+class TornCheckpointError(RuntimeError):
+    """An explicitly requested checkpoint step exists but is torn
+    (incomplete manifest or tensors) and will not be loaded."""
 
 
 def _named(state) -> Dict[str, torch.Tensor]:
@@ -53,7 +67,10 @@ def _fsync_write(path: str, writer) -> None:
 def _write(directory: str, step: int, tensors: Dict[str, torch.Tensor],
            manifest: Dict, keep: int) -> str:
     """Atomically publish ``tensors`` and ``manifest`` as step ``step``;
-    keep the newest ``keep`` steps."""
+    keep the newest ``keep`` steps.  The ``ckpt.pre_commit`` fault point
+    fires between staging and publishing: a fault raised there publishes
+    nothing."""
+    from repro_torch.stream import faults
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -66,6 +83,9 @@ def _write(directory: str, step: int, tensors: Dict[str, torch.Tensor],
                      lambda f: torch.save(tensors, f))
         _fsync_write(os.path.join(tmp, "manifest.json"),
                      lambda f: f.write(json.dumps(manifest).encode()))
+        # a handler here that tears the staged files makes the commit
+        # below publish a torn step, as a non-atomic writer would
+        faults.fire("ckpt.pre_commit", tmp=tmp, final=final, step=step)
         if os.path.exists(final):
             shutil.rmtree(final)
         os.replace(tmp, final)
@@ -112,24 +132,74 @@ def _load(path: str):
     return manifest, tensors
 
 
+def is_complete(path: str) -> bool:
+    """True iff the step directory ``path`` loads: its manifest parses,
+    its ``tensors.pt`` loads, and the two name the same tensors."""
+    try:
+        _load(path)
+    except (OSError, EOFError, ValueError, KeyError, RuntimeError,
+            pickle.UnpicklingError):    # missing, cut short, or bad JSON
+        return False
+    return True
+
+
+def torn_steps(directory: str) -> List[int]:
+    """Steps present on disk that do not load (skipped by
+    ``latest_step``, refused by ``restore``)."""
+    if not os.path.isdir(directory):
+        return []
+    return [s for s, d in _step_dirs(directory)
+            if not is_complete(os.path.join(directory, d))]
+
+
+def quarantine_torn(directory: str) -> List[int]:
+    """Rename every torn ``step_<N>`` to ``step_<N>.torn`` (idempotent),
+    so that it stops shadowing good steps; returns their numbers."""
+    out = []
+    for s in torn_steps(directory):
+        src = os.path.join(directory, f"step_{s:08d}")
+        dst = src + ".torn"
+        if os.path.exists(dst):
+            shutil.rmtree(src, ignore_errors=True)
+        else:
+            os.replace(src, dst)
+        out.append(s)
+    return out
+
+
 def latest_step(directory: str) -> Optional[int]:
-    """The newest step that loads, or None."""
+    """The newest complete step, or None (torn steps are skipped; see
+    :func:`torn_steps`)."""
     if not os.path.isdir(directory):
         return None
     for s, d in reversed(_step_dirs(directory)):
-        try:
-            _load(os.path.join(directory, d))
-        except (OSError, ValueError, KeyError, RuntimeError):
-            continue
-        return s
+        if is_complete(os.path.join(directory, d)):
+            return s
     return None
 
 
 def _resolve(directory: str, step: Optional[int]) -> int:
-    step = latest_step(directory) if step is None else step
+    if step is not None:
+        return step
+    step = latest_step(directory)
     if step is None:
-        raise FileNotFoundError(f"no loadable checkpoint in {directory}")
+        torn = torn_steps(directory)
+        raise FileNotFoundError(
+            f"no loadable checkpoint in {directory}"
+            + (f" (torn steps present: {torn})" if torn else ""))
     return step
+
+
+def _load_step(directory: str, step: int):
+    """(manifest, tensors) of step ``step``; TornCheckpointError when the
+    step exists but does not load."""
+    path = os.path.join(directory, f"step_{step:08d}")
+    if os.path.isdir(path) and not is_complete(path):
+        raise TornCheckpointError(
+            f"checkpoint step {step} in {directory} is torn (incomplete "
+            f"manifest/tensors) and will not be loaded; see "
+            f"ckpt.torn_steps / ckpt.quarantine_torn")
+    return _load(path)
 
 
 def load_extra(directory: str,
@@ -148,7 +218,7 @@ def restore_tree(directory: str, step: Optional[int] = None
     """``(tensors, step, extra)`` of checkpoint ``step`` (default: the
     newest that loads): every stored tensor by name, on the CPU."""
     step = _resolve(directory, step)
-    manifest, tensors = _load(os.path.join(directory, f"step_{step:08d}"))
+    manifest, tensors = _load_step(directory, step)
     return tensors, step, manifest["extra"]
 
 
@@ -157,7 +227,7 @@ def restore(directory: str, state, step: Optional[int] = None):
     """Copy checkpoint ``step`` (default: the newest that loads) into the
     tensors of ``state`` in place; returns ``(state, step, extra)``."""
     step = _resolve(directory, step)
-    manifest, tensors = _load(os.path.join(directory, f"step_{step:08d}"))
+    manifest, tensors = _load_step(directory, step)
     if "state_step" not in manifest:
         raise ValueError(f"checkpoint step {step} in {directory} holds a "
                          f"tree of tensors, not a train state; use "

@@ -1,8 +1,19 @@
 """Serving driver of the port: multi-tenant sketch ingest (shape-bucketed
-ragged batching behind the bounded async queue) on one card.
+ragged batching behind the bounded async queue) on one card, and the
+chaos drills of the recovery layer.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload sketch \
       --streams 64 --updates 4 --n1 1024 --n2 512 --r 32
+
+Chaos drills (``stream/faults.py``): inject a named failure into the
+serving stack and check the recovery end to end — kill-worker (WAL
+replay, bitwise), torn-write (checkpoint quarantine), shrink-restore (a
+live stream resharded (4,1,1) -> (2,1,1) -> (4,1,1) on four gloo ranks,
+bitwise), eviction-storm (spill to disk, bitwise).  It prints each
+verdict and exits 1 if any drill failed to recover:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --chaos kill-worker
+  PYTHONPATH=src python -m repro_torch.launch.serve --chaos all
 
 ``--device`` defaults to the card (and fails without one); ``--device cpu``
 runs the plain torch path.  ``--metrics`` dumps the Prometheus text of the
@@ -10,7 +21,7 @@ metrics registry after the run, ``--trace-out FILE`` installs the tracer
 and the comm ledger (``obs.install_observability``), writes a
 Chrome/Perfetto trace of the run and prints the ledger's honesty report.
 
-The reference's LM workload and its chaos scenarios are not ported yet.
+The reference's LM workload is not ported yet (ROADMAP item 11).
 """
 from __future__ import annotations
 
@@ -108,11 +119,36 @@ def run_sketch(args):
     return st
 
 
+def run_chaos(args):
+    """Run one drill, or all of them, on ``args.device``; print each
+    verdict, and exit 1 if any drill failed to recover."""
+    from repro_torch.stream import faults
+
+    names = list(faults.SCENARIOS) if args.chaos == "all" else [args.chaos]
+    results = {}
+    for name in names:
+        print(f"[chaos] scenario {name!r} ...")
+        res = faults.run_chaos_scenario(name, streams=min(args.streams, 8),
+                                        updates=args.updates,
+                                        device=args.device)
+        results[name] = res
+        print(f"[chaos] {name}: "
+              f"{'RECOVERED' if res.get('recovered') else 'FAILED'} "
+              f"{ {k: v for k, v in res.items() if k != 'recovered'} }")
+    if not all(r.get("recovered") for r in results.values()):
+        raise SystemExit(1)
+    return results
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
         description="Serve many concurrent sketch streams on one card.")
     ap.add_argument("--workload", choices=("sketch",), default="sketch")
+    ap.add_argument("--chaos", metavar="SCENARIO", default=None,
+                    help="run a stream/faults.py chaos drill instead of "
+                         "the workload: kill-worker | torn-write | "
+                         "shrink-restore | eviction-storm | all")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--streams", type=int, default=64)
@@ -143,7 +179,7 @@ def main(argv=None):
     if tracing:
         tracer, ledger, _ = obs.install_observability()
     try:
-        out = run_sketch(args)
+        out = run_chaos(args) if args.chaos is not None else run_sketch(args)
     finally:
         if tracing:
             tracer.export_chrome(args.trace_out)

@@ -23,7 +23,9 @@
                                            layout re-laid out in another
                                            over the same ranks, by one
                                            uneven all-to-all (the
-                                           reference's resharding).
+                                           reference's resharding; also
+                                           the live reshard of a stream,
+                                           whose W is replicated).
 
 ``torch.distributed``'s flat all-gather concatenates along dim 0, so a
 gather along another dim lands in a ``(size, *x.shape)`` buffer and is
@@ -176,32 +178,64 @@ def _piece(x: torch.Tensor, at, rect) -> torch.Tensor:
              rect[2] - at[2]:rect[2] - at[2] + rect[3]]
 
 
+def _senders(src):
+    """``send(s, d)``: whether rank ``s`` sends rank ``d`` the part of its
+    source block that ``d`` needs.  Ranks whose source blocks are equal
+    hold replicas of one block (W over p1): a receiver that holds a
+    replica itself takes none, else it takes the block from the
+    ``(d mod n)``-th of its ``n`` holders, so each piece arrives once.
+    Blocks of one layout must be equal or disjoint."""
+    holders = {}
+    for d, rect in enumerate(src):
+        if rect[1] and rect[3]:
+            holders.setdefault(tuple(rect), []).append(d)
+    rects = list(holders)
+    for a in range(len(rects)):
+        for b in range(a + 1, len(rects)):
+            if _overlap(rects[a], rects[b]) is not None:
+                raise ValueError(f"redistribute: source blocks {rects[a]} "
+                                 f"and {rects[b]} overlap without being "
+                                 f"equal")
+
+    def send(s, d):
+        if s == d:
+            return False
+        h = holders.get(tuple(src[s]))
+        return (h is not None and tuple(src[d]) != tuple(src[s])
+                and h[d % len(h)] == s)
+    return send
+
+
 def redistribute(x: torch.Tensor, src, dst, rank: int,
                  group) -> torch.Tensor:
     """This rank's block of a matrix in the layout ``dst``, from its block
     ``x`` in the layout ``src``.
 
     ``src[d]`` and ``dst[d]`` are the ``(row0, rows, col0, cols)``
-    rectangles of the matrix that group rank ``d`` holds before and after;
-    every rank passes the same lists.  Between two ranks the piece to move
-    is the intersection of the sender's source block with the receiver's
-    destination block: the pieces are packed in destination order, moved
-    by one ``all_to_all_single`` with uneven splits, and unpacked.  What a
-    rank already holds of its destination block is copied in place and
-    never sent.  A layout move: exact.  ``x`` itself when no rank's block
-    changes."""
+    rectangles of the matrix that group rank ``d`` holds before and after
+    (an empty one, 0 rows or columns, for a rank that holds nothing);
+    every rank passes the same lists.  Between two ranks the piece to
+    move is the intersection of the sender's source block with the
+    receiver's destination block: the pieces are packed in destination
+    order, moved by one ``all_to_all_single`` with uneven splits, and
+    unpacked.  What a rank already holds of its destination block is
+    copied in place and never sent.  A source layout may replicate a
+    block over several ranks; each piece then comes from one of them
+    (:func:`_senders`).  A layout move: exact.  ``x`` itself when no
+    rank's block changes."""
     if list(src) == list(dst):
         return x
     size, me = len(src), src[rank]
     if tuple(x.shape) != (me[1], me[3]):
         raise ValueError(f"redistribute: block of shape {tuple(x.shape)}, "
                          f"the layout gives rank {rank} {me[1]}x{me[3]}")
+    send_to = _senders(src)
     want = dst[rank]
     out = torch.empty((want[1], want[3]), dtype=x.dtype, device=x.device)
     sends, send_sizes, recvs, recv_sizes = [], [], [], []
     for d in range(size):
-        give = None if d == rank else _overlap(me, dst[d])
-        take = None if d == rank else _overlap(src[d], want)
+        give = _overlap(me, dst[d]) if send_to(rank, d) else None
+        take = _overlap(src[d], want) if send_to(d, rank) else None
         send_sizes.append(0 if give is None else give[1] * give[3])
         recv_sizes.append(0 if take is None else take[1] * take[3])
         if give is not None:

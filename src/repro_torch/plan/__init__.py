@@ -34,7 +34,8 @@ from .model import (H100_GLOO, PRESETS, SPARSE_SCATTER_PENALTY,  # noqa: F401
                     nystrom_local_cost, nystrom_local_torch_cost,
                     probe_machine, ragged_bucket_cost, redistribute_words,
                     sparse_payload_words, sparse_sketch_cost,
-                    sparse_stream_update_cost, stream_update_cost)
+                    sparse_stream_update_cost, stream_reshard_traffic_words,
+                    stream_reshard_words, stream_update_cost)
 from .planner import (Candidate, LeafDecision, Plan,  # noqa: F401
                       TrainCompressionPlan, plan_nystrom, plan_sketch,
                       plan_stream, plan_train_compression)

@@ -18,6 +18,9 @@ function are the reference's; ``hbm_words`` prices the port's bodies:
     Omega materialized by ``gen_omega`` and multiplied by ``torch.matmul``
     (``sketch_reference``, ``nystrom_reference``);
   * ``stream_update_cost`` — one row-slab stream update (local or sharded);
+  * ``stream_reshard_words``, ``stream_reshard_traffic_words`` — the live
+    reshard of a sharded stream (the min-cut the port moves; the
+    reference's compiled relayout);
   * ``sparse_sketch_cost``, ``sparse_stream_update_cost`` — the sparse
     Omega families and COO slabs, all four counts the reference's;
   * ``grad_allreduce_cost``, ``grad_compress_cost`` — one leaf of the
@@ -483,6 +486,96 @@ def sparse_stream_update_cost(k: int, n2: int, r: int, l: int, nnz: float,
                   * SPARSE_SCATTER_PENALTY / (p2 * p3))
         hbm += (2.0 * nnz_eff + 2.0 * l * n2) / (p2 * p3)
     return Cost(words=words, messages=msgs, flops=flops, hbm_words=hbm)
+
+
+def stream_reshard_words(n1: int, r: int, p: Tuple[int, int, int],
+                         q: Tuple[int, int, int], *, l: int = 0,
+                         n2: int = 0, corange: bool = False) -> float:
+    """Per-processor words of the one-hop reshard of a live stream's
+    (Y, W) from grid ``p`` onto grid ``q`` (``stream/elastic.py``): the
+    reference's formula, unchanged.
+
+    The exact per-device min-cut over the shared rank order: each rank
+    keeps the overlap of its old and new blocks and receives the rest, so
+    the cost is the maximum over receiving ranks of (new block words) -
+    (overlap words).  Y (n1 x r) is P((p1, p2), p3): rank d holds row
+    block d // p3 of p1·p2 and column block d % p3; W (l x n2), with
+    ``corange``, is P(None, (p2, p3)): replicated over p1, column block
+    d % (p2·p3).  Grids are the first P ranks, so the first min(P, Q)
+    ranks keep their overlap, ranks past ``p`` receive whole blocks and
+    ranks past ``q`` only send.  Coinciding layouts cost 0.
+
+    The port's hop moves exactly this: ``stream.elastic.rank_words`` gives
+    each rank's words, and their maximum is this function."""
+    p1, p2, p3 = p
+    q1, q2, q3 = q
+    P, Q = p1 * p2 * p3, q1 * q2 * q3
+    pr, pc = n1 / (p1 * p2), r / p3          # old Y shard extents
+    qr, qc = n1 / (q1 * q2), r / q3          # new Y shard extents
+    worst = 0.0
+    for d in range(Q):
+        nrb, ncb = divmod(d, q3)
+        need = qr * qc
+        if d < P:
+            rb, cb = divmod(d, p3)
+            ov_r = max(0.0, min(rb * pr + pr, nrb * qr + qr)
+                       - max(rb * pr, nrb * qr))
+            ov_c = max(0.0, min(cb * pc + pc, ncb * qc + qc)
+                       - max(cb * pc, ncb * qc))
+            need -= ov_r * ov_c
+        if corange:
+            wp, wq = n2 / (p2 * p3), n2 / (q2 * q3)   # W col extents
+            nwb = d % (q2 * q3)
+            w_need = l * wq
+            if d < P:
+                wb = d % (p2 * p3)
+                ov_w = max(0.0, min(wb * wp + wp, nwb * wq + wq)
+                           - max(wb * wp, nwb * wq))
+                w_need -= l * ov_w
+            need += w_need
+        worst = max(worst, need)
+    return worst
+
+
+def stream_reshard_traffic_words(n1: int, r: int, p: Tuple[int, int, int],
+                                 q: Tuple[int, int, int], *, l: int = 0,
+                                 n2: int = 0,
+                                 corange: bool = False) -> float:
+    """Per-processor words the reference's COMPILED one-hop relayout
+    moves (XLA's full-shard relayout), the reference's formula unchanged.
+
+    The port's hop does not move this: it moves the min-cut
+    :func:`stream_reshard_words` by one uneven all-to-all, and its ledger
+    predicts that.  This function is kept for parity with the planner.
+
+    * **Y** (P((p1,p2), p3)).  Coinciding maps (equal block counts and
+      device count): 0 words.  Re-splitting an already split column axis
+      (p3 > 1, q3 > 1, p3 != q3) costs two full new shards; every other
+      change one.
+    * **W** (P(None, (p2,p3))).  Same block count on the same devices: 0.
+      Out of a replicated layout onto the same or fewer devices: 0.  A
+      coarser split: the old shard (twice when the target is still
+      split).  A finer split: one new shard.
+    """
+    p1, p2, p3 = p
+    q1, q2, q3 = q
+    P, Q = p1 * p2 * p3, q1 * q2 * q3
+    words = 0.0
+    same_y = (p1 * p2 == q1 * q2 and p3 == q3 and P == Q)
+    if not same_y:
+        hops = 2.0 if (p3 > 1 and q3 > 1 and p3 != q3) else 1.0
+        words += hops * n1 / (q1 * q2) * (r / q3)
+    if corange:
+        bp, bq = p2 * p3, q2 * q3
+        if bp == bq and P == Q:
+            pass
+        elif bp == 1 and Q <= P:
+            pass
+        elif bq < bp:
+            words += (2.0 if bq > 1 else 1.0) * l * n2 / bp
+        else:
+            words += l * n2 / bq
+    return words
 
 
 # ---------------------------------------------------------------------------

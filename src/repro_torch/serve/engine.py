@@ -31,10 +31,10 @@ def make_sketch_service(grid=None, plan=None,
         stream shape, ``shape=(n1, n2, r)``, at the world's size.
     plan: a :class:`repro_torch.plan.Plan` (``plan_stream`` or
     ``plan_sketch``; wins over ``grid``): its grid places the service, and
-    a single-device plan gives local mode.  ``spill_dir`` raises
-    ``NotImplementedError``.  ``max_resident`` is the admission budget:
-    colder non-pinned streams move to host memory and are restored
-    bitwise on next touch.
+    a single-device plan gives local mode.  ``max_resident`` is the
+    admission budget: colder non-pinned streams move to host memory, or
+    to ``spill_dir`` on disk when it is given, and are restored bitwise
+    on next touch.
     """
     kw = dict(max_resident=max_resident, spill_dir=spill_dir, device=device)
     if plan is None and grid == "auto":
@@ -61,19 +61,20 @@ def make_sketch_service(grid=None, plan=None,
 def make_ingest_queue(service: SketchService, depth: int = 256,
                       window: int = 64, bucket_edges="auto",
                       expected_ks=None, **cfg) -> IngestQueue:
-    """Front a local-mode service with the bounded async queue.
+    """Front a service with the bounded async queue.
 
     ``bucket_edges="auto"`` prices bucket tops with
     :func:`repro_torch.plan.choose_bucket_edges` from ``expected_ks`` (the
     expected lane heights, e.g. a recent traffic sample), on the machine
     entry of the service's device (``probe_machine``) and the shape of
-    its first stream; with no sample, or no stream open, the queue snaps
+    its first stream; with no sample, no stream open, or a grid service
+    (whose lanes are full-shape updates, one at a time), the queue snaps
     lanes to pow2 buckets, as with ``bucket_edges=None``.  Any remaining
     kwargs go to :class:`IngestQueue`."""
     if bucket_edges == "auto":
         bucket_edges = None
         first = next(iter(service._streams.values()), None)
-        if expected_ks and first is not None:
+        if expected_ks and first is not None and service.mesh is None:
             c = first.cfg
             bucket_edges = choose_bucket_edges(
                 list(expected_ks), c.n2, c.r, c.sketch_l, corange=c.corange,

@@ -13,12 +13,17 @@ ranks.
   reconstruct.py  — one-pass fixed-rank A ~= Q·(Psi Q)†·W (Tropp et al.)
   service.py      — SketchService: many concurrent streams on one card
                     (ragged multi-tenant ingest) or sharded over a grid,
-                    QoS + LRU admission with eviction to host memory
+                    QoS + LRU admission with eviction to host memory or
+                    to disk (spill_dir), live reshard of a grid service
   ingest.py       — IngestQueue: bounded async request queue with
-                    backpressure, retries and poison-lane excision
+                    backpressure, retries and poison-lane excision, for a
+                    local or a grid service
   wal.py          — WriteAheadLog: journal of accepted updates; replay
                     onto a fresh service is bitwise
-  faults.py       — the fault-point registry the ingest path fires
+  elastic.py      — reshard_stream / drain_reshard_resume: a live sharded
+                    stream moved onto another grid in one hop
+  faults.py       — the fault-point registry and the chaos drills
+                    (launch/serve.py --chaos)
 """
 from .state import (  # noqa: F401
     OMEGA_SALT, PSI_SALT, SparseRows, StreamConfig, StreamingSketch,
@@ -35,4 +40,5 @@ from .service import QOS_CLASSES, SketchService  # noqa: F401
 from .ingest import IngestQueue, WorkerDied  # noqa: F401
 from .wal import WalRecord, WriteAheadLog  # noqa: F401
 from .wal import replay as wal_replay  # noqa: F401
+from .elastic import drain_reshard_resume, reshard_stream  # noqa: F401
 from . import faults  # noqa: F401

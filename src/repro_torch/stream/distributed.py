@@ -25,9 +25,13 @@ card inside the ``sketch_fwd`` and ``sketch_t`` kernels), and folds dY
 into its Y block with the ``fold_rows`` kernel.  Words received are
 counted in ``parallel.collectives.COMM``.
 
-Every rank of the world must be a rank of the grid (a stream block on
-each); the caller runs ``torch.distributed.init_process_group`` and
-``core.sketch.make_grid_groups``.  Each update of
+A stream is opened on a grid that holds every rank of the world (a
+stream block on each); the caller runs
+``torch.distributed.init_process_group`` and
+``core.sketch.make_grid_groups``.  A live reshard onto a smaller grid
+(``stream/elastic.py``) leaves the ranks past it a *standby* stream: no
+block, no fiber group; its updates are counted and do no work and no
+collective, its queries raise, and a later grow hands it blocks again.  Each update of
 :class:`ShardedStreamingSketch` is a comm-ledger site
 (``stream.update``, ``stream.update_rows``; ``obs.ledger``): the words
 this rank received beside the planner's prediction and the Theorem-2
@@ -58,15 +62,17 @@ from repro_torch.parallel.collectives import (all_gather, all_reduce,
 from .state import StreamConfig, validate_row_block
 
 __all__ = ["corange_block", "stream_blocks", "gather_corange",
+           "standby_error",
            "corange_update", "sharded_update", "sharded_update_rows",
            "update_audit",
            "nystrom_finalize", "ShardedStreamingSketch"]
 
 
-def _grid_of(mesh) -> GridGroups:
-    """``mesh`` as a GridGroups on which this rank holds a block; a
-    :class:`repro_torch.plan.Plan` in its place gives
-    ``make_grid_groups(*plan.grid)`` (collective over the world)."""
+def _grid_of(mesh, standby: bool = False) -> GridGroups:
+    """``mesh`` as a GridGroups on which this rank holds a block (or, with
+    ``standby``, any rank of the world); a :class:`repro_torch.plan.Plan`
+    in its place gives ``make_grid_groups(*plan.grid)`` (collective over
+    the world)."""
     from repro_torch.plan.planner import Plan
     if isinstance(mesh, Plan):
         if mesh.grid is None:
@@ -77,10 +83,17 @@ def _grid_of(mesh) -> GridGroups:
         raise TypeError(f"mesh must be a GridGroups "
                         f"(core.sketch.make_grid_groups) or a "
                         f"repro_torch.plan.Plan; got {mesh!r}")
-    if mesh.coords is None:
+    if mesh.coords is None and not standby:
         raise ValueError(f"rank {mesh.rank} is past the grid {mesh.shape}: "
                          f"a sharded stream needs a block on every rank")
     return mesh
+
+
+def standby_error(what: str, g: GridGroups) -> ValueError:
+    """The error of a query on a rank past the grid (a standby stream)."""
+    return ValueError(f"{what}: rank {g.rank} is past the grid {g.shape} "
+                      f"and holds no block (a standby stream after a "
+                      f"reshard)")
 
 
 def refuse_sparse(cfg: StreamConfig) -> None:
@@ -92,8 +105,10 @@ def refuse_sparse(cfg: StreamConfig) -> None:
             f"StreamingSketch / SketchService")
 
 
-def check_divisible(cfg: StreamConfig, g: GridGroups) -> None:
-    p1, p2, p3 = g.shape
+def check_divisible(cfg: StreamConfig, g) -> None:
+    """Refuse a grid (a GridGroups or its shape) that does not divide the
+    stream's blocks."""
+    p1, p2, p3 = getattr(g, "shape", g)
     if (cfg.n1 % (p1 * p2) or cfg.n2 % (p2 * p3) or cfg.n2 % p2
             or cfg.r % p3):        # n1 % (p1*p2): Y is P((p1, p2), p3)
         raise ValueError(f"stream shape ({cfg.n1},{cfg.n2},r={cfg.r}) "
@@ -296,7 +311,8 @@ def update_audit(cfg: StreamConfig, grid,
 
 
 class ShardedStreamingSketch:
-    """Streaming (Y, W) accumulator over a (p1, p2, p3) grid of ranks.
+    """Streaming (Y, W) accumulator over a (p1, p2, p3) grid of ranks (a
+    standby stream on a rank past the grid, after a reshard).
 
     Updates arrive as full-shape additive deltas H (zero rows or columns
     where nothing changed; every rank passes the same H) via
@@ -332,6 +348,29 @@ class ShardedStreamingSketch:
         self.num_updates = 0
         self._audits = {}   # slab rows k (or None) -> (pred words, floor)
 
+    @classmethod
+    def _adopt(cls, cfg: StreamConfig, g: GridGroups, device, Y, W,
+               num_updates: int) -> "ShardedStreamingSketch":
+        """A stream on ``g`` holding the blocks ``Y`` / ``W`` (None on a
+        standby rank), as ``stream.elastic.reshard_stream`` hands it
+        over."""
+        st = cls.__new__(cls)
+        st.cfg, st.mesh, st.device = cfg, g, resolve_device(device)
+        st.Y, st.W = Y, W
+        st.keys = seed_keys(cfg.seed)
+        st.num_updates = num_updates
+        st._audits = {}
+        return st
+
+    @property
+    def standby(self) -> bool:
+        """True on a rank past the grid: no block, no work, no collective."""
+        return self.mesh.coords is None
+
+    def _block(self, what: str) -> None:
+        if self.standby:
+            raise standby_error(what, self.mesh)
+
     def _audit(self, k: Optional[int]) -> Tuple[float, float]:
         """Ledger reference numbers (:func:`update_audit`), memoized per
         slab height (the reference's ``_audit``)."""
@@ -352,6 +391,9 @@ class ShardedStreamingSketch:
         if tuple(H.shape) != (cfg.n1, cfg.n2):
             raise ValueError(f"update shape {tuple(H.shape)} != "
                              f"({cfg.n1}, {cfg.n2})")
+        if self.standby:
+            self.num_updates += 1
+            return self
         H = self._as(H)
         with (obs_ledger.observing("stream.update",
                                    (self.Y, self.W, H, self.mesh.shape),
@@ -366,6 +408,9 @@ class ShardedStreamingSketch:
         """Rows [row0, row0 + k) arrive additively as a (k, n2) slab, the
         same on every rank (:func:`sharded_update_rows`)."""
         validate_row_block(self.cfg, row0, tuple(H.shape))
+        if self.standby:
+            self.num_updates += 1
+            return self
         k = H.shape[0]
         H = self._as(H)
         with (obs_ledger.observing("stream.update_rows",
@@ -389,6 +434,7 @@ class ShardedStreamingSketch:
         import torch.distributed as dist
 
         from repro_torch.checkpoint import ckpt
+        self._block("save")
         g = self.mesh
         step = self.num_updates if step is None else step
         tree = {"Y": gather_output(self.Y, g)}
@@ -425,21 +471,25 @@ class ShardedStreamingSketch:
     @property
     def sketch(self) -> torch.Tensor:
         """This rank's block of Y = A·Omega in P((p1, p2), p3)."""
+        self._block("sketch")
         return self.Y
 
     @property
     def corange_sketch(self) -> Optional[torch.Tensor]:
         """This rank's block of W = Psi·A in P(None, (p2, p3))."""
+        self._block("corange_sketch")
         return self.W
 
     def nystrom(self, variant: str = "auto"):
         """(B, C) of a symmetric stream (:func:`nystrom_finalize`)."""
+        self._block("nystrom")
         return nystrom_finalize(self.Y, self.cfg, self.mesh, variant)
 
     def reconstruct(self, rank: Optional[int] = None, rcond=None):
         """One-pass low-rank reconstruction from the gathered Y and W, on
         every rank."""
         from .reconstruct import one_pass_reconstruct
+        self._block("reconstruct")
         if self.W is None:
             raise ValueError("reconstruction needs corange=True")
         return one_pass_reconstruct(gather_output(self.Y, self.mesh),

@@ -1,6 +1,6 @@
 """Async multi-tenant ingest queue: the request-facing front half of the
-sketch service (the port of the reference's ``stream/ingest.py``, local
-mode).
+sketch service (the port of the reference's ``stream/ingest.py``), for a
+local or a grid-mode service.
 
 ``IngestQueue`` sits between request handlers and a
 :class:`~repro_torch.stream.service.SketchService`.  Handlers call
@@ -8,7 +8,22 @@ mode).
 thread drains the queue in windows, splits each window into rounds with at
 most one update per stream (per-stream FIFO order is preserved — sketch
 updates commute across streams but not within one), and applies every
-round through ONE fused :meth:`SketchService.update_ragged` call.
+round through ONE fused :meth:`SketchService.update_ragged` call (local
+mode).
+
+Grid mode (a service with a ``mesh``): every rank runs its own queue and
+worker, and every update is collective, so every rank must issue the same
+sequence of ``service.update`` calls whatever its windows turned out to
+be.  The worker therefore applies a grid service's requests one at a time
+in the order they were submitted (seqno order with a WAL), each through
+``service.update(sid, H)``; a round is a run of consecutive requests with
+at most one a stream.  ``submit`` refuses a ``row0`` other than 0 there
+(grid streams take full-shape additive updates).  The ``ingest.dispatch_lane``
+fault point fires before each lane, and the lanes not yet applied are kept
+in a pending list, so a retry or the poison-lane fallback re-runs only
+those (exactly once per lane).  Arming a fault point on one rank of a
+multi-rank grid is out of scope: the ranks' collectives would part ways
+(the reference's own grid-mode tests run on a (1,1,1) mesh).
 
 A round counts as applied when its kernels have finished on the card (the
 worker waits for them with ``service.sync()``), so the latency it records
@@ -34,7 +49,8 @@ Fault model (the reference's):
     to per-lane application and only the poison lane is excised
     (``ingest_quarantined_total``) — the other tenants' updates land.  A
     fused round validates every lane before mutating any stream, so a
-    failed round left no partial state and every lane applies once;
+    failed round left no partial state; a grid round keeps the lanes that
+    landed; either way every lane applies once;
   * worker-side failures are recorded per request and surfaced by
     ``flush(raise_errors=True)`` / ``stats()``, never silently swallowed;
   * a kernel launch the card refused
@@ -92,8 +108,8 @@ class IngestQueue:
 
     Parameters
     ----------
-    service : SketchService; every round goes through its fused ragged
-        hot path.
+    service : SketchService; a local service takes every round through
+        its fused ragged hot path, a grid service one lane at a time.
     depth : int — queue capacity; a full queue blocks ``submit``
         (backpressure)
     window : int — max requests fused per drain (one or more rounds)
@@ -224,6 +240,15 @@ class IngestQueue:
         self._check_worker()
         H = np.asarray(H)
         row0 = int(row0)
+        if self.service.mesh is not None and row0 != 0:
+            # grid streams take full-shape additive updates only: refuse
+            # here rather than apply the slab at row 0
+            with self._lock:
+                self._rejected += 1
+            self._m_rejected.inc()
+            raise ValueError(
+                f"stream {sid}: distributed streams take full-shape "
+                f"additive updates only (row0 must be 0, got {row0})")
         if self.validate_payloads and not np.all(np.isfinite(
                 H.astype(np.float32, copy=False))):
             with self._lock:
@@ -312,17 +337,7 @@ class IngestQueue:
                     if self._stop:
                         return
                     continue
-                # rounds: the i-th request for a given sid lands in round
-                # i, so per-stream FIFO order survives the fusion
-                rounds: List[List[Tuple]] = []
-                seen: Dict[int, int] = {}
-                for req in batch:
-                    i = seen.get(req[0], 0)
-                    seen[req[0]] = i + 1
-                    if i == len(rounds):
-                        rounds.append([])
-                    rounds[i].append(req)
-                for rnd in rounds:
+                for rnd in self._rounds_of(batch):
                     self._apply(rnd)
                 self._batches += 1
                 if (self.wal is not None
@@ -335,6 +350,46 @@ class IngestQueue:
             with self._lock:
                 self._done.notify_all()
 
+    def _rounds_of(self, batch: List[Tuple]) -> List[List[Tuple]]:
+        """Split a drained window into rounds of at most one request a
+        stream.  Local mode: the i-th request of a stream lands in round
+        i, so per-stream FIFO order survives the fusion.  Grid mode: runs
+        of consecutive requests, so the rounds apply in submit order."""
+        rounds: List[List[Tuple]] = []
+        if self.service.mesh is not None:
+            for req in batch:
+                if not rounds or any(r[0] == req[0] for r in rounds[-1]):
+                    rounds.append([])
+                rounds[-1].append(req)
+            return rounds
+        seen: Dict[int, int] = {}
+        for req in batch:
+            i = seen.get(req[0], 0)
+            seen[req[0]] = i + 1
+            if i == len(rounds):
+                rounds.append([])
+            rounds[i].append(req)
+        return rounds
+
+    def _dispatch(self, pending: List[Tuple[int, Any, int]]) -> None:
+        """One round's service dispatch: one fused ``update_ragged``
+        (local mode) or one ``service.update`` a lane, in order (grid
+        mode).  ``pending`` is consumed in place, a lane removed once it
+        has landed, so a failure leaves exactly the lanes not yet applied
+        for the retry and the fallback.  A local round is all or nothing
+        (``update_ragged`` validates every lane before it mutates any
+        stream)."""
+        if self.service.mesh is None:
+            self.service.update_ragged(list(pending),
+                                       bucket_edges=self.bucket_edges)
+            pending.clear()
+            return
+        while pending:
+            sid, H, _ = pending[0]
+            faults.fire("ingest.dispatch_lane", sid=sid)
+            self.service.update(sid, H)
+            pending.pop(0)
+
     def _apply(self, rnd: List[Tuple]) -> None:
         items = [(sid, H, row0) for sid, H, row0, _, _, _ in rnd]
         # parent under the earliest submitter's span (cross-thread): the
@@ -345,6 +400,7 @@ class IngestQueue:
         err = None
         attempt = 0
         t_start = time.monotonic()
+        pending = list(items)       # lanes not yet applied (exactly once)
         while True:
             try:
                 # chaos hook: WorkerKilled here simulates the worker dying
@@ -355,8 +411,7 @@ class IngestQueue:
                 with obs_trace.span("ingest.apply_round", cat="ingest",
                                     parent=parent, lanes=len(items),
                                     attempt=attempt):
-                    self.service.update_ragged(
-                        items, bucket_edges=self.bucket_edges)
+                    self._dispatch(pending)
                 err = None
                 break
             except KernelLaunchError:     # the card refused: not transient
@@ -377,14 +432,20 @@ class IngestQueue:
         if err is not None:
             # poison excision: the round failed even after retries — fall
             # back to per-lane application so one bad tenant cannot kill
-            # its cohort.  A failed fused round left no partial state
-            # behind (validate-then-mutate), so every lane applies once.
-            for sid, H, row0 in items:
+            # its cohort.  Only the lanes not yet applied are tried: a
+            # grid round keeps the lanes that landed, and a failed fused
+            # round left no partial state behind (validate-then-mutate),
+            # so every lane applies once.
+            grid = self.service.mesh is not None
+            for sid, H, row0 in pending:
                 try:
                     faults.fire("ingest.apply_lane", sid=sid)
                     with obs_trace.span("ingest.apply_lane", cat="ingest",
                                         parent=parent, sid=sid):
-                        self.service.update(sid, H, row0=row0)
+                        if grid:
+                            self.service.update(sid, H)
+                        else:
+                            self.service.update(sid, H, row0=row0)
                 except KernelLaunchError:
                     raise
                 except Exception as e2:
@@ -409,9 +470,10 @@ class IngestQueue:
                     self._m_applied.inc()
                     self._m_latency.observe(now - t0)
                     k = H.shape[0]
-                    kb = snap_bucket(k, self.bucket_edges)
                     self._real_rows += k
-                    self._padded_rows += max(kb, k) - k
+                    if self.service.mesh is None:
+                        kb = snap_bucket(k, self.bucket_edges)
+                        self._padded_rows += max(kb, k) - k
                 else:
                     self._errors.append((sid, lane_err[sid]))
                     self._m_errors.inc()

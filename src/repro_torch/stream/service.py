@@ -28,7 +28,11 @@ Multi-tenant ingest:
 Admission/eviction: streams carry a QoS class (``pinned`` > ``standard`` >
 ``best_effort``).  With ``max_resident`` set, opening or touching a stream
 beyond the budget evicts the coldest non-pinned resident — its (Y, W) is
-copied to host memory and restored bitwise on next touch.
+copied to host memory, or with ``spill_dir`` written to disk
+(``checkpoint.ckpt``, ``spill_dir/stream_<sid>``; in grid mode each rank
+its own blocks under ``spill_dir/rank_<rank>``), and restored bitwise on
+next touch.  A spill that fails to write or read raises: it never falls
+back to host memory.
 
 Two placement modes:
 
@@ -41,7 +45,11 @@ Two placement modes:
     key pair (Alg. 1's collectives plus the co-range all-reduce, counted
     in ``parallel.collectives.COMM``).  ``nystrom`` runs the Alg. 2 second
     stages on a (P, 1, 1) grid; eviction copies each rank's own blocks.
-    The lane-batched updates are local-mode only.
+    The lane-batched updates are local-mode only.  ``reshard(new_grid)``
+    moves every stream, resident or evicted, onto another grid
+    (``stream/elastic.py``); a rank past a smaller grid keeps a standby
+    service, whose streams hold no block: their updates are counted and
+    do nothing, their queries raise.
 
 Sparse payloads (local mode only, as in the reference):
 
@@ -59,13 +67,13 @@ site under the reference's name: ``service.update[dist]`` (against
 predicted at a 0 floor on one device) and ``service.update[sparse]`` (an
 analytic record of the COO payload's ``2·nnz`` words).
 
-Not in this slice (each raises ``NotImplementedError``): ``spill_dir``
-(ROADMAP Queue 1 item 9) and ``reshard`` (``stream/elastic.py``, item 9).
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
+import shutil
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -78,7 +86,7 @@ from repro_torch.obs import trace as obs_trace
 
 from .distributed import (_grid_of, check_divisible, gather_corange,
                           nystrom_finalize, refuse_sparse, sharded_update,
-                          stream_blocks, update_audit)
+                          standby_error, stream_blocks, update_audit)
 from .state import (SparseRows, StreamConfig, _local_sig,
                     local_rowblock_ragged, local_sparse_batch, nystrom_local,
                     rowblock_update, snap_bucket, sparse_rowblock_update,
@@ -96,11 +104,6 @@ QOS_CLASSES = ("pinned", "standard", "best_effort")
 _EVICT_RANK = {"best_effort": 0, "standard": 1}
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 {item})")
-
-
 @dataclasses.dataclass
 class _Stream:
     cfg: StreamConfig
@@ -114,13 +117,15 @@ class _Stream:
 
 @dataclasses.dataclass
 class _Evicted:
-    """A stream whose accumulators left the device for host memory:
-    everything needed to rebuild the resident ``_Stream`` bitwise."""
+    """A stream whose accumulators left the device, for host memory
+    (``host``) or for a checkpoint on disk (``path``): everything needed
+    to rebuild the resident ``_Stream`` bitwise."""
     cfg: StreamConfig
     keys: Tuple[int, int]
     qos: str
     num_updates: int
-    host: Dict[str, torch.Tensor]
+    host: Optional[Dict[str, torch.Tensor]] = None
+    path: Optional[str] = None
 
 
 def _host_slab(H) -> torch.Tensor:
@@ -144,18 +149,18 @@ class SketchService:
 
     ``mesh`` (a ``core.sketch.make_grid_groups`` grid holding this rank,
     or a ``repro_torch.plan.Plan`` whose grid becomes one) selects grid
-    mode; ``device=None`` means the card.
+    mode; ``device=None`` means the card.  ``spill_dir`` sends evicted
+    streams to disk instead of host memory.
     """
 
     def __init__(self, mesh=None, max_resident: Optional[int] = None,
                  spill_dir: Optional[str] = None, device=None):
         self.mesh = None if mesh is None else _grid_of(mesh)
-        if spill_dir is not None:
-            raise _not_ported("spill_dir (checkpoint/ckpt.py)", "item 9")
         if max_resident is not None and max_resident < 1:
             raise ValueError("max_resident must be >= 1")
         self.device = resolve_device(device)
         self.max_resident = max_resident
+        self.spill_dir = spill_dir
         self._streams: Dict[int, _Stream] = {}
         self._evicted: Dict[int, _Evicted] = {}
         self._sid = itertools.count()
@@ -168,6 +173,8 @@ class SketchService:
             "sketch_updates_total", "stream updates applied, by ingest path")
         self._m_evictions = m.counter(
             "sketch_evictions_total", "streams checkpointed off-device")
+        self._m_spills = m.counter(
+            "sketch_spills_total", "evictions written to disk (spill_dir)")
         self._m_restores = m.counter(
             "sketch_restores_total", "evicted streams restored from their "
             "checkpoint")
@@ -190,7 +197,9 @@ class SketchService:
             refuse_sparse(cfg)
             check_divisible(cfg, self.mesh)
         self._admit(need=1)
-        if self.mesh is not None:
+        if self._standby:
+            Y = W = None
+        elif self.mesh is not None:
             blocks = stream_blocks(cfg, self.mesh, device=self.device)
             Y, W = blocks["Y"], blocks["W"]
         else:
@@ -209,9 +218,10 @@ class SketchService:
         """Finalize: returns the stream's final (Y, W) — W is None for
         corange=False streams — and frees the slot (an evicted stream is
         restored first, so the returned state is on the device)."""
-        ev = self._evicted.pop(sid, None)
+        ev = self._evicted.get(sid)
         if ev is not None:
             st = self._restore(ev)
+            del self._evicted[sid]
             return st.Y, st.W
         st = self._streams.pop(sid, None)
         if st is None:
@@ -234,10 +244,11 @@ class SketchService:
                                  f"or already closed)")
             try:
                 self._admit(need=1, protect=protect)
-            except RuntimeError:
+                st = self._restore(ev)
+            except Exception:
                 self._evicted[sid] = ev     # leave the stream restorable
                 raise
-            st = self._streams[sid] = self._restore(ev)
+            self._streams[sid] = st
             self._m_resident.set(len(self._streams))
         st.last_touch = next(self._clock)
         return st
@@ -262,30 +273,81 @@ class SketchService:
             self.evict(sid)
 
     def evict(self, sid: int) -> None:
-        """Copy a resident stream's (Y, W) — in grid mode this rank's
-        blocks — to host memory and free its device slot.  The next touch
-        restores it bitwise."""
+        """Move a resident stream's (Y, W) — in grid mode this rank's
+        blocks — off the device, to host memory or, with ``spill_dir``, to
+        disk, and free its device slot.  The next touch restores it
+        bitwise.  A failed spill raises and leaves the stream resident."""
         st = self._streams.get(sid)
         if st is None:
             if sid in self._evicted:
                 return                      # idempotent
             raise ValueError(f"unknown stream id {sid} (never opened, or "
                              f"already closed)")
-        with obs_trace.span("service.evict", cat="service", sid=sid):
+        with obs_trace.span("service.evict", cat="service", sid=sid,
+                            spill=self.spill_dir is not None):
+            ev = _Evicted(st.cfg, st.keys, st.qos, st.num_updates)
+            if self._stash(sid, ev, self._blocks(st.Y, st.W)):
+                self._m_spills.inc()
             del self._streams[sid]
-            host = {"Y": st.Y.cpu()}
-            if st.W is not None:
-                host["W"] = st.W.cpu()
-            self._evicted[sid] = _Evicted(st.cfg, st.keys, st.qos,
-                                          st.num_updates, host)
+            self._evicted[sid] = ev
         self._m_evictions.inc()
         self._m_resident.set(len(self._streams))
 
+    @staticmethod
+    def _blocks(Y, W) -> Dict[str, torch.Tensor]:
+        """A stream's accumulators by name (none on a standby rank)."""
+        return {k: v for k, v in (("Y", Y), ("W", W)) if v is not None}
+
+    def _spill_path(self, sid: int) -> str:
+        if self.mesh is None:
+            return os.path.join(self.spill_dir, f"stream_{sid:08d}")
+        import torch.distributed as dist
+        return os.path.join(self.spill_dir, f"rank_{dist.get_rank():05d}",
+                            f"stream_{sid:08d}")
+
+    def _stash(self, sid: int, ev: _Evicted,
+               blocks: Dict[str, torch.Tensor]) -> bool:
+        """Keep ``blocks`` of an evicted stream off the device: with
+        ``spill_dir`` on disk (``ckpt.save`` of ``{Y, W}``, step
+        ``num_updates``, ``keep=1``; True), else in host memory."""
+        if self.spill_dir is None or not blocks:
+            ev.host, ev.path = {k: v.cpu() for k, v in blocks.items()}, None
+            return False
+        from repro_torch.checkpoint import ckpt
+        path = self._spill_path(sid)
+        ckpt.save(path, ev.num_updates, blocks, extra={
+            "config": ev.cfg.to_json_dict(), "qos": ev.qos,
+            "num_updates": ev.num_updates}, keep=1)
+        ev.host, ev.path = None, path
+        return True
+
+    def _unstash(self, ev: _Evicted) -> Dict[str, torch.Tensor]:
+        """An evicted stream's blocks, on the CPU; a spilled stream's
+        directory is removed once they are read."""
+        if ev.path is None:
+            return ev.host
+        from repro_torch.checkpoint import ckpt
+        tensors, _, _ = ckpt.restore_tree(ev.path, ev.num_updates)
+        shutil.rmtree(ev.path, ignore_errors=True)
+        return tensors
+
     def _restore(self, ev: _Evicted) -> _Stream:
+        tree = {k: v.to(self.device) for k, v in self._unstash(ev).items()}
         self._m_restores.inc()
-        tree = {k: v.to(self.device) for k, v in ev.host.items()}
-        return _Stream(ev.cfg, ev.keys, tree["Y"], tree.get("W"),
+        return _Stream(ev.cfg, ev.keys, tree.get("Y"), tree.get("W"),
                        num_updates=ev.num_updates, qos=ev.qos)
+
+    @property
+    def _standby(self) -> bool:
+        """True on a rank past the service's grid (after a reshard)."""
+        return self.mesh is not None and self.mesh.coords is None
+
+    def _resident(self, sid: int, what: str) -> _Stream:
+        """The stream ``sid`` for a query, which a standby rank refuses."""
+        st = self._touch(sid)
+        if self._standby:
+            raise standby_error(what, self.mesh)
+        return st
 
     def _dist_audit(self, cfg: StreamConfig) -> Tuple[float, float]:
         """(planner-predicted words, Theorem-2 floor) of ONE full-shape
@@ -314,11 +376,15 @@ class SketchService:
         if self.mesh is not None and row0 is not None:
             raise ValueError("distributed streams take full-shape "
                              "additive updates (row0 must be None)")
-        H = _host_slab(H).to(device=self.device, dtype=cfg.dtype)
+        H = _host_slab(H)
+        if not self._standby:
+            H = H.to(device=self.device, dtype=cfg.dtype)
         if row0 is None:
             if tuple(H.shape) != (cfg.n1, cfg.n2):
                 raise ValueError(f"{tuple(H.shape)} != ({cfg.n1}, "
                                  f"{cfg.n2})")
+            if self._standby:
+                return self._applied(st, "dist")
             if self.mesh is not None:
                 with (obs_ledger.observing("service.update[dist]",
                                            (st.Y, st.W, H, self.mesh.shape),
@@ -573,24 +639,66 @@ class SketchService:
             torch.cuda.synchronize(self.device)
         return self
 
-    def reshard(self, *args, **kwargs):
-        raise _not_ported("reshard (stream/elastic.py)", "item 9")
+    def reshard(self, new_grid: Tuple[int, int, int]) -> int:
+        """Move every stream onto ``new_grid`` (every rank of the world
+        calls it): each resident stream in one hop
+        (``stream.elastic.hop``), and each evicted stream's blocks, from
+        host memory or disk, the same way, so that its next touch lands
+        on the new layout.  No recompute, no replay.
+
+        The ``elastic.reshard`` fault point fires and the new grid is
+        checked against every stream before any block moves.  A rank past
+        the new grid keeps a standby service.  Callers pausing live
+        ingest go through ``stream.elastic.drain_reshard_resume``.
+        Returns the number of resident streams moved."""
+        if self.mesh is None:
+            raise ValueError("reshard needs a distributed service "
+                             "(mesh=None is single-device)")
+        from repro_torch.core.sketch import make_grid_groups
+
+        from . import elastic, faults
+        old = self.mesh
+        new_grid = tuple(int(g) for g in new_grid)
+        faults.fire("elastic.reshard", old_grid=old.shape,
+                    new_grid=new_grid)
+        for st in list(self._streams.values()) + list(
+                self._evicted.values()):
+            check_divisible(st.cfg, new_grid)
+        new = make_grid_groups(*new_grid)
+        with obs_trace.span("service.reshard", cat="service",
+                            old="x".join(map(str, old.shape)),
+                            new="x".join(map(str, new_grid))):
+            self.sync()
+            for sid in sorted(self._streams):
+                st = self._streams[sid]
+                st.Y, st.W = elastic.hop(st.cfg, old, new, st.Y, st.W,
+                                         self.device)
+            self.mesh = new
+            for sid in sorted(self._evicted):
+                ev = self._evicted[sid]
+                blocks = self._unstash(ev)
+                Y, W = elastic.move_blocks(ev.cfg, old, new, blocks.get("Y"),
+                                           blocks.get("W"),
+                                           torch.device("cpu"))
+                self._stash(sid, ev, self._blocks(Y, W))
+        self._audit.clear()
+        return len(self._streams)
 
     # -- queries -----------------------------------------------------------
 
     def sketch(self, sid: int) -> torch.Tensor:
         """The live Y (in grid mode this rank's block)."""
-        return self._touch(sid).Y
+        return self._resident(sid, "sketch").Y
 
     def corange(self, sid: int) -> Optional[torch.Tensor]:
         """The live W (in grid mode this rank's block)."""
-        return self._touch(sid).W
+        return self._resident(sid, "corange").W
 
     def reconstruct(self, sid: int, rank: Optional[int] = None, rcond=None):
         """One-pass estimate (grid mode: from the gathered Y and W, on
         every rank)."""
         from .reconstruct import one_pass_reconstruct
-        st = self._touch(sid)
+        st = self._resident(sid, "reconstruct")
         if st.W is None:
             raise ValueError("reconstruction needs corange=True")
         Y, W = st.Y, st.W
@@ -603,7 +711,7 @@ class SketchService:
         sketch; grid mode the Alg. 2 second stages on a (P, 1, 1) grid,
         ``variant`` ``auto`` / ``no_redist`` / ``redist`` /
         ``bound_driven`` (``stream.distributed.nystrom_finalize``)."""
-        st = self._touch(sid)
+        st = self._resident(sid, "nystrom")
         if st.cfg.n1 != st.cfg.n2:
             raise ValueError("Nyström needs a square stream")
         if self.mesh is not None:

@@ -252,7 +252,11 @@ class WriteAheadLog:
 def replay(source, service, *, sid_map=None,
            watermark: int = 0) -> Tuple[int, int]:
     """Re-apply journaled updates to ``service`` in seqno order, each
-    through ``service.update(sid, H, row0=row0)``.
+    through ``service.update(sid, H, row0=row0)``.  A grid service takes
+    full-shape additive updates only: its records apply as
+    ``service.update(sid, H)``, as live grid ingest applied them, and a
+    record journaled as a row slab (``row0 != 0``, from a local service)
+    is refused rather than applied at row 0.
 
     ``source`` is a WAL path, a :class:`WriteAheadLog`, or an iterable of
     :class:`WalRecord`.  ``sid_map`` translates journaled sids onto the
@@ -277,6 +281,7 @@ def replay(source, service, *, sid_map=None,
         records = iter(scan(source)[0])
     else:
         records = iter(source)
+    grid = getattr(service, "mesh", None) is not None
     n = words = 0
     m = obs_metrics.get_metrics()
     replays = m.counter("stream_replays_total",
@@ -288,7 +293,15 @@ def replay(source, service, *, sid_map=None,
                     wal.mark_applied(rec.seqno)
                 continue
             sid = rec.sid if sid_map is None else sid_map[rec.sid]
-            service.update(sid, rec.H, row0=rec.row0)
+            if grid:
+                if rec.row0 != 0:
+                    raise ValueError(
+                        f"WAL record seqno={rec.seqno} (stream {rec.sid}) "
+                        f"is a row slab at row0={rec.row0}: distributed "
+                        f"streams take full-shape additive updates only")
+                service.update(sid, rec.H)
+            else:
+                service.update(sid, rec.H, row0=rec.row0)
             if wal is not None:
                 wal.mark_applied(rec.seqno)
             n += 1

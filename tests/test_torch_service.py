@@ -277,10 +277,10 @@ def test_unknown_sid_and_unported_parts_raise():
                lambda: svc.sketch(999)):
         with pytest.raises(ValueError, match="unknown stream id"):
             op()
-    for op in (lambda: SketchService(spill_dir="x", device="cpu"),
-               lambda: svc.reshard((2, 1, 1))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            op()
+    # once stubs: spill_dir is accepted, and reshard needs a grid service
+    assert SketchService(spill_dir="x", device="cpu").spill_dir == "x"
+    with pytest.raises(ValueError, match="distributed service"):
+        svc.reshard((2, 1, 1))
 
 
 def test_service_defaults_to_the_card():

@@ -1144,3 +1144,151 @@ def roofline_worker(rank, world, A, seed, r, grids):
         out[grid] = (terms.to_dict(),
                      {k: v["words"] // 2 for k, v in col.COMM.items()})
     return out
+
+
+def elastic_worker(rank, world, spec):
+    """One rank of the live-reshard cases on the CPU.  ``spec`` holds
+    ``cfg`` (StreamConfig keywords, co-range on), ``slabs`` [(row0, H)],
+    ``A`` (a full-shape delta), ``pairs`` [(old, new)], ``spill_dir`` and
+    ``traffic`` [(stream index, full-shape delta)].  Returns, per case,
+    what the test holds: bitwise flags, this rank's words by source
+    (``COMM``, the ledger site, ``rank_words``) and the standby errors."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import sketch as sk
+    from repro_torch.obs import install_ledger, uninstall_ledger
+    from repro_torch.parallel import collectives as col
+    from repro_torch.stream import (IngestQueue, ShardedStreamingSketch,
+                                    SketchService, StreamConfig)
+    from repro_torch.stream import distributed as sd
+    from repro_torch.stream.elastic import (LEDGER_SITE, rank_words,
+                                            reshard_stream)
+    from repro_torch.stream.faults import bits_equal
+
+    def same(a, b):
+        return all(bits_equal(x, y) for x, y in zip(a, b))
+
+    def gathered(Y, W, g):
+        """Full (Y, W) from the grid's blocks (None past the grid)."""
+        if g.coords is None:
+            return None
+        return sk.gather_output(Y, g), sd.gather_corange(W, g)
+
+    cfg = StreamConfig(**spec["cfg"])
+    slabs = [(r0, torch.from_numpy(np.array(H))) for r0, H in spec["slabs"]]
+    A = torch.from_numpy(np.array(spec["A"]))
+    out = {}
+
+    # 4 -> 2 -> 4 mid-stream against the stream that never moved
+    g4 = sk.make_grid_groups(world, 1, 1)
+    ref = ShardedStreamingSketch(cfg, g4, device="cpu")
+    for r0, H in slabs:
+        ref.update_rows(r0, H)
+    st = ShardedStreamingSketch(cfg, g4, device="cpu")
+    for r0, H in slabs[:2]:
+        st.update_rows(r0, H)
+    st = reshard_stream(st, (world // 2, 1, 1))
+    shrunk = {"standby": st.standby, "num_updates": st.num_updates}
+    if st.standby:
+        try:
+            st.sketch
+        except ValueError as e:
+            shrunk["error"] = str(e)
+    st.update_rows(*slabs[2])
+    st = reshard_stream(st, (world, 1, 1))
+    st.update_rows(*slabs[3])
+    out["shrink_grow"] = {
+        "shrunk": shrunk, "num_updates": (st.num_updates, ref.num_updates),
+        "Y": bits_equal(st.sketch, ref.sketch),
+        "W": bits_equal(st.corange_sketch, ref.corange_sketch)}
+
+    # one hop on each pair: a layout move, its words from three sources
+    out["pairs"] = {}
+    for old, new in spec["pairs"]:
+        g = sk.make_grid_groups(*old)
+        s = ShardedStreamingSketch(cfg, g, device="cpu")
+        for r0, H in slabs[:2]:
+            s.update_rows(r0, H)
+        before = gathered(s.Y, s.W, g)
+        led = install_ledger()
+        try:
+            col.reset_comm()
+            s2 = reshard_stream(s, new)
+            words = {k: dict(v) for k, v in col.COMM.items()}
+            site = next(x for x in led.sites() if x.name == LEDGER_SITE)
+            ledger = {"calls": site.calls,
+                      "predicted": site.predicted_words,
+                      "floor": site.lower_bound_words,
+                      "measured": site.measured_words_per_call,
+                      "drift": site.drift}
+        finally:
+            uninstall_ledger()
+        after = gathered(s2.Y, s2.W, s2.mesh)
+        out["pairs"][(old, new)] = {
+            "words": words, "ledger": ledger,
+            "rank_words": rank_words(cfg, old, new, world)[rank],
+            "bitwise": same(before, after)}
+
+    # a grid service whose evicted stream moves with it, from host memory
+    # and from disk; a shrink leaves ranks past the grid a standby service
+    out["service"] = {}
+    for spill in (None, spec["spill_dir"]):
+        svc = SketchService(mesh=sk.make_grid_groups(2, 2, 1),
+                            max_resident=1, spill_dir=spill, device="cpu")
+        a = svc.open(StreamConfig(**dict(spec["cfg"], seed=1)))
+        svc.update(a, A)
+        snap_a = gathered(svc.sketch(a), svc.corange(a), svc.mesh)
+        b = svc.open(StreamConfig(**dict(spec["cfg"], seed=2)))
+        svc.update(b, 2 * A)
+        snap_b = gathered(svc.sketch(b), svc.corange(b), svc.mesh)
+        evicted = svc.num_evicted
+        spilled = (spill is not None and os.path.isdir(os.path.join(
+            spill, f"rank_{rank:05d}", f"stream_{a:08d}")))
+        moved = svc.reshard((4, 1, 1))
+        got_b = gathered(svc.sketch(b), svc.corange(b), svc.mesh)
+        got_a = gathered(svc.sketch(a), svc.corange(a), svc.mesh)  # evicts b
+        moved_small = svc.reshard((2, 1, 1))
+        standby = svc.mesh.coords is None
+        err = None
+        if standby:
+            try:
+                svc.sketch(a)
+            except ValueError as e:
+                err = str(e)
+        svc.update(a, A)                     # counted on a standby rank
+        svc.reshard((4, 1, 1))
+        got_b2 = gathered(svc.sketch(b), svc.corange(b), svc.mesh)
+        out["service"][spill is not None] = {
+            "evicted": evicted, "spilled": spilled,
+            "moved": (moved, moved_small), "standby": standby,
+            "error": err,
+            "bitwise": (same(got_b, snap_b), same(got_a, snap_a),
+                        same(got_b2, snap_b)),
+            "updates": svc.stats()["updates"]}
+
+    # grid-mode queues whose windows differ between ranks
+    g = sk.make_grid_groups(2, 2, 1)
+    svc = SketchService(mesh=g, device="cpu")
+    direct = SketchService(mesh=g, device="cpu")
+    seeds = sorted({s for s, _ in spec["traffic"]})
+    sids = {s: svc.open(StreamConfig(**dict(spec["cfg"], seed=s)))
+            for s in seeds}
+    dids = {s: direct.open(StreamConfig(**dict(spec["cfg"], seed=s)))
+            for s in seeds}
+    with IngestQueue(svc, window=rank + 1) as q:
+        if rank % 2:
+            q.hold()                         # one big window on odd ranks
+        for s, H in spec["traffic"]:
+            q.submit(sids[s], np.array(H))
+        q.release()
+        q.flush(raise_errors=True)
+        qst = q.stats()
+    for s, H in spec["traffic"]:
+        direct.update(dids[s], torch.from_numpy(np.array(H)))
+    out["queue"] = {
+        "rounds": qst["rounds"], "applied": qst["applied"],
+        "bitwise": all(same((svc.sketch(sids[s]), svc.corange(sids[s])),
+                            (direct.sketch(dids[s]), direct.corange(dids[s])))
+                       for s in seeds)}
+    return out
