@@ -435,7 +435,37 @@ and recovery (``repro_torch.stream.elastic``, ``faults``, spill, WAL):
                   ``python -m repro_torch.launch.serve --chaos all`` as a
                   subprocess, exit 0; (d) sketch_fwd, fold_rows and
                   sketch_t launched in (a) and on every rank of (b), the
-                  phase under 120 s.
+                  phase under 120 s;
+
+and data-parallel training across ranks (``repro_torch.launch.elastic``):
+
+ 22. dp-train   — (a) four ranks of the card over gloo (``_dp_train_rank``)
+                  each hold a replica of gemma2-2b at its published widths
+                  (d_model 2304, 8 heads, kv 4, head_dim 256, d_ff 9216,
+                  vocab 256000, bf16) cut to 2 layers, with AdamW and the
+                  error buffers of the plan priced for P = 4 at rank 8,
+                  and take 4 sketched steps (the first a warm-up) and one
+                  all-raw step through ``train_loop`` on a global batch of
+                  4 x 1024 (1 x 1024 a rank): every loss finite, the
+                  replicas' params bitwise equal after each step (bit
+                  checksums gathered), each rank's ``COMM`` words the
+                  plan's (``comm_words_compressed`` or ``comm_words_exact``,
+                  and the loss's word), K2 and K5 launched on every rank
+                  (counts reset just before), and one exchange on every
+                  rank at a layer leaf's shape against the same exchange
+                  written with the plain versions (within gemm_tol); the
+                  exchange's words and CUDA-event ms, the step time,
+                  tokens/s and ``max_memory_allocated`` per rank; (b) the
+                  DP checkpoint at world 4 (free space checked first; GB
+                  and seconds written), ``remesh`` onto 2 ranks (2-3 stand
+                  by), ``elastic_restore`` into a zeroed state: params
+                  bitwise what was saved, each buffer bitwise
+                  ``reshard_error_fb`` of the saved stack; 2 steps at world
+                  2 on the same global batch, finite; the checkpoint
+                  deleted; (c) ``python -m repro_torch.launch.train`` as 2
+                  subprocess ranks on the card (``--grad-compress 4``),
+                  both exit 0, rank 0's checkpoint holding both rank
+                  files; the phase under 240 s.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -507,6 +537,17 @@ SP_EDGE = (100, 1025)                    # (g): segments, elements
 SP_EDGE_NNZ = (4096, 65536)              # (g): the long segment's entries
 SP_STAGE_REPS = 20
 SPARSE_SOURCE = "src/repro_torch/kernels/csrc/sparse_kernels.cu"
+# phase 22: data-parallel training on four ranks of one card (gemma2-2b at
+# its published widths, depth cut: four replicas of 26 layers do not fit)
+DP_WORLD, DP_TO, DP_LAYERS = 4, 2, 2
+DP_SKETCHED, DP_RAW, DP_AFTER = 4, 1, 2  # steps: sketched (the first a
+                                         # warm-up), all-raw, after the resume
+DP_REDUCED = False                       # the reduced config (a CPU rehearsal)
+DP_DIR = ROOT / "build" / "repro_torch" / "dp_train"
+DP_SECONDS = 240                         # the phase's time limit
+DP_MIN_FREE = 25e9                       # bytes free for the checkpoint
+DP_LAUNCHER = ["--arch", "gemma2-2b", "--steps", "12", "--batch", "4",
+               "--seq", "32", "--grad-compress", "4", "--ckpt-every", "6"]
 RANKS_TIMEOUT_S = 600
 SWEEP_PATH = ROOT / "build" / "repro_torch" / "cost_sweep.json"
 SERVE_ARGS = ["--workload", "sketch", "--streams", "128", "--updates", "4",
@@ -1343,16 +1384,16 @@ def phase_gemm(dev, local):
     return worst, times
 
 
-def _plain_exchange(local, g, e, seed, r):
+def _plain_exchange(local, g, e, seed, r, mean=lambda t: t):
     """The exchange of one leaf written with the plain versions (new
-    tensors, nothing in place): (g_hat, e')."""
-    m, n = g.shape
+    tensors, nothing in place): (g_hat, e').  ``mean`` is the mean over
+    the workers (one worker: none)."""
     M = g.float() + e
-    P = local._sketch_block_torch(M, seed, r)
-    P_hat = torch.linalg.qr(P).Q
-    Qt = local._gemm_block_torch(P_hat.T, M)
-    return (local._gemm_block_torch(P_hat, Qt, out_dtype=g.dtype),
-            local._gemm_block_torch(P_hat, Qt, -1.0, M))
+    P_hat = torch.linalg.qr(mean(local._sketch_block_torch(M, seed, r))).Q
+    Qt_loc = local._gemm_block_torch(P_hat.T, M)
+    return (local._gemm_block_torch(P_hat, mean(Qt_loc.clone()),
+                                    out_dtype=g.dtype),
+            local._gemm_block_torch(P_hat, Qt_loc, -1.0, M))
 
 
 def phase_exchange(dev, local, grad_compress):
@@ -4917,6 +4958,356 @@ def phase_recovery_launcher() -> float:
     return wall
 
 
+# -- phase 22: data-parallel training on four ranks ---------------------------
+
+def param_sums(params) -> torch.Tensor:
+    """A checksum of every leaf's bits: the sum of its 16- or 32-bit words
+    and their sum weighted by position (mod 65521), in int64, taken in
+    chunks; equal on two replicas whose params are bitwise equal."""
+    from repro_torch.models import param_leaves
+    out = []
+    for _, t in param_leaves(params):
+        flat = t.detach().reshape(-1)
+        bits = flat.view(torch.int16 if flat.element_size() == 2
+                         else torch.int32)
+        s0 = s1 = 0
+        for c in range(0, bits.numel(), 1 << 26):
+            x = bits[c:c + (1 << 26)].to(torch.int64)
+            w = torch.arange(c, c + x.numel(), device=x.device) % 65521 + 1
+            s0 += int(x.sum())
+            s1 += int((x * w).sum())
+            del x, w
+        out += [s0, s1]
+    return torch.tensor(out, dtype=torch.int64)
+
+
+def same_replicas(params, group, what: str) -> None:
+    """Every rank of ``group`` must hold the same params, bit for bit."""
+    import torch.distributed as dist
+    mine = param_sums(params)
+    every = [torch.zeros_like(mine)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(every, mine, group=group)
+    check(all(torch.equal(e, mine) for e in every),
+          f"phase 22: the replicas' params differ {what}")
+
+
+def _all_reduce_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t`` over the world's ranks, in place."""
+    import torch.distributed as dist
+    dist.all_reduce(t)
+    return t.div_(dist.get_world_size())
+
+
+def _dp_train_rank(rank, world, work, device="cuda"):
+    """Phase 22 (a) and (b), one rank."""
+    import shutil
+
+    import torch.distributed as dist
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import local
+    from repro_torch.kernels.sketch_matmul import LAUNCHES, reset_launches
+    from repro_torch.launch.elastic import elastic_restore, remesh
+    from repro_torch.models import get_api, param_leaves
+    from repro_torch.parallel import grad_compress as gcomp
+    from repro_torch.parallel.grad_compress import reshard_error_fb
+    from repro_torch.plan import plan_train_compression
+    from repro_torch.train import (init_state, make_dp_compressed_step,
+                                   train_loop)
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    lines, out = [], {}
+
+    def say(msg):
+        lines.append(f"[dp-train] rank {rank}: {msg}")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def gib(x):
+        return round(x / 2 ** 30, 3)
+
+    cfg = get_config("gemma2-2b")
+    cfg = (cfg.reduced() if DP_REDUCED
+           else dataclasses.replace(cfg, n_layers=DP_LAYERS))
+    api = get_api(cfg)
+    shapes = api.init(0, cfg, "meta")
+    plan = plan_train_compression(shapes, rank=T_R, P=world)
+    dec = plan.decision_tree()
+    raw = dataclasses.replace(plan, decisions=tuple(
+        dataclasses.replace(d, compress=False) for d in plan.decisions))
+    data = DataConfig(cfg.vocab, T_SEQ, T_BATCH, seed=0)
+    run = RunConfig(steps=DP_SKETCHED, learning_rate=1e-4, warmup_steps=2,
+                    checkpoint_every=0, grad_compress_rank=T_R)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    state = init_state(api, cfg, run, 0, dev, decisions=dec)
+    sync()
+    n_params = sum(t.numel() for _, t in param_leaves(state.params))
+    held = torch.cuda.memory_allocated() if on_card else 0
+    out["state"] = {"params": n_params, "held_gib": gib(held)}
+    same_replicas(state.params, None, "at the start")
+
+    def loop(step_fn, run_, group=None):
+        """``train_loop`` with each step's COMM words, exchange ms and a
+        replica check."""
+        words, ex_ms, seen = [], [], [gcomp.COMM["words"]]
+
+        def on_step(i, metrics):
+            words.append(gcomp.COMM["words"] - seen[0])
+            seen[0] = gcomp.COMM["words"]
+            if step_fn.exchange is not None:
+                start, end = step_fn.exchange
+                end.synchronize()
+                ex_ms.append(start.elapsed_time(end))
+            same_replicas(state.params, group, f"after step {i}")
+        first = state.step
+        res = train_loop(step_fn, state, data, run_, device=dev,
+                         on_step=on_step)
+        check(len(res.losses) == run_.steps - first
+              and all(math.isfinite(x) for x in res.losses),
+              f"phase 22: rank {rank}'s losses {res.losses}")
+        return res, words, ex_ms
+
+    # (a) sketched steps, then one all-raw step
+    sketched = make_dp_compressed_step(api, cfg, run, plan=plan)
+    reset_launches()
+    res, words, ex_ms = loop(sketched, run)
+    sync()
+    launches = dict(LAUNCHES)
+    run_raw = dataclasses.replace(run, steps=DP_SKETCHED + DP_RAW)
+    raw_step = make_dp_compressed_step(api, cfg, run_raw, plan=raw)
+    res_raw, raw_words, raw_ms = loop(raw_step, run_raw)
+    want = gcomp.comm_words_compressed(shapes, T_R, dec)
+    want_raw = gcomp.comm_words_exact(shapes)
+    check(words == [want + 1] * DP_SKETCHED,
+          f"phase 22: rank {rank} counted {words} words a step, the plan "
+          f"{want} + 1")
+    check(raw_words == [want_raw + 1] * DP_RAW,
+          f"phase 22: rank {rank} counted {raw_words} words in the raw "
+          f"step, comm_words_exact {want_raw} + 1")
+    nc = plan.n_compressed
+    check(launches.get("gemm") == 3 * nc * DP_SKETCHED
+          and launches.get("sketch_fwd") == nc * DP_SKETCHED,
+          f"phase 22: rank {rank} launched {launches} in {DP_SKETCHED} "
+          f"steps of {nc} compressed leaves")
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    steady = res.step_seconds[1:]
+    out["a"] = {"losses": res.losses + res_raw.losses, "words": words,
+                "raw_words": raw_words, "exchange_ms": ex_ms,
+                "raw_exchange_ms": raw_ms, "step_s": res.step_seconds,
+                "raw_step_s": res_raw.step_seconds,
+                "median_step_s": statistics.median(steady),
+                "tokens_per_s": T_BATCH * T_SEQ / statistics.median(steady),
+                "peak_gib": gib(peak), "launches": launches,
+                "n_compressed": nc, "exchange_words": want,
+                "raw_words_plan": want_raw}
+    say(f"{n_params} params, {gib(held)} GiB held after init; losses "
+        f"{[round(x, 4) for x in out['a']['losses']]}; exchange "
+        f"{want} words a step ({[round(t, 3) for t in ex_ms]} ms), all-raw "
+        f"{want_raw} ({[round(t, 3) for t in raw_ms]} ms); steps "
+        f"{[round(t, 4) for t in res.step_seconds]} s, raw "
+        f"{[round(t, 4) for t in res_raw.step_seconds]} s; peak "
+        f"{gib(peak)} GiB; launches {launches}")
+
+    # one exchange across the ranks against its plain version
+    m, n = (4608, 9216) if not DP_REDUCED else (128, 128)
+    g = torch.Generator(device=dev).manual_seed(220 + rank)
+    grad = torch.randn(m, n, generator=g, device=dev)
+    fb = 0.1 * torch.randn(m, n, generator=g, device=dev)
+    seed = gcomp.leaf_seed(0, 3)            # leaf 0 of {"w": ...}, step 3
+    want_g, want_e = _plain_exchange(local, grad, fb, seed, T_R,
+                                     _all_reduce_mean)
+    grads, fbs = {"w": grad}, {"w": fb.clone()}
+    gcomp.compress_and_allreduce(grads, fbs, step=3, rank=T_R,
+                                 decisions={"w": True})
+    err = (rel_fro(grads["w"], want_g), rel_fro(fbs["w"], want_e))
+    out["exchange_err"] = err
+    check(max(err) <= gemm_tol(m), f"phase 22: rank {rank}'s exchange "
+                                   f"disagrees with its plain version {err}")
+    del grad, fb, grads, fbs, want_g, want_e
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) the DP checkpoint at world 4, then 4 -> 2
+    dist.barrier()
+    t0 = time.perf_counter()
+    path = ckpt.save(work, state.step, state, world=world)
+    sync()
+    save_s = time.perf_counter() - t0
+    written = sum(f.stat().st_size for f in pathlib.Path(path).iterdir())
+    saved = {n: t.detach().cpu().clone()
+             for n, t in param_leaves(state.params)} if rank < DP_TO else {}
+    out["b"] = {"save_s": save_s, "written_gb": written / 1e9}
+    group = remesh(range(world), dp=DP_TO)
+    out["b"]["standby"] = group is None
+    if group is None:
+        del state, res, res_raw
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        say(f"stands by after the DP checkpoint ({save_s:.2f} s)")
+        dist.barrier()
+        return {"lines": lines, **out}
+    with torch.no_grad():
+        for t in ckpt.state_tensors(state).values():
+            t.zero_()
+    state.step, state.opt.count = 0, 0
+    sync()
+    t0 = time.perf_counter()
+    state, step_at, _ = elastic_restore(work, state, group=group)
+    sync()
+    restore_s = time.perf_counter() - t0
+    me = dist.get_rank(group)
+    check(all(torch.equal(t.detach().cpu(), saved[n])
+              for n, t in param_leaves(state.params)),
+          f"phase 22: rank {rank}'s restored params differ from the saved")
+    del saved
+    manifest, _, _, step_dir = ckpt.load_train_step(work, step_at)
+    files = [ckpt.load_rank(step_dir, manifest, k) for k in range(world)]
+    for n, t in param_leaves(state.error_fb):
+        name = f"error_fb.{n}"
+        stack = torch.stack([f[name].to(dev) for f in files])
+        expect = reshard_error_fb({n: stack}, world, DP_TO)[n][me]
+        check(torch.equal(t, expect), f"phase 22: rank {rank}'s restored "
+                                      f"buffer {n} is not reshard_error_fb")
+        del stack, expect
+    del files
+    if on_card:
+        torch.cuda.empty_cache()
+    run2 = dataclasses.replace(run, steps=state.step + DP_AFTER)
+    res2, words2, ms2 = loop(make_dp_compressed_step(api, cfg, run2,
+                                                     plan=plan, group=group),
+                             run2, group)
+    out["b"].update({"restore_s": restore_s, "step": step_at,
+                     "losses": res2.losses, "step_s": res2.step_seconds,
+                     "exchange_ms": ms2, "words": words2})
+    say(f"DP checkpoint {written / 1e9:.3f} GB in {save_s:.2f} s; "
+        f"elastic_restore onto {DP_TO} ranks in {restore_s:.2f} s, bitwise; "
+        f"losses at world {DP_TO} {[round(x, 4) for x in res2.losses]}, "
+        f"steps {[round(t, 4) for t in res2.step_seconds]} s")
+    dist.barrier()
+    return {"lines": lines, **out}
+
+
+def phase_dp_launcher() -> float:
+    """Phase 22 (c): ``python -m repro_torch.launch.train`` as two ranks of
+    one gloo group on the card, ``--grad-compress 4``; both exit 0 and
+    rank 0's checkpoint holds both rank files."""
+    import os
+    import shutil
+    import tempfile
+    work = DP_DIR / "launcher"
+    shutil.rmtree(work, ignore_errors=True)
+    store = tempfile.mkdtemp(prefix="chip_smoke_phase22_")
+    env = dict(os.environ, WORLD_SIZE="2", PYTHONPATH=str(ROOT / "src") + (
+        os.pathsep + os.environ["PYTHONPATH"]
+        if os.environ.get("PYTHONPATH") else ""))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *DP_LAUNCHER,
+           "--ckpt-dir", str(work / "ckpt"), "--init-method",
+           f"file://{store}/store"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, env=dict(env, RANK=str(r),
+                                            LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, cwd=ROOT) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(store, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"phase 22: launcher rank {r} exited "
+                                 f"{p.returncode}:\n{o[-3000:]}\n{e[-3000:]}")
+    for line in outs[0][0].splitlines():
+        if line.startswith("[train]"):
+            print(f"[dp-train] (c) rank 0: {line}")
+    steps = sorted((work / "ckpt").glob("step_*"))
+    files = sorted(p.name for p in steps[-1].iterdir()) if steps else []
+    check(files == ["error_fb.rank0.pt", "error_fb.rank1.pt",
+                    "manifest.json", "tensors.pt"],
+          f"phase 22: the launcher's checkpoint holds {files}")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"[dp-train] (c) python -m repro_torch.launch.train, 2 ranks on "
+          f"the card over gloo: exit 0 and 0 in {wall:.1f} s; "
+          f"{steps[-1].name} holds {files}")
+    return wall
+
+
+def phase_dp_train(card: str) -> dict:
+    """Phase 22: (a)-(b) on DP_WORLD ranks of cuda:0, then (c)."""
+    import shutil
+    t0 = time.perf_counter()
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(DP_DIR).free
+    # the checkpoint: bf16 params and f32 moments once, f32 buffers a rank
+    print(f"[dp-train] free space under {DP_DIR}: {free / 1e9:.1f} GB; "
+          f"this process holds "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of the card")
+    check(free > DP_MIN_FREE, f"phase 22: {free / 1e9:.1f} GB free, the "
+                              f"DP checkpoint needs about 19.4")
+    work = str(DP_DIR / "ckpt")
+    try:
+        results = spawn_ranks(22, _dp_train_rank, DP_WORLD, (work,))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for res in results:
+        for line in res["lines"]:
+            print(line)
+    a = [res["a"] for res in results]
+
+    def med(xs):
+        return statistics.median(xs) if xs else float("nan")
+    for name in ("gemm", "sketch_fwd"):
+        n = [x["launches"].get(name, 0) for x in a]
+        check(all(x > 0 for x in n), f"phase 22: {name} not launched on "
+                                     f"every rank: {n}")
+    steady = max(x["median_step_s"] for x in a)
+    print(f"[dp-train] (a) gemma2-2b, {DP_LAYERS} layers, "
+          f"{results[0]['state']['params']} params a rank; "
+          f"{a[0]['n_compressed']} leaves sketched at P={DP_WORLD}: "
+          f"{a[0]['exchange_words']} words a step a rank against "
+          f"{a[0]['raw_words_plan']} raw; sketched exchange ms (each rank, "
+          f"after the warm-up) "
+          f"{[round(med(x['exchange_ms'][1:]), 3) for x in a]}, "
+          f"all-raw {[round(med(x['raw_exchange_ms']), 3) for x in a]}; "
+          f"median step {steady:.4f} s (slowest rank), "
+          f"{T_BATCH * T_SEQ / steady:.1f} tokens/s; all-raw step "
+          f"{max(x['raw_step_s'][0] for x in a):.4f} s; peak memory a rank "
+          f"{[x['peak_gib'] for x in a]} GiB; exchange vs plain "
+          f"{[tuple(f'{e:.2e}' for e in res['exchange_err']) for res in results]} "
+          f"({card})")
+    b = results[0]["b"]
+    print(f"[dp-train] (b) DP checkpoint at world {DP_WORLD}: "
+          f"{b['written_gb']:.3f} GB written (rank 0's params and moments, "
+          f"each rank's buffers) in "
+          f"{max(res['b']['save_s'] for res in results):.2f} s; "
+          f"elastic_restore onto {DP_TO} ranks "
+          f"{[round(res['b']['restore_s'], 2) for res in results[:DP_TO]]} "
+          f"s; losses at world {DP_TO} {b['losses']}, steps "
+          f"{[round(t, 4) for t in b['step_s']]} s ({card})")
+    check([res["b"]["standby"] for res in results]
+          == [k >= DP_TO for k in range(DP_WORLD)],
+          "phase 22: the wrong ranks stood by")
+    launcher_s = phase_dp_launcher()
+    seconds = time.perf_counter() - t0
+    check(seconds < DP_SECONDS, f"phase 22 took {seconds:.1f} s, not under "
+                                f"{DP_SECONDS} s")
+    return {"ranks": [{k: res[k] for k in ("state", "a", "b",
+                                           "exchange_err")}
+                      for res in results],
+            "launcher_s": launcher_s, "seconds": seconds, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5329,6 +5720,14 @@ def main() -> int:
     print(f"[phases] 21 done at {time.perf_counter() - t_start:.1f} s "
           f"(phase 21: {t21:.1f} s; {card})")
 
+    # -- 22. data-parallel training on four ranks -----------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp = phase_dp_train(card)
+    print("[dp-train] summary " + json.dumps(dp, default=str))
+    print(f"[phases] 22 done at {time.perf_counter() - t_start:.1f} s "
+          f"(phase 22: {dp['seconds']:.1f} s; {card})")
+
     total = [sum(gemm_times[c][i] for c in "abc") for i in range(3)]
     bound3 = sum(gemm_times[c][3][0] for c in "abc")
     rows.append(("gemm",
@@ -5395,6 +5794,13 @@ def main() -> int:
             kernels[-1]["alg2_two_grid"] = {
                 "launches": [res["launches"][name] for res in two_grid],
                 "calls": [res["calls"][name] for res in two_grid]}
+        if name in ("sketch_fwd", "gemm"):
+            # phase 22: each rank's launches over its sketched DP steps
+            # (counts reset just before)
+            kernels[-1]["dp_train"] = {
+                "launches": [res["a"]["launches"][name]
+                             for res in dp["ranks"]],
+                "steps": DP_SKETCHED}
         if name in ("sketch_fwd", "sketch_t", "fold_rows"):
             # phase 21: the launches of the one-card recovery paths and of
             # each rank's reshards, queue and service (counts reset at the

@@ -102,6 +102,7 @@ class RunConfig:
     remat: bool = True
     # sketched gradient compression: rank (0 = off)
     grad_compress_rank: int = 0
+    grad_compress_min_dim: int = 1024      # legacy heuristic (planner wins)
     # fault tolerance
     checkpoint_every: int = 50
     checkpoint_dir: str = "repro_torch_ckpt"

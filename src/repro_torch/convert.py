@@ -11,10 +11,16 @@ tree (``jax.device_get`` of them; the attention and FFN groups as dicts,
 as ``lm_init`` makes them) and gives the port's, stacked leaves and bf16
 included; ``train_state_from_jax`` carries a whole ``TrainState`` (AdamW
 moments, count, step, and one worker's error buffers), so both packages
-continue from the same point.
+continue from the same point; ``train_state_from_checkpoint`` reads the
+same state from a checkpoint directory the reference wrote
+(``repro.checkpoint.ckpt.save``: ``manifest.json`` and ``arrays.npz``),
+with numpy alone.
 """
 from __future__ import annotations
 
+import json
+import os
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import numpy as np
@@ -64,6 +70,8 @@ _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def _tensor(x, device, requires_grad: bool = False) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):           # decoded from raw bits
+        return x.to(device).requires_grad_(requires_grad)
     host = np.asarray(x)
     dtype = _TORCH_DTYPES.get(str(host.dtype))
     if dtype is None:
@@ -106,10 +114,100 @@ def train_state_from_jax(state, worker: Optional[int] = None, device=None):
     fb = None
     if state.error_fb is not None:
         fb = _tree(state.error_fb, lambda x: _tensor(
-            np.asarray(x) if worker is None else np.asarray(x)[worker],
-            device))
+            x if worker is None else (x[worker] if isinstance(
+                x, torch.Tensor) else np.asarray(x)[worker]), device))
     opt = AdamWState(m=_tree(state.opt.m, lambda x: _tensor(x, device)),
                      v=_tree(state.opt.v, lambda x: _tensor(x, device)),
                      count=int(np.asarray(state.opt.count)))
     return TrainState(params=params_from_jax(state.params, device), opt=opt,
                       step=int(np.asarray(state.step)), error_fb=fb)
+
+
+# The reference stores a dtype numpy lacks (bf16, fp8) as a raw view of
+# its bits, the dtype's name in the manifest: the view and torch's dtype.
+_RAW_DTYPES = {"bfloat16": (np.int16, torch.bfloat16),
+               "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+               "float8_e5m2": (np.uint8, torch.float8_e5m2)}
+
+
+def _decode(arr: np.ndarray, dtype: str):
+    """A stored leaf as numpy (a numpy dtype) or as a torch tensor that
+    reinterprets the raw bits (a dtype numpy lacks)."""
+    try:
+        want = np.dtype(dtype)
+    except TypeError:
+        want = None
+    if want is not None:
+        return arr if arr.dtype == want else arr.view(want)
+    if dtype not in _RAW_DTYPES:
+        raise ValueError(f"no torch dtype for the stored dtype {dtype!r}")
+    view, tdtype = _RAW_DTYPES[dtype]
+    return torch.from_numpy(np.ascontiguousarray(arr).view(view)).view(
+        tdtype)
+
+
+def _reference_complete(path: str) -> bool:
+    """The reference's ``is_complete``: the manifest parses and
+    ``arrays.npz`` holds every leaf it names."""
+    try:
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        with np.load(os.path.join(path, "arrays.npz")) as arrays:
+            have = set(arrays.files)
+        return all(e["key"] in have for e in manifest["leaves"])
+    except Exception:  # noqa: BLE001 — missing file, bad zip, bad JSON
+        return False
+
+
+def _reference_step(directory: str, step: Optional[int]) -> str:
+    from .checkpoint.ckpt import TornCheckpointError, _step_dirs
+    if step is None:
+        done = [s for s, d in _step_dirs(directory)
+                if _reference_complete(os.path.join(directory, d))]
+        if not done:
+            raise FileNotFoundError(f"no loadable checkpoints in "
+                                    f"{directory}")
+        step = done[-1]
+    path = os.path.join(directory, f"step_{step:08d}")
+    if not _reference_complete(path):
+        raise TornCheckpointError(
+            f"checkpoint step {step} in {directory} is torn (incomplete "
+            f"manifest/arrays) and will not be loaded")
+    return path
+
+
+def _nest(named):
+    """``{"a/b/c": x}`` as nested dicts."""
+    out = {}
+    for name, x in named.items():
+        node = out
+        *parents, leaf = name.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = x
+    return out
+
+
+def train_state_from_checkpoint(directory: str, step: Optional[int] = None,
+                                worker: Optional[int] = None, device=None):
+    """The port's ``TrainState`` from a ``TrainState`` checkpoint that the
+    reference's ``checkpoint/ckpt.py`` wrote into ``directory`` (step
+    ``step``, default the newest complete one), read with numpy alone.
+    Leaves are matched by the reference's names (``params/...``,
+    ``opt/m/...``, ``opt/v/...``, ``opt/count``, ``step``,
+    ``error_fb/...``); a bf16 leaf comes back from its stored bits.
+    ``worker`` picks a worker's error buffers from the stacked world axis,
+    as in :func:`train_state_from_jax`.  A torn step raises
+    ``TornCheckpointError``, as the reference's restore does."""
+    path = _reference_step(directory, step)
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    with np.load(os.path.join(path, "arrays.npz")) as arrays:
+        named = {e["name"]: _decode(arrays[e["key"]], e["dtype"])
+                 for e in manifest["leaves"]}
+    tree = _nest(named)
+    state = SimpleNamespace(params=tree["params"],
+                            opt=SimpleNamespace(**tree["opt"]),
+                            step=tree["step"],
+                            error_fb=tree.get("error_fb"))
+    return train_state_from_jax(state, worker=worker, device=device)

@@ -10,10 +10,20 @@ loop -> checkpoints, with optional sketched gradient compression:
 ``--device`` defaults to the card (and fails without one); on the card the
 exchange's GEMMs run the hand-written kernels.  With ``--grad-compress``
 the per-leaf raw-vs-sketch decisions are planned at the process group's
-world size (a group is joined when ``WORLD_SIZE`` > 1 is set, with
-``MASTER_ADDR``/``MASTER_PORT``/``RANK`` as torchrun sets them) and their
-word table is printed.  At one process the plan compresses nothing: both
-exchanges move 0 words there.
+world size and their word table is printed.  At one process the plan
+compresses nothing: both exchanges move 0 words there.
+
+Data parallel: with ``WORLD_SIZE`` > 1 (and ``RANK``, ``LOCAL_RANK``,
+``MASTER_ADDR`` / ``MASTER_PORT`` as torchrun sets them, or
+``--init-method file:///path``) each rank joins the group and trains one
+worker of ``make_dp_compressed_step``; the global batch is split over the
+ranks and the checkpoints take the DP form (each rank writes its own error
+buffers).  The group is gloo on the CPU and whenever the ranks outnumber
+the visible cards (rank k on ``cuda:(LOCAL_RANK % device_count)``: NCCL
+refuses two ranks on one card), NCCL otherwise.  Rank 0 alone prints the
+plan and the summary.  Without ``--grad-compress`` the launcher does what
+the reference's does: it trains one replica, with no DP, on rank 0 alone;
+the other ranks stand by and exit 0.
 """
 from __future__ import annotations
 
@@ -42,7 +52,26 @@ def build_parser() -> argparse.ArgumentParser:
                          "(0 = off)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    ap.add_argument("--init-method", default="env://",
+                    help="the process group's rendezvous at WORLD_SIZE > 1")
     return ap
+
+
+def _join_group(device, init_method: str):
+    """Join the DP group; returns this rank's device."""
+    import torch
+    import torch.distributed as dist
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    world = int(os.environ["WORLD_SIZE"])
+    nccl = device.type == "cuda" and world <= cards
+    dist.init_process_group("nccl" if nccl else "gloo",
+                            init_method=init_method, world_size=world,
+                            rank=int(os.environ["RANK"]))
+    if device.type == "cuda":
+        device = torch.device(
+            "cuda", int(os.environ.get("LOCAL_RANK", "0")) % cards)
+        torch.cuda.set_device(device)
+    return device
 
 
 def main(argv=None):
@@ -58,12 +87,19 @@ def main(argv=None):
 
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    if (int(os.environ.get("WORLD_SIZE", "1")) > 1
-            and not dist.is_initialized()):
-        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
-        if device.type == "cuda":
-            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
-                                                             "0")))
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not args.grad_compress:
+        # the reference trains one replica here: rank 0 alone, no DP
+        if int(os.environ.get("RANK", "0")) != 0:
+            print(f"[train] rank {os.environ['RANK']} stands by: without "
+                  f"--grad-compress one replica trains, on rank 0")
+            return None
+        world = 1
+    joined = world > 1 and not dist.is_initialized()
+    if joined:
+        device = _join_group(device, args.init_method)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
@@ -74,8 +110,8 @@ def main(argv=None):
                     remat=True, grad_compress_rank=args.grad_compress)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                           global_batch=args.batch, seed=args.seed)
-    print(f"[train] arch={cfg.name} family={cfg.family} steps={run.steps} "
-          f"batch={args.batch} seq={args.seq} device={device}")
+    say(f"[train] arch={cfg.name} family={cfg.family} steps={run.steps} "
+        f"batch={args.batch} seq={args.seq} device={device}")
     if args.grad_compress:
         from repro_torch.parallel.grad_compress import world_size
         from repro_torch.plan import (explain_train_compression,
@@ -87,7 +123,7 @@ def main(argv=None):
         shapes = api.init(run.seed, cfg, "meta")
         plan = plan_train_compression(shapes, rank=run.grad_compress_rank,
                                       P=world)
-        print(explain_train_compression(plan))
+        say(explain_train_compression(plan))
         state = init_state(api, cfg, run, run.seed, device,
                            decisions=plan.decision_tree())
         step_fn = make_dp_compressed_step(api, cfg, run, plan=plan)
@@ -95,18 +131,21 @@ def main(argv=None):
         state = init_state(api, cfg, run, run.seed, device)
         step_fn = make_train_step(api, cfg, run)
     n_params = sum(t.numel() for _, t in param_leaves(state.params))
-    print(f"[train] params: {n_params / 1e6:.2f}M")
+    say(f"[train] params: {n_params / 1e6:.2f}M")
 
     t0 = time.time()
     result = train_loop(step_fn, state, data_cfg, run, device=device)
     dt = time.time() - t0
     first = float(np.mean(result.losses[:10]))
     last = float(np.mean(result.losses[-10:]))
-    print(f"[train] done in {dt:.1f}s; loss {first:.4f} -> {last:.4f} "
-          f"({len(result.losses)} steps, {result.restarts} restarts, "
-          f"{len(result.checkpoints)} checkpoints)")
+    say(f"[train] done in {dt:.1f}s; loss {first:.4f} -> {last:.4f} "
+        f"({len(result.losses)} steps, {result.restarts} restarts, "
+        f"{len(result.checkpoints)} checkpoints)")
     if not last < first:
         raise SystemExit("loss did not decrease")
+    if joined:
+        dist.barrier()
+        dist.destroy_process_group()
     return result
 
 

@@ -51,6 +51,17 @@ def clip_by_global_norm(grads, max_norm: float):
     return grads, norm
 
 
+# Elements a pass of ``update``: the f32 temporaries of a leaf are taken
+# a slice at a time, so an embedding's do not add several of its copies to
+# the peak.  The arithmetic is elementwise, so the slices change no bit.
+CHUNK = 1 << 26
+
+
+def _slices(t: torch.Tensor, inplace: bool):
+    flat = t.view(-1) if inplace else t.reshape(-1)
+    return flat.split(CHUNK)
+
+
 @torch.no_grad()
 def update(grads, state: AdamWState, params, lr: float, *,
            b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
@@ -63,13 +74,16 @@ def update(grads, state: AdamWState, params, lr: float, *,
     for (_, p), (_, g), (_, m), (_, v) in zip(
             param_leaves(params), param_leaves(grads),
             param_leaves(state.m), param_leaves(state.v)):
-        gf = g.float()
-        m.mul_(b1).add_((1 - b1) * gf)
-        v.mul_(b2).add_((1 - b2) * gf * gf)
-        step = (m / c1) / (torch.sqrt(v / c2) + eps)
-        del gf
-        pf = p.float()
-        if p.dim() >= 2 and weight_decay:
-            step.add_(pf * weight_decay)
-        p.copy_(pf.sub_(step.mul_(lr)))
+        decay = p.dim() >= 2 and weight_decay
+        for ps, gs, ms, vs in zip(_slices(p, True), _slices(g, False),
+                                  _slices(m, True), _slices(v, True)):
+            gf = gs.float()
+            ms.mul_(b1).add_((1 - b1) * gf)
+            vs.mul_(b2).add_((1 - b2) * gf * gf)
+            step = (ms / c1) / (torch.sqrt(vs / c2) + eps)
+            del gf
+            pf = ps.float()
+            if decay:
+                step.add_(pf * weight_decay)
+            ps.copy_(pf.sub_(step.mul_(lr)))
     return params, state

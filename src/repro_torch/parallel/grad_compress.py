@@ -79,14 +79,32 @@ def leaf_seed(idx: int, step: int):
     return (k0, int(step) & 0xFFFFFFFF)
 
 
-def _flags(grads, decisions):
-    flags = [bool(f) for _, f in param_leaves(decisions)]
+def _compressible(leaf, min_dim: int) -> bool:
+    """The legacy size heuristic: compress a matrix leaf whose folded dims
+    are both at least ``min_dim``.  The planner's priced ``decisions`` map
+    supersedes it (``plan.plan_train_compression``)."""
+    if leaf.dim() < 2:
+        return False
+    m, n = math.prod(leaf.shape[:-1]), leaf.shape[-1]
+    return m >= min_dim and n >= min_dim
+
+
+def _flags(grads, decisions, min_dim=None):
+    """Per-leaf compress flags: the planner's map when given (its True
+    entries clamped to matrix leaves), else the ``min_dim`` heuristic."""
     leaves = param_leaves(grads)
-    if len(flags) != len(leaves):
-        raise ValueError(f"decisions has {len(flags)} leaves, grads have "
-                         f"{len(leaves)}: pass plan_train_compression(...)"
-                         f".decision_tree() for these params")
-    return [f and g.dim() >= 2 for f, (_, g) in zip(flags, leaves)]
+    if decisions is not None:
+        flags = [bool(f) for _, f in param_leaves(decisions)]
+        if len(flags) != len(leaves):
+            raise ValueError(
+                f"decisions has {len(flags)} leaves, grads have "
+                f"{len(leaves)} — pass plan_train_compression(...)"
+                f".decision_tree() for these params")
+        return [f and g.dim() >= 2 for f, (_, g) in zip(flags, leaves)]
+    if min_dim is None:
+        raise ValueError("need either decisions= (planner map) or "
+                         "min_dim= (legacy heuristic)")
+    return [_compressible(g, min_dim) for _, g in leaves]
 
 
 def _orthonormalize(P: torch.Tensor) -> torch.Tensor:
@@ -96,16 +114,18 @@ def _orthonormalize(P: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def compress_and_allreduce(grads, error_fb, *, step: int, rank: int,
-                           decisions, kind: str = "normal", group=None):
+                           decisions=None, min_dim=None,
+                           kind: str = "normal", group=None):
     """Replace the mean of ``grads`` over the workers by the sketched
     exchange; returns ``(grads, error_fb)``, both updated IN PLACE.
 
     ``decisions``: per-leaf bools, the params' structure
-    (``plan_train_compression(...).decision_tree()``).  Raw leaves take an
+    (``plan_train_compression(...).decision_tree()``); without it the
+    legacy ``min_dim`` heuristic decides.  Raw leaves take an
     exact mean and keep their error buffer.  ``step`` enters Omega through
     the key pair, so a restored run regenerates the original draws.
     """
-    flags = _flags(grads, decisions)
+    flags = _flags(grads, decisions, min_dim)
     fb = param_leaves(error_fb)
     for idx, ((_, g), (_, e), compress) in enumerate(
             zip(param_leaves(grads), fb, flags)):
@@ -131,13 +151,15 @@ def comm_words_exact(shapes) -> int:
     return sum(math.prod(t.shape) for _, t in param_leaves(shapes))
 
 
-def comm_words_compressed(shapes, rank: int, decisions) -> int:
+def comm_words_compressed(shapes, rank: int, decisions=None, *,
+                          min_dim=None) -> int:
     """Words the sketched exchange moves: r·(m+n) per compressed leaf,
-    full size for raw leaves.  Equals the plan's ``exchange_words`` at
-    more than one worker, and what ``allreduce_mean`` counts there."""
+    full size for raw leaves (``decisions``, else the ``min_dim``
+    heuristic, picks them).  Equals the plan's ``exchange_words`` at more
+    than one worker, and what ``allreduce_mean`` counts there."""
     total = 0
     for (_, t), compress in zip(param_leaves(shapes),
-                                _flags(shapes, decisions)):
+                                _flags(shapes, decisions, min_dim)):
         if compress:
             m, n = math.prod(t.shape[:-1]), int(t.shape[-1])
             total += min(rank, m, n) * (m + n)
@@ -146,13 +168,14 @@ def comm_words_compressed(shapes, rank: int, decisions) -> int:
     return total
 
 
-def init_error_fb(params, decisions):
-    """Zero f32 error buffers of the leaf's shape for compressed leaves, a
-    0-d zero elsewhere; one worker's, with no world axis."""
+def init_error_fb(params, decisions=None, *, min_dim=None):
+    """Zero f32 error buffers of the leaf's shape for compressed leaves
+    (``decisions``, else the ``min_dim`` heuristic), a 0-d zero elsewhere;
+    one worker's, with no world axis."""
     leaves = [torch.zeros(t.shape if f else (), dtype=torch.float32,
                           device=t.device)
               for (_, t), f in zip(param_leaves(params),
-                                   _flags(params, decisions))]
+                                   _flags(params, decisions, min_dim))]
     return unflatten_like(params, leaves)
 
 

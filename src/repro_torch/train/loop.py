@@ -8,6 +8,14 @@
     with no checkpoint to restore it the loop re-raises.  A refused kernel
     launch (``KernelLaunchError``) is a fault, not a node failure, and is
     re-raised at once;
+  * data parallel: with a step of ``make_dp_compressed_step`` at more
+    than one worker, every rank of its group runs this loop; checkpoints
+    take the DP form (``checkpoint/ckpt.py``: each rank writes its own
+    error buffers, rank 0 the replicated params and moments) and a restore
+    gives each rank its own buffers back.  The crash path restores there
+    only when EVERY rank fails at the same step, as an injected fault or
+    a refused step on all of them does: a fault on one rank alone leaves
+    the others inside the step's collectives, which would part ways;
   * a straggler monitor: EWMA step time, outliers beyond k sigma flagged;
   * a NaN guard: a step whose loss is not finite is skipped (the step
     functions leave the state untouched then) and the next batch is tried.
@@ -26,6 +34,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.data.pipeline import DataConfig, Pipeline
 from repro_torch.kernels.sketch_matmul import KernelLaunchError
 from repro_torch.models.api import param_leaves
+from repro_torch.parallel.grad_compress import world_size
 from .state import TrainState
 
 MAX_RESTARTS = 10
@@ -88,6 +97,9 @@ def train_loop(train_step: Callable, state: TrainState, data_cfg: DataConfig,
     pipe = Pipeline(data_cfg, start_step=start, device=device)
     step_i = start
     on_card = param_leaves(state.params)[0][1].is_cuda
+    group = getattr(train_step, "group", None)
+    world = (world_size(group) if getattr(train_step, "data_parallel", False)
+             else 1)
     while step_i < run.steps:
         in_step = False
         try:
@@ -114,7 +126,8 @@ def train_loop(train_step: Callable, state: TrainState, data_cfg: DataConfig,
             if run.checkpoint_every and step_i % run.checkpoint_every == 0:
                 ckpt.save(run.checkpoint_dir, step_i, state,
                           extra={"data": pipe.state()},
-                          keep=run.keep_checkpoints)
+                          keep=run.keep_checkpoints, world=world,
+                          group=group)
                 ckpts.append(step_i)
         except (KeyboardInterrupt, KernelLaunchError):
             raise
@@ -130,7 +143,8 @@ def train_loop(train_step: Callable, state: TrainState, data_cfg: DataConfig,
                 step_i = start
                 pipe = Pipeline(data_cfg, start_step=start, device=device)
                 continue
-            state, step_i, extra = ckpt.restore(run.checkpoint_dir, state)
+            state, step_i, extra = ckpt.restore(run.checkpoint_dir, state,
+                                                world=world, group=group)
             pipe = Pipeline.from_state(
                 data_cfg, extra.get("data", {"step": step_i,
                                              "seed": data_cfg.seed}),

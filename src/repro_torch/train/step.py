@@ -32,18 +32,17 @@ def init_state(api: ModelAPI, cfg: ModelConfig, run: RunConfig, seed: int,
                device=None, decisions=None) -> TrainState:
     """Fresh state (``device=None``: the card).  With
     ``run.grad_compress_rank`` set, zero error buffers ride along for the
-    leaves ``decisions`` compresses (default: the plan at the process
-    group's world size)."""
+    leaves ``decisions`` compresses (the planner's map,
+    ``plan_train_compression(...).decision_tree()``); None falls back to
+    the legacy ``run.grad_compress_min_dim`` heuristic, as the reference
+    does.  The buffers are this worker's own: no world axis."""
     params = api.init(seed, cfg, device)
     for _, t in param_leaves(params):
         t.requires_grad_(True)
     st = TrainState(params=params, opt=adamw.init(params), step=0)
     if run.grad_compress_rank:
-        if decisions is None:
-            from repro_torch.plan import plan_train_compression
-            decisions = plan_train_compression(
-                params, run.grad_compress_rank).decision_tree()
-        st.error_fb = init_error_fb(params, decisions)
+        st.error_fb = init_error_fb(params, decisions,
+                                    min_dim=run.grad_compress_min_dim)
     return st
 
 
@@ -106,7 +105,11 @@ def make_dp_compressed_step(api: ModelAPI, cfg: ModelConfig, run: RunConfig,
     process group's world size when None (at world 1 that compresses
     nothing: pass a plan priced for the worker count the run stands for).
     The plan in use is ``step.plan``.  On the card, ``step.exchange`` holds
-    the CUDA events recorded around the last exchange.
+    the CUDA events recorded around the last exchange.  ``step.group`` and
+    ``step.data_parallel`` tell ``train_loop`` to checkpoint in the DP
+    form.  The global batch is split by the group's size, so a run
+    resumed onto fewer workers (``launch.elastic``) keeps it; there is no
+    gradient accumulation, as in the reference's.
 
     With a ledger installed (``obs.ledger``) each step is observed at the
     ``train.dp_compressed_step`` site against the plan's exchange words
@@ -154,4 +157,6 @@ def make_dp_compressed_step(api: ModelAPI, cfg: ModelConfig, run: RunConfig,
 
     step.plan = plan
     step.exchange = None
+    step.group = group
+    step.data_parallel = True
     return step

@@ -1101,8 +1101,12 @@ def dp_step_ledger_worker(rank, world, spec):
     api = get_api(cfg)
     run = RunConfig(steps=2, learning_rate=1e-3, warmup_steps=1,
                     grad_compress_rank=spec["rank"])
-    # both priced at the process group's world size
-    state = init_state(api, cfg, run, 0, device="cpu")
+    # both priced at the process group's world size (init_state without
+    # decisions takes the legacy min_dim heuristic, as the reference's)
+    from repro_torch.plan import plan_train_compression
+    dec = plan_train_compression(api.init(0, cfg, "meta"),
+                                 spec["rank"]).decision_tree()
+    state = init_state(api, cfg, run, 0, device="cpu", decisions=dec)
     step = make_dp_compressed_step(api, cfg, run)
     batch = {"tokens": torch.from_numpy(spec["tokens"]).long(),
              "labels": torch.from_numpy(spec["labels"]).long()}
@@ -1291,4 +1295,364 @@ def elastic_worker(rank, world, spec):
         "bitwise": all(same((svc.sketch(sids[s]), svc.corange(sids[s])),
                             (direct.sketch(dids[s]), direct.corange(dids[s])))
                        for s in seeds)}
+    return out
+
+
+# -- data-parallel training (tests/test_torch_dp.py,
+#    tests/test_torch_train_elastic.py) --------------------------------------
+
+REFERENCE_DP = r'''
+import json
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh
+from repro.checkpoint import ckpt
+from repro.checkpoint.ckpt import _flatten_with_names
+from repro.configs import get_config
+from repro.configs.base import RunConfig
+from repro.models import get_api
+from repro.plan import plan_train_compression
+from repro.train.step import init_state, make_dp_compressed_step
+
+work = @WORK@
+spec = json.load(open(work + "/spec.json"))
+data = np.load(work + "/batches.npz")
+cfg = get_config(spec["arch"]).reduced()
+api = get_api(cfg)
+run = RunConfig(grad_compress_backend="jnp", **spec["run"])
+key = jax.random.key(spec["seed"])
+shapes = jax.eval_shape(lambda k: api.init(k, cfg), key)
+plan = plan_train_compression(shapes, rank=run.grad_compress_rank,
+                              P=spec["world"])
+state = init_state(api, cfg, run, key, world=spec["world"],
+                   decisions=plan.decision_tree())
+ckpt.save(work + "/start", 0, state)
+out = {}
+
+
+def keep(prefix, tree):
+    for n, x in _flatten_with_names(tree):
+        out[prefix + n.replace("/", ".")] = np.asarray(jax.device_get(x))
+
+
+def steps(step, state, first, last):
+    for i in range(first, last):
+        state, met = step(state, {"tokens": jnp.asarray(data["tokens"][i]),
+                                  "labels": jnp.asarray(data["labels"][i])})
+        out[f"loss.{i}"] = np.float64(met["loss"])
+        keep(f"fb.{i}.", state.error_fb)
+        keep(f"params.{i}.", state.params)
+    return state
+
+
+mesh = Mesh(np.asarray(jax.devices()[:spec["world"]]), ("data",))
+state = steps(make_dp_compressed_step(api, cfg, run, mesh, plan=plan), state,
+              0, spec["steps"])
+if spec.get("resume_world"):
+    from repro.launch.elastic import elastic_restore, remesh
+    from repro.parallel.grad_compress import reshard_error_fb
+    ckpt.save(work + "/ckpt", spec["steps"], state)
+    mesh2 = remesh(jax.devices(), dp=spec["resume_world"], tp=1)
+    st2, _, _ = elastic_restore(work + "/ckpt", state, mesh=mesh2)
+    st2 = st2.replace(error_fb=reshard_error_fb(
+        st2.error_fb, spec["world"], spec["resume_world"]))
+    keep("restored.", st2.params)
+    steps(make_dp_compressed_step(api, cfg, run, mesh2, axis="data",
+                                  plan=plan), st2, spec["steps"],
+          spec["steps"] + spec["steps_after"])
+np.savez(work + "/out.npz", **out)
+'''
+
+
+class ReferenceDP:
+    """The reference's ``make_dp_compressed_step`` at ``spec["world"]``
+    fake XLA devices, run in a subprocess started at construction (so the
+    port's ranks can run meanwhile).  From its own fresh state (saved with
+    its ``ckpt.save`` into ``work/start`` first: :meth:`wait_start`) it
+    takes ``spec["steps"]`` steps on ``tokens[i]`` / ``labels[i]``; with
+    ``spec["resume_world"]``, then its checkpoint, ``elastic_restore``
+    onto that many devices, ``reshard_error_fb`` and
+    ``spec["steps_after"]`` more steps.  :meth:`result` is ``out.npz`` as
+    a dict: ``loss.<i>``, ``fb.<i>.<leaf>`` (every worker's, stacked),
+    ``params.<i>.<leaf>``, ``restored.<leaf>``."""
+
+    def __init__(self, work: str, spec: dict, tokens, labels):
+        import json
+        import subprocess
+        import sys
+
+        import numpy as np
+
+        from dist_helper import SRC
+        self.work = work
+        with open(os.path.join(work, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        np.savez(os.path.join(work, "batches.npz"), tokens=tokens,
+                 labels=labels)
+        env = dict(os.environ)
+        env["XLA_FLAGS"] = ("--xla_force_host_platform_device_count="
+                            f"{spec['world']}")
+        env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+        env.setdefault("JAX_PLATFORMS", "cpu")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", REFERENCE_DP.replace("@WORK@",
+                                                        repr(work))],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+
+    def _failed(self):
+        out, err = self.proc.communicate()
+        raise AssertionError(f"the reference failed (rc="
+                             f"{self.proc.returncode})\n{out}\n{err}")
+
+    def wait_start(self, timeout: float = 300) -> str:
+        """The reference's start checkpoint directory, once published."""
+        import time
+        path = os.path.join(self.work, "start")
+        t0 = time.monotonic()
+        while not os.path.isdir(os.path.join(path, "step_00000000")):
+            if self.proc.poll() is not None:
+                self._failed()
+            if time.monotonic() - t0 > timeout:
+                self.proc.kill()
+                raise TimeoutError("the reference saved no start state")
+            time.sleep(0.2)
+        return path
+
+    def result(self, timeout: float = 600) -> dict:
+        import numpy as np
+        try:
+            self.proc.wait(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+        if self.proc.returncode != 0:
+            self._failed()
+        self.proc.communicate()
+        with np.load(os.path.join(self.work, "out.npz")) as f:
+            return {k: f[k] for k in f.files}
+
+
+def _dp_setup(rank, spec):
+    """Reduced ``spec["arch"]``, its run and this rank's start state:
+    worker ``rank``'s slice of the reference's checkpoint ``spec["start"]``
+    (``convert.train_state_from_checkpoint``), and the plan priced for
+    ``spec["plan_P"]`` workers."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.convert import train_state_from_checkpoint
+    from repro_torch.models import get_api
+    from repro_torch.plan import plan_train_compression
+
+    cfg = get_config(spec["arch"]).reduced()
+    api = get_api(cfg)
+    run = RunConfig(**spec["run"])
+    state = train_state_from_checkpoint(spec["start"], worker=rank,
+                                        device="cpu")
+    plan = plan_train_compression(state.params, rank=run.grad_compress_rank,
+                                  P=spec["plan_P"])
+    return api, cfg, run, state, plan
+
+
+def _dp_steps(step, state, spec, first, last, out):
+    """Steps ``first..last-1`` on the global batches of ``spec``; keeps
+    each step's loss, this rank's ``grad_compress.COMM`` words, error
+    buffers and params (numpy) in ``out``."""
+    import torch
+
+    from repro_torch.models import param_leaves
+    from repro_torch.parallel import grad_compress as gc
+
+    for i in range(first, last):
+        batch = {"tokens": torch.from_numpy(spec["tokens"][i]).long(),
+                 "labels": torch.from_numpy(spec["labels"][i]).long()}
+        w0 = gc.COMM["words"]
+        state, met = step(state, batch)
+        out["words"][i] = gc.COMM["words"] - w0
+        out["loss"][i] = met["loss"]
+        out["fb"][i] = {n: t.clone().numpy()
+                        for n, t in param_leaves(state.error_fb)}
+        out["params"][i] = {n: t.detach().clone().numpy()
+                            for n, t in param_leaves(state.params)}
+    return state
+
+
+def dp_train_worker(rank, world, spec):
+    """One worker of ``make_dp_compressed_step`` from the reference's start
+    state: ``spec["steps"]`` steps under the plan, then one more step (on
+    the last batch again) under the same plan with every leaf raw.  With
+    ``spec["mutate_rank"] == rank`` leaf ``spec["mutate_leaf"]`` draws its
+    Omega with the key of leaf idx + 1 on this rank alone.  Returns, per
+    step, the loss, the words counted, the buffers and the params."""
+    import dataclasses
+
+    from repro_torch.parallel import grad_compress as gc
+    from repro_torch.train import make_dp_compressed_step
+
+    api, cfg, run, state, plan = _dp_setup(rank, spec)
+    if spec.get("mutate_rank") == rank:
+        right = gc.leaf_seed
+        gc.leaf_seed = lambda idx, step: right(
+            idx + 1 if idx == spec["mutate_leaf"] else idx, step)
+    out = {k: {} for k in ("words", "loss", "fb", "params")}
+    n = spec["steps"]
+    state = _dp_steps(make_dp_compressed_step(api, cfg, run, plan=plan),
+                      state, spec, 0, n, out)
+    raw = dataclasses.replace(plan, decisions=tuple(
+        dataclasses.replace(d, compress=False) for d in plan.decisions))
+    raw_out = {k: {} for k in out}
+    _dp_steps(make_dp_compressed_step(api, cfg, run, plan=raw), state, spec,
+              n - 1, n, raw_out)
+    out["raw_words"] = raw_out["words"][n - 1]
+    out["raw_params"] = raw_out["params"][n - 1]
+    out["decisions"] = [d.compress for d in plan.decisions]
+    return out
+
+
+def elastic_train_worker(rank, world, spec):
+    """The 4 -> 2 resume on the port: ``spec["steps"]`` steps at this
+    world, the DP checkpoint into ``spec["ckpt"]``, ``remesh`` onto
+    ``spec["resume_world"]`` workers, ``elastic_restore`` into a zeroed
+    state (ranks past the group stand by), then ``spec["steps_after"]``
+    steps on the same global batches.  Returns the steps' figures, the
+    saved and the restored params and moments, and the restored buffers."""
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.elastic import elastic_restore, remesh
+    from repro_torch.models import param_leaves
+    from repro_torch.train import make_dp_compressed_step
+
+    def snap(state):
+        return {f"{tree}.{n}": t.detach().clone().numpy()
+                for tree, obj in (("params", state.params),
+                                  ("m", state.opt.m), ("v", state.opt.v))
+                for n, t in param_leaves(obj)}
+
+    api, cfg, run, state, plan = _dp_setup(rank, spec)
+    out = {k: {} for k in ("words", "loss", "fb", "params")}
+    n = spec["steps"]
+    state = _dp_steps(make_dp_compressed_step(api, cfg, run, plan=plan),
+                      state, spec, 0, n, out)
+    ckpt.save(spec["ckpt"], n, state, world=world)
+    out["saved"] = snap(state)
+    group = remesh(range(world), dp=spec["resume_world"])
+    out["standby"] = group is None
+    if group is None:
+        return out
+    with torch.no_grad():
+        for _, t in ckpt.state_tensors(state).items():
+            t.zero_()
+    state.step, state.opt.count = 0, 0
+    state, step, _ = elastic_restore(spec["ckpt"], state, group=group)
+    out["restored"] = snap(state)
+    out["restored_step"] = (step, state.step, state.opt.count)
+    out["restored_fb"] = {n: t.clone().numpy()
+                          for n, t in param_leaves(state.error_fb)}
+    _dp_steps(make_dp_compressed_step(api, cfg, run, plan=plan, group=group),
+              state, spec, n, n + spec["steps_after"], out)
+    return out
+
+
+def dp_ckpt_worker(rank, world, spec):
+    """The DP checkpoint cases at this world, on reduced llama3-8b:
+    (a) save -> restore into another state, each rank its own buffers;
+    (b) a step whose rank-1 file is gone is torn; (c) a fault inside the
+    exchange of step 3 on every rank, after checkpoint 2, against the run
+    that never failed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import get_api, param_leaves
+    from repro_torch.parallel import grad_compress as gc
+    from repro_torch.plan import plan_train_compression
+    from repro_torch.train import (init_state, make_dp_compressed_step,
+                                   train_loop)
+
+    cfg = get_config("llama3-8b").reduced()
+    api = get_api(cfg)
+    plan = plan_train_compression(api.init(0, cfg, "meta"), rank=4,
+                                  P=world)
+    dec = plan.decision_tree()
+
+    def bits(state):
+        named = ckpt.state_tensors(state)
+        return {k: t.detach().clone() for k, t in named.items()}
+
+    def same(a, b):
+        return sorted(a) == sorted(b) and all(
+            torch.equal(a[k], b[k]) for k in a)
+
+    out = {}
+    # (a) each worker's own buffers, and the world recorded
+    run = RunConfig(grad_compress_rank=4)
+    a = init_state(api, cfg, run, 0, "cpu", decisions=dec)
+    g = torch.Generator().manual_seed(100 + rank)
+    with torch.no_grad():
+        for _, e in param_leaves(a.error_fb):
+            e.copy_(torch.randn(e.shape, generator=g))
+    a.step, a.opt.count = 7, 7
+    d = spec["dirs"]["a"]
+    ckpt.save(d, 7, a, extra={"data": {"step": 7, "seed": 0}}, world=world)
+    b = init_state(api, cfg, run, 1, "cpu", decisions=dec)
+    b, step, extra = ckpt.restore(d, b, world=world)
+    try:
+        ckpt.restore(d, b)
+    except ValueError as e:
+        out["one_worker_error"] = str(e)
+    out["a"] = {"same": same(bits(a), bits(b)), "step": (step, b.step,
+                                                        b.opt.count),
+                "extra": extra, "files": sorted(os.listdir(
+                    os.path.join(d, "step_00000007"))),
+                "fb": {n: t.numpy() for n, t in param_leaves(b.error_fb)}}
+    # (b) a step missing one rank file is torn
+    d = spec["dirs"]["b"]
+    for s in (2, 3):
+        ckpt.save(d, s, a, world=world)
+    if rank == 0:
+        os.remove(os.path.join(d, "step_00000003", ckpt.rank_file(1)))
+    dist.barrier()
+    out["b"] = {"latest": ckpt.latest_step(d), "torn": ckpt.torn_steps(d)}
+    try:
+        ckpt.restore(d, b, step=3, world=world)
+    except ckpt.TornCheckpointError as e:
+        out["b"]["error"] = str(e)
+    dist.barrier()
+
+    # (c) a fault inside step 3 on every rank resumes bitwise
+    def loop(path, fail_at):
+        run = RunConfig(steps=4, learning_rate=3e-3, warmup_steps=1,
+                        checkpoint_every=2, checkpoint_dir=path,
+                        grad_compress_rank=4)
+        state = init_state(api, cfg, run, 0, "cpu", decisions=dec)
+        right, calls = gc.gemm_block, [0]
+
+        def faulty(*args, **kw):
+            calls[0] += 1
+            if calls[0] == 3 * plan.n_compressed * fail_at + 4:
+                raise RuntimeError("injected fault inside the exchange")
+            return right(*args, **kw)
+        gc.gemm_block = faulty if fail_at is not None else right
+        try:
+            res = train_loop(make_dp_compressed_step(api, cfg, run,
+                                                     plan=plan),
+                             state, DataConfig(cfg.vocab, 16, 4, seed=1),
+                             run, device="cpu")
+        finally:
+            gc.gemm_block = right
+        return res
+
+    want = loop(spec["dirs"]["clean"], None)
+    got = loop(spec["dirs"]["broken"], 3)
+    out["c"] = {"restarts": (got.restarts, want.restarts),
+                "losses": (got.losses, want.losses),
+                "steps": (got.state.step, want.state.step,
+                          got.state.opt.count, want.state.opt.count),
+                "same": same(bits(got.state), bits(want.state)),
+                "checkpoints": (got.checkpoints, want.checkpoints)}
+    out["c"]["fb_nonzero"] = any(
+        float(np.abs(t.numpy()).max()) > 0
+        for _, t in param_leaves(got.state.error_fb))
     return out
