@@ -467,6 +467,32 @@ and data-parallel training across ranks (``repro_torch.launch.elastic``):
                   both exit 0, rank 0's checkpoint holding both rank
                   files; the phase under 240 s.
 
+and LM serving of the dense family (``repro_torch.serve.engine``):
+
+ 23. lm-serve   — gemma2-2b at its published size, no depth cut (26
+                  layers, d_model 2304, 8 heads, kv 4, head_dim 256, d_ff
+                  9216, vocab 256000, bf16; 2,614,341,888 params, random
+                  weights from seed 0): (a) ``prefill`` of 4 x 1024
+                  tokens with max_len 1280 and 64 greedy ``decode_step``s,
+                  every logit finite; prefill ms and decode-step ms
+                  (CUDA events), tokens/s, ``max_memory_allocated``, the
+                  card's idle share over 8 profiled decode steps, and one
+                  step's counted bytes and FLOPs (``analyze_call``)
+                  beside the bytes it must move and its time; (b) a
+                  4200-token prompt, past the 4096 window, so the even
+                  layers' caches are rings: prefill with max_len 4224,
+                  then 16 teacher-forced decode steps held against
+                  ``lm_hidden`` plus the head (bf16 within
+                  LM_RING_TOL_BF16; the same in float32 within
+                  LM_RING_TOL, where every step with the rings rolled by
+                  one slot must miss that limit); (c) ``python -m
+                  repro_torch.launch.serve --workload lm --arch gemma2-2b
+                  --full`` (6 requests, 4 slots, 16 new tokens, max_len
+                  128) as a subprocess, exit 0, its tokens/s; the phase
+                  under 120 s.  No kernel of the port runs here: the
+                  reference computes attention and the LM's products
+                  outside any Pallas kernel.
+
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and the exit code is non-zero; without a CUDA card it exits 1 and prints no
@@ -553,6 +579,27 @@ SWEEP_PATH = ROOT / "build" / "repro_torch" / "cost_sweep.json"
 SERVE_ARGS = ["--workload", "sketch", "--streams", "128", "--updates", "4",
               "--n1", str(S_N1), "--n2", str(S_N2), "--r", str(S_R),
               "--max-rows", str(S_KMAX), "--window", "64", "--depth", "256"]
+# phase 23: LM serving of gemma2-2b at its published size, no depth cut
+LM_ARCH = "gemma2-2b"
+LM_REDUCED = False                       # the reduced config (a CPU rehearsal)
+LM_BATCH, LM_PROMPT, LM_MAX_LEN = 4, 1024, 1280          # (a)
+LM_DECODE, LM_PROFILED = 64, 8           # (a): decode steps; profiled steps
+LM_RING_PROMPT, LM_RING_MAX_LEN, LM_RING_STEPS = 4200, 4224, 16   # (b)
+# (b)'s limits, relative Frobenius of the logits against the forward pass,
+# set from two readings on an H100 (NVIDIA H100 80GB HBM3, 700 W): in
+# bfloat16 decode missed the forward by 1.818e-2 (worst step 1.913e-2),
+# since the forward stores its scores and probabilities in bf16 and decode
+# keeps them in f32, while rings rolled by one slot missed by 2.492e-2
+# (best step 1.926e-2): the two cannot be told apart there.  In float32
+# decode missed by 2.545e-6 (worst step 2.639e-6) and the rolled rings by
+# 1.662e-2 (best step 6.011e-3), so the float32 limit refuses every
+# rolled step with a margin of 60 and passes decode with one of 38.
+LM_RING_TOL_BF16 = 3e-2
+LM_RING_TOL = 1e-4
+LM_SECONDS = 120                         # the phase's time limit
+LM_LAUNCHER = ["--workload", "lm", "--arch", LM_ARCH, "--full",
+               "--requests", "6", "--slots", "4", "--max-new", "16",
+               "--max-len", "128"]
 
 
 class SmokeFailure(RuntimeError):
@@ -1506,26 +1553,33 @@ def phase_training(dev, LAUNCHES, reset_launches):
     return counts, train_row
 
 
-def profile_step(step, state, batch):
-    """One more training step under torch.profiler: device time by kernel
-    and the card's idle share inside the step's ``train.profiled_step``
-    range (the profiler's own host cost included)."""
+def profiled(fn, mark: str):
+    """``fn()`` once under torch.profiler inside a ``mark`` range, ended
+    by a synchronize: the device events and the range's start and end
+    (us)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    mark = "train.profiled_step"
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function(mark):
-            step(state, batch)
+            fn()
             torch.cuda.synchronize()
     evs = prof.events()
     dev = [e for e in evs
            if e.device_type == DeviceType.CUDA and e.name != mark]
     wins = [e.time_range for e in evs
             if e.name == mark and e.device_type == DeviceType.CPU]
-    check(bool(dev) and bool(wins), "the profiled step has no device events")
-    w0, w1 = wins[0].start, wins[0].end
+    check(bool(dev) and bool(wins), f"the profiled {mark} has no device "
+                                    f"events")
+    return dev, wins[0].start, wins[0].end
+
+
+def profile_step(step, state, batch):
+    """One more training step under torch.profiler: device time by kernel
+    and the card's idle share inside the step's ``train.profiled_step``
+    range (the profiler's own host cost included)."""
+    dev, w0, w1 = profiled(lambda: step(state, batch), "train.profiled_step")
     busy = device_busy_us(dev, w0, w1)
     by_name = {}
     for e in dev:
@@ -5308,6 +5362,252 @@ def phase_dp_train(card: str) -> dict:
             "launcher_s": launcher_s, "seconds": seconds, "card": card}
 
 
+# -- phase 23: LM serving (dense family) at gemma2-2b's published size -------
+
+def lm_decode_profile(api, params, cfg, tok, caches, pos: int) -> dict:
+    """LM_PROFILED decode steps under torch.profiler: the card's idle
+    share inside the ``lm.decode_window`` range, and its device events a
+    step."""
+    def steps():
+        nonlocal tok, caches
+        for i in range(LM_PROFILED):
+            logits, caches = api.decode_step(params, cfg, tok, caches,
+                                             pos + i)
+            tok = logits.argmax(-1)
+    dev, w0, w1 = profiled(steps, "lm.decode_window")
+    busy = device_busy_us(dev, w0, w1)
+    inside = [e for e in dev if w0 <= e.time_range.start <= w1]
+    return {"window_ms": (w1 - w0) * 1e-3, "busy_ms": busy * 1e-3,
+            "idle_share": 1.0 - busy / (w1 - w0),
+            "device_events_a_step": len(inside) / LM_PROFILED}
+
+
+def lm_prefill_decode(dev, api, params, cfg, n_params: int, card: str):
+    """Phase 23 (a): prefill LM_BATCH x LM_PROMPT (max_len LM_MAX_LEN),
+    then LM_DECODE greedy decode steps, each timed by CUDA events; every
+    logit finite; a decode step's counted bytes (``analyze_call``) beside
+    the bytes it must move and its time."""
+    import types
+
+    from repro_torch.models import model_flops, param_leaves
+    from repro_torch.roofline import analyze_call, h100_rates
+    g = np.random.default_rng(0)
+    toks = torch.from_numpy(g.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT))
+                            ).to(dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = time_ms(lambda: api.prefill(params, cfg, toks,
+                                             max_len=LM_MAX_LEN))
+    logits, caches = api.prefill(params, cfg, toks, max_len=LM_MAX_LEN)
+    finite = torch.isfinite(logits).all()
+    tok = logits.argmax(-1)
+    marks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, caches = api.decode_step(params, cfg, tok, caches,
+                                         LM_PROMPT + i)
+        end.record()
+        marks.append((start, end))
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(finite), "phase 23 (a): a logit is not finite")
+    check(tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab),
+          f"phase 23 (a): logits {tuple(logits.shape)}")
+    step_ms = [s.elapsed_time(e) for s, e in marks]
+    decode_ms = statistics.median(step_ms[1:6])
+    steady_ms = statistics.median(step_ms[1:])
+    pos = LM_PROMPT + LM_DECODE
+    prof = lm_decode_profile(api, params, cfg, tok, caches, pos)
+    pos += LM_PROFILED
+    shape = types.SimpleNamespace(global_batch=LM_BATCH, seq_len=LM_MAX_LEN,
+                                  kind="decode")
+    terms = analyze_call("decode step", lambda: api.decode_step(
+        params, cfg, tok, caches, pos), model_flops=model_flops(
+        cfg, shape, n_params), device=dev)
+    # what a step must move: every weight and every cache read once, the
+    # new K/V rows and the logits written once
+    must = (sum(t.numel() * t.element_size()
+                for _, t in param_leaves(params))
+            + sum(c[kv].numel() * c[kv].element_size()
+                  for c in caches for kv in c)
+            + logits.numel() * logits.element_size())
+    must_ms = must / h100_rates().hbm_bw * 1e3
+    out = {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+           "decode_steady_ms": steady_ms,
+           "decode_ms_range": [min(step_ms[1:]), max(step_ms[1:])],
+           "tokens_per_s": LM_BATCH / decode_ms * 1e3,
+           "loop_tokens_per_s": LM_BATCH * LM_DECODE / loop_s,
+           "peak_gib": peak / 2 ** 30, "held_gib": held / 2 ** 30, **prof,
+           "counted_bytes": terms.hlo_bytes, "counted_flops": terms.hlo_flops,
+           "t_memory_ms": terms.t_memory * 1e3,
+           "t_bound_ms": terms.t_bound * 1e3, "bottleneck": terms.bottleneck,
+           "must_move_bytes": must, "must_move_ms": must_ms}
+    print(f"[lm-serve] (a) {cfg.name}, {n_params} params: prefill "
+          f"{LM_BATCH}x{LM_PROMPT} (max_len {LM_MAX_LEN}) {prefill_ms:.3f} "
+          f"ms (CUDA events, median of 5 after a warm-up, "
+          f"{LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.1f} prompt tokens/s); "
+          f"decode step {decode_ms:.3f} ms (median of steps 2-6), "
+          f"{steady_ms:.3f} ms (median of steps 2-{LM_DECODE}; range "
+          f"{out['decode_ms_range'][0]:.3f}-{out['decode_ms_range'][1]:.3f}"
+          f"), {out['tokens_per_s']:.1f} tokens/s at batch {LM_BATCH} "
+          f"({out['loop_tokens_per_s']:.1f} over the {LM_DECODE}-step loop "
+          f"on the host clock); peak memory {out['peak_gib']:.2f} GiB "
+          f"(max_memory_allocated; {out['held_gib']:.2f} GiB held before "
+          f"the prefill, the weights included); every logit finite "
+          f"({card})")
+    print(f"[lm-serve] (a) profiled decode window ({LM_PROFILED} steps): "
+          f"{prof['window_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} "
+          f"ms, idle share {prof['idle_share']:.3f}, "
+          f"{prof['device_events_a_step']:.0f} device events a step")
+    print(f"[lm-serve] (a) one decode step counted: {terms.hlo_bytes:.4e} "
+          f"device bytes, {terms.hlo_flops:.4e} FLOPs, bound "
+          f"{terms.t_bound * 1e3:.3f} ms by {terms.bottleneck}; must move "
+          f"{must:.4e} bytes (weights, caches, logits once): "
+          f"{must_ms:.3f} ms at {h100_rates().hbm_bw / 1e12:.2f} TB/s, "
+          f"{must_ms / decode_ms:.4f} of the measured {decode_ms:.3f} ms")
+    return out
+
+
+def lm_ring_handoff(dev, api, params, cfg, tol: float, card: str) -> dict:
+    """Phase 23 (b), in ``cfg.dtype``: one LM_RING_PROMPT-token prompt,
+    past the window, so the windowed layers' caches are rings; prefill
+    (max_len LM_RING_MAX_LEN), then LM_RING_STEPS teacher-forced decode
+    steps, every step's logits within ``tol`` (relative Frobenius) of
+    ``lm_hidden`` plus the head over the same tokens; the same steps with
+    every ring rolled by one slot (the newest prompt key overwritten
+    first) are reported beside them."""
+    from repro_torch.models import lm_hidden
+    from repro_torch.models.common import matmul, softcap
+    g = np.random.default_rng(1)
+    P, n = LM_RING_PROMPT, LM_RING_STEPS
+    toks = torch.from_numpy(g.integers(0, cfg.vocab, (1, P + n))).to(dev)
+    first, caches = api.prefill(params, cfg, toks[:, :P],
+                                max_len=LM_RING_MAX_LEN)
+    windows = cfg.layer_windows(LM_RING_MAX_LEN)
+    lens = [c["k"].shape[1] for c in caches]
+    check(lens == [min(w, LM_RING_MAX_LEN) for w in windows] and
+          min(lens) < P, f"phase 23 (b): cache lengths {lens}")
+    control = [{kv: (torch.roll(c[kv], 1, dims=1) if c[kv].shape[1] < P
+                     else c[kv].clone()) for kv in c} for c in caches]
+    real, ctrl = [], []
+    for t in range(P, P + n):
+        logits, caches = api.decode_step(params, cfg, toks[:, t:t + 1],
+                                         caches, t)
+        real.append(logits[:, 0])
+        logits, control = api.decode_step(params, cfg, toks[:, t:t + 1],
+                                          control, t)
+        ctrl.append(logits[:, 0])
+    with torch.inference_mode():
+        h, _ = lm_hidden(params, cfg, toks, remat=False)
+        W = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        ref = softcap(matmul(h[:, P - 1:], W.T), cfg.final_softcap)[0]
+    real, ctrl = torch.cat(real), torch.cat(ctrl)
+    out = {"dtype": cfg.dtype, "prefill_err": rel_fro(first[0, 0], ref[0]),
+           "err": rel_fro(real, ref[1:]),
+           "step_err_max": max(rel_fro(real[i], ref[1 + i])
+                               for i in range(n)),
+           "control_err": rel_fro(ctrl, ref[1:]),
+           "control_step_err_min": min(rel_fro(ctrl[i], ref[1 + i])
+                                       for i in range(n)),
+           "tol": tol, "ring_lens": sorted(set(lens))}
+    print(f"[lm-serve] (b) {cfg.dtype}: ring hand-off at {P} + {n} tokens "
+          f"(rings of {min(lens)}, full caches of {max(lens)}): relative "
+          f"Frobenius against lm_hidden + head: prefill's last logits "
+          f"{out['prefill_err']:.3e}, the {n} decode steps {out['err']:.3e} "
+          f"(worst step {out['step_err_max']:.3e}); rings rolled by one "
+          f"slot {out['control_err']:.3e} (best step "
+          f"{out['control_step_err_min']:.3e}); limit {tol} ({card})")
+    check(out["prefill_err"] <= tol and out["step_err_max"] <= tol,
+          f"phase 23 (b): {cfg.dtype} prefill or decode after the ring "
+          f"hand-off misses the forward: {out['prefill_err']:.3e}, "
+          f"{out['step_err_max']:.3e} > {tol}")
+    return out
+
+
+def _to_float32(tree):
+    if isinstance(tree, dict):
+        return {k: _to_float32(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def phase_lm_launcher() -> dict:
+    """Phase 23 (c): ``python -m repro_torch.launch.serve --workload lm``
+    at gemma2-2b's published size as a subprocess: exit 0, its
+    ``[serve]`` line and tokens/s."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + (
+        os.pathsep + os.environ["PYTHONPATH"]
+        if os.environ.get("PYTHONPATH") else ""))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          *LM_LAUNCHER], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"phase 23 (c): the launcher exited "
+                               f"{out.returncode}:\n{out.stdout[-3000:]}\n"
+                               f"{out.stderr[-3000:]}")
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("[serve]")]
+    found = re.search(r"([0-9.]+) tokens/s", lines[-1]) if lines else None
+    check(found is not None, f"phase 23 (c): no [serve] line with "
+                             f"tokens/s:\n{out.stdout[-3000:]}")
+    print(f"[lm-serve] (c) {' '.join(LM_LAUNCHER)}: exit 0 in {wall:.1f} s "
+          f"(process included); {lines[-1]}")
+    return {"line": lines[-1], "tokens_per_s": float(found.group(1)),
+            "wall_s": wall}
+
+
+def phase_lm_serve(dev, card: str) -> dict:
+    """Phase 23: (a) prefill and decode, (b) the ring hand-off, (c) the
+    launcher, at gemma2-2b's published size on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_api, param_leaves
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    if LM_REDUCED:
+        cfg = cfg.reduced()
+    api = get_api(cfg)
+    params = api.init(0, cfg, dev)
+    n_params = sum(t.numel() for _, t in param_leaves(params))
+    check(LM_REDUCED or n_params == 2_614_341_888,
+          f"phase 23: {n_params} parameters")
+    print(f"[lm-serve] {cfg.name}: {n_params} parameters ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads, kv "
+          f"{cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}), random weights from seed 0, "
+          f"on the card in {time.perf_counter() - t0:.1f} s")
+    a = lm_prefill_decode(dev, api, params, cfg, n_params, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = [lm_ring_handoff(dev, api, params, cfg, LM_RING_TOL_BF16, card)]
+    # in bf16 the forward's bf16 scores miss decode's f32 ones by about as
+    # much as a ring rolled by one slot moves the logits; in float32 the
+    # two paths differ only by the order of their sums, so the control is
+    # held there
+    params = _to_float32(params)
+    b.append(lm_ring_handoff(dev, api, params,
+                             dataclasses.replace(cfg, dtype="float32"),
+                             LM_RING_TOL, card))
+    check(b[1]["control_step_err_min"] > LM_RING_TOL,
+          f"phase 23 (b): a step with the rings rolled by one slot is within "
+          f"the limit: {b[1]['control_step_err_min']:.3e} <= {LM_RING_TOL}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = phase_lm_launcher()
+    seconds = time.perf_counter() - t0
+    check(seconds < LM_SECONDS, f"phase 23 took {seconds:.1f} s, not under "
+                                f"{LM_SECONDS} s")
+    return {"a": a, "b": b, "c": c, "seconds": seconds, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5727,6 +6027,14 @@ def main() -> int:
     print("[dp-train] summary " + json.dumps(dp, default=str))
     print(f"[phases] 22 done at {time.perf_counter() - t_start:.1f} s "
           f"(phase 22: {dp['seconds']:.1f} s; {card})")
+
+    # -- 23. LM serving of gemma2-2b at its published size --------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = phase_lm_serve(dev, card)
+    print("[lm-serve] summary " + json.dumps(lm, default=str))
+    print(f"[phases] 23 done at {time.perf_counter() - t_start:.1f} s "
+          f"(phase 23: {lm['seconds']:.1f} s; {card})")
 
     total = [sum(gemm_times[c][i] for c in "abc") for i in range(3)]
     bound3 = sum(gemm_times[c][3][0] for c in "abc")

@@ -1,9 +1,20 @@
 """Serving driver of the port: multi-tenant sketch ingest (shape-bucketed
-ragged batching behind the bounded async queue) on one card, and the
-chaos drills of the recovery layer.
+ragged batching behind the bounded async queue) on one card, LM decoding
+of the dense family (continuous-batching-lite), and the chaos drills of
+the recovery layer.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload sketch \
       --streams 64 --updates 4 --n1 1024 --n2 512 --r 32
+
+LM decoding (``--arch`` of the dense family, the reduced config unless
+``--full``; random weights from seed 0):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \
+      --arch gemma2-2b --full --requests 6 --slots 4 --max-new 16
+
+``--workload`` defaults to ``sketch``, not to ``lm`` as in the
+reference's launcher: the port's sketch workload came first and its
+callers run it without the flag.
 
 Chaos drills (``stream/faults.py``): inject a named failure into the
 serving stack and check the recovery end to end — kill-worker (WAL
@@ -20,8 +31,6 @@ runs the plain torch path.  ``--metrics`` dumps the Prometheus text of the
 metrics registry after the run, ``--trace-out FILE`` installs the tracer
 and the comm ledger (``obs.install_observability``), writes a
 Chrome/Perfetto trace of the run and prints the ledger's honesty report.
-
-The reference's LM workload is not ported yet (ROADMAP item 11).
 """
 from __future__ import annotations
 
@@ -119,6 +128,34 @@ def run_sketch(args):
     return st
 
 
+def run_lm(args):
+    """Serve ``args.requests`` greedy requests (prompts ``[2 + i, 5, 7]``)
+    on ``args.slots`` slots through :class:`BatchedServer`; prints the
+    wall and the generated tokens a second, returns the server."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_api
+    from repro_torch.serve.engine import BatchedServer, Request
+
+    cfg = get_config(args.arch)
+    if not args.full:
+        cfg = cfg.reduced()
+    params = get_api(cfg).init(0, cfg, args.device)
+    server = BatchedServer(params, cfg, slots=args.slots,
+                           max_len=args.max_len, eos=-1)
+    reqs = [Request(rid=i, prompt=[2 + i, 5, 7], max_new=args.max_new)
+            for i in range(args.requests)]
+    for req in reqs:
+        server.submit(req)
+    t0 = time.perf_counter()
+    server.run()
+    dt = time.perf_counter() - t0
+    tokens = sum(len(r.out) for r in reqs)
+    print(f"[serve] {args.requests} requests on {args.slots} slots in "
+          f"{dt:.1f}s — {tokens} tokens, {tokens / dt:.1f} tokens/s "
+          f"({cfg.name}, {server.device})")
+    return server
+
+
 def run_chaos(args):
     """Run one drill, or all of them, on ``args.device``; print each
     verdict, and exit 1 if any drill failed to recover."""
@@ -143,14 +180,24 @@ def run_chaos(args):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
-        description="Serve many concurrent sketch streams on one card.")
-    ap.add_argument("--workload", choices=("sketch",), default="sketch")
+        description="Serve many concurrent sketch streams, or LM "
+                    "requests, on one card.")
+    ap.add_argument("--workload", choices=("sketch", "lm"), default="sketch")
     ap.add_argument("--chaos", metavar="SCENARIO", default=None,
                     help="run a stream/faults.py chaos drill instead of "
                          "the workload: kill-worker | torn-write | "
                          "shrink-restore | eviction-storm | all")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    # lm
+    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--full", action="store_true",
+                    help="the published config, not the reduced one")
+    # sketch
     ap.add_argument("--streams", type=int, default=64)
     ap.add_argument("--updates", type=int, default=4,
                     help="updates per stream")
@@ -179,7 +226,11 @@ def main(argv=None):
     if tracing:
         tracer, ledger, _ = obs.install_observability()
     try:
-        out = run_chaos(args) if args.chaos is not None else run_sketch(args)
+        if args.chaos is not None:
+            out = run_chaos(args)
+        else:
+            out = (run_lm(args) if args.workload == "lm"
+                   else run_sketch(args))
     finally:
         if tracing:
             tracer.export_chrome(args.trace_out)

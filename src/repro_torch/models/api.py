@@ -2,6 +2,14 @@
 the dense family, the parameter leaf order of the reference, and the
 useful FLOPs of a step (``model_flops``, ``count_params_split``,
 ``count_active_params``).
+
+The dense family exposes:
+  init(seed, cfg, device) -> params
+  loss(params, cfg, batch, remat=) -> scalar
+  init_cache(cfg, batch, max_len, dtype=None, device=None) -> caches
+  decode_step(params, cfg, token, caches, pos) -> (logits, caches)
+  prefill(params, cfg, tokens, remat=, kv_chunk=, max_len=)
+      -> (last-position logits, caches)
 """
 from __future__ import annotations
 
@@ -17,11 +25,16 @@ from . import transformer
 
 @dataclass(frozen=True)
 class ModelAPI:
-    init: Callable        # (seed, cfg, device) -> params
-    loss: Callable        # (params, cfg, batch, remat=) -> scalar
+    init: Callable
+    loss: Callable
+    init_cache: Callable
+    decode_step: Callable
+    prefill: Optional[Callable] = None
 
 
-_FAMILIES = {"dense": ModelAPI(transformer.lm_init, transformer.lm_loss)}
+_FAMILIES = {"dense": ModelAPI(transformer.lm_init, transformer.lm_loss,
+                               transformer.init_cache,
+                               transformer.decode_step, transformer.prefill)}
 
 
 def get_api(cfg: ModelConfig) -> ModelAPI:

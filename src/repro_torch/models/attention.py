@@ -1,11 +1,11 @@
-"""Attention for training (the reference's ``models/attention.py``):
-GQA with a chunked online softmax over KV chunks, sliding windows and the
-gemma-2 score softcap.  No kernel here: the reference computes attention
-outside any Pallas kernel, and so does the port, with plain torch ops that
-compute the same function (masks and softcap included).
+"""Attention (the reference's ``models/attention.py``): GQA with a
+chunked online softmax over KV chunks, sliding windows and the gemma-2
+score softcap for training and prefill, and one-token decode against a KV
+cache (``attention_decode``).  No kernel here: the reference computes
+attention outside any Pallas kernel, and so does the port, with plain
+torch ops that compute the same function (masks and softcap included).
 
-Decode against a KV cache and ``nystrom_attention`` are not on the
-training path and are not ported yet.
+``nystrom_attention`` is not ported yet (ROADMAP.md item 11d).
 """
 from __future__ import annotations
 
@@ -108,8 +108,11 @@ def attention(params: AttnParams, x: torch.Tensor, *, n_heads: int,
               n_kv_heads: int, head_dim: int,
               positions: Optional[torch.Tensor] = None, causal: bool = True,
               window: Optional[int] = None, attn_softcap: float = 0.0,
-              rope_theta: float = 1e4, kv_chunk: int = 1024) -> torch.Tensor:
-    """Self-attention layer over (B, S, d)."""
+              rope_theta: float = 1e4, kv_chunk: int = 1024,
+              return_kv: bool = False):
+    """Self-attention layer over (B, S, d).  With ``return_kv`` it returns
+    ``(y, k, v)``: the rotated keys and the values (B, S, Hk, D) it
+    attended over, which prefill lays into the decode cache."""
     B, S, _ = x.shape
     Hq, Hk, D = n_heads, n_kv_heads, head_dim
     G = Hq // Hk
@@ -123,4 +126,57 @@ def attention(params: AttnParams, x: torch.Tensor, *, n_heads: int,
     out = chunked_attention(q, k, v, positions, positions, causal=causal,
                             window=window, attn_softcap=attn_softcap,
                             kv_chunk=kv_chunk)
-    return matmul(out.reshape(B, S, Hq * D), params.wo)
+    y = matmul(out.reshape(B, S, Hq * D), params.wo)
+    return (y, k, v) if return_kv else y
+
+
+def attention_decode(params: AttnParams, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos, *,
+                     n_heads: int, n_kv_heads: int, head_dim: int,
+                     window: Optional[int] = None, attn_softcap: float = 0.0,
+                     rope_theta: float = 1e4):
+    """One-token decode.  x: (B, 1, d); cache_k / cache_v: (B, T, Hk, D),
+    a ring when ``window`` is set (slot ``pos % T``), else slot ``pos``
+    clamped to ``T - 1`` as the reference's ``dynamic_update_slice``
+    clamps a start past the end.  ``pos``: the new token's absolute
+    position (an int or a 0-d tensor).
+
+    The new K/V are written into the caches in place; returns
+    ``(y, cache_k, cache_v)``.  Scores and probabilities are float32 (q
+    upcast and divided by sqrt(D), the cache upcast; softcap, then -inf
+    where invalid, then softmax), unlike ``chunked_attention``'s bf16
+    score storage: the reference's decode does the same.
+    """
+    B = x.shape[0]
+    Hq, Hk, D = n_heads, n_kv_heads, head_dim
+    G = Hq // Hk
+    T = cache_k.shape[1]
+    pos = int(pos)
+    posv = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+    q = apply_rope(matmul(x, params.wq).reshape(B, 1, Hq, D), posv,
+                   rope_theta).reshape(B, 1, Hk, G, D)
+    k = apply_rope(matmul(x, params.wk).reshape(B, 1, Hk, D), posv,
+                   rope_theta)
+    v = matmul(x, params.wv).reshape(B, 1, Hk, D)
+
+    slot = pos % T if window is not None else min(max(pos, 0), T - 1)
+    cache_k[:, slot].copy_(k[:, 0])
+    cache_v[:, slot].copy_(v[:, 0])
+
+    # the absolute position each slot holds: for a ring, the largest
+    # value <= pos congruent to the slot mod T
+    idx = torch.arange(T, dtype=torch.int64, device=x.device)
+    k_pos = pos - torch.remainder(pos - idx, T) if window is not None else idx
+    valid = (k_pos <= pos) & (k_pos >= 0)
+    if window is not None:
+        valid &= (pos - k_pos) < window
+
+    qf = q.float() / math.sqrt(D)
+    s = torch.einsum("bshgd,bchd->bshgc", qf, cache_k.float())
+    if attn_softcap:
+        s = torch.tanh(s / attn_softcap) * attn_softcap
+    s = s.masked_fill(~valid, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bshgc,bchd->bshgd", p, cache_v.float())
+    y = matmul(out.reshape(B, 1, Hq * D).to(x.dtype), params.wo)
+    return y, cache_k, cache_v

@@ -1,5 +1,5 @@
 """Decoder-only LM of the dense family (llama3, internlm2, h2o-danube3,
-gemma2): the training half of the reference's ``models/transformer.py``.
+gemma2): the reference's ``models/transformer.py``, training and serving.
 
 Per-layer weights stay stacked along a leading L axis, exactly as the
 reference's ``lm_init`` stacks them: the gradient exchange folds a leaf to
@@ -8,21 +8,26 @@ matrices, other decisions and other Omega keys.  The layer loop indexes
 the stacks, and each block runs under ``torch.utils.checkpoint`` when
 ``remat`` is set (the reference's ``jax.checkpoint``).
 
-Prefill and decode are not on the training path and are not ported yet.
+Serving (``init_cache``, ``prefill``, ``decode_step``) keeps per-layer
+caches: a full layer's is ``max_len`` long (slot == position), a windowed
+layer's is a ring of ``min(window, max_len)`` slots (slot == position mod
+its length).  ``decode_step`` unrolls the layers in Python, as the
+reference does, so ring and full caches coexist; it writes the caches in
+place.  Both run under ``torch.inference_mode``.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import FULL_WINDOW, ModelConfig
 from repro_torch.core.rng import resolve_device
-from .attention import AttnParams, attn_init, attention
+from .attention import AttnParams, attn_init, attention, attention_decode
 from .common import (cross_entropy_chunked, embed_init, layernorm,
-                     layernorm_init, matmul, rmsnorm, rmsnorm_init)
+                     layernorm_init, matmul, rmsnorm, rmsnorm_init, softcap)
 from .ffn import FFNParams, ffn, ffn_init
 
 
@@ -89,17 +94,17 @@ def _unbind(tree):
     return tree.unbind(0)
 
 
-def _block_apply(cfg: ModelConfig, blk, h, window: int,
-                 positions: torch.Tensor, kv_chunk: int):
-    a_in = _norm_apply(cfg, blk["ln_attn"], h)
-    a = attention(AttnParams(**blk["attn"]), a_in, n_heads=cfg.n_heads,
-                  n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                  positions=positions, causal=True, window=window,
-                  attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
-                  kv_chunk=kv_chunk)
-    if cfg.use_post_norms:
-        a = _norm_apply(cfg, blk["ln_attn_post"], a)
-    h = h + a
+def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor):
+    h = params["embed"][tokens]
+    if cfg.embed_scale:
+        # sqrt(d) rounded to the activation dtype first, as the reference's
+        # jnp.asarray(sqrt(d), h.dtype); a Python scalar needs no copy to
+        # the card
+        h = h * float(torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype))
+    return h
+
+
+def _ffn_residual(cfg: ModelConfig, blk, h):
     f = ffn(FFNParams(**blk["ffn"]), _norm_apply(cfg, blk["ln_ffn"], h),
             activation=cfg.activation)
     if cfg.use_post_norms:
@@ -107,15 +112,29 @@ def _block_apply(cfg: ModelConfig, blk, h, window: int,
     return h + f
 
 
+def _block_apply(cfg: ModelConfig, blk, h, window: int,
+                 positions: torch.Tensor, kv_chunk: int,
+                 return_kv: bool = False):
+    a_in = _norm_apply(cfg, blk["ln_attn"], h)
+    a = attention(AttnParams(**blk["attn"]), a_in, n_heads=cfg.n_heads,
+                  n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                  positions=positions, causal=True, window=window,
+                  attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
+                  kv_chunk=kv_chunk, return_kv=return_kv)
+    if return_kv:
+        a, k, v = a
+    if cfg.use_post_norms:
+        a = _norm_apply(cfg, blk["ln_attn_post"], a)
+    h = _ffn_residual(cfg, blk, h + a)
+    return (h, k, v) if return_kv else h
+
+
 def lm_hidden(params, cfg: ModelConfig, tokens: torch.Tensor, *,
               remat: bool = True, kv_chunk: int = 1024):
     """Token ids (B, S) -> (final hidden (B, S, d), aux loss 0)."""
     _check_family(cfg)
     S = tokens.shape[1]
-    h = params["embed"][tokens]
-    if cfg.embed_scale:
-        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
-                             device=h.device)
+    h = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(S, dtype=torch.int64, device=h.device)
     layers = _unbind(params["blocks"])
     for i, window in enumerate(cfg.layer_windows(S)):
@@ -139,4 +158,97 @@ def lm_loss(params, cfg: ModelConfig, batch, *,
                                 chunk=cfg.loss_chunk,
                                 final_softcap=cfg.final_softcap)
     return nll + cfg.router_aux_weight * aux
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode with per-layer caches
+# ---------------------------------------------------------------------------
+
+def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    W = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return softcap(matmul(h, W.T), cfg.final_softcap)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device=None) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer ``{"k", "v"}`` caches of (batch, L, Hk, D), zeros, with
+    ``L = min(window, max_len)``: windowed layers get ring buffers.
+    ``dtype=None``: the model's; ``device=None``: the card."""
+    _check_family(cfg)
+    dtype = dtype or cfg.torch_dtype
+    device = resolve_device(device)
+    caches = []
+    for w in cfg.layer_windows(max_len):
+        shape = (batch, min(w, max_len), cfg.n_kv_heads, cfg.head_dim)
+        caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)})
+    return caches
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, dtype=None):
+    """``init_cache``'s pytree on the ``meta`` device (shapes and dtypes,
+    nothing allocated)."""
+    return init_cache(cfg, batch, max_len, dtype, device="meta")
+
+
+@torch.inference_mode()
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches, pos):
+    """One decode step.  token: (B, 1) integer ids; ``pos``: the absolute
+    position of the new token (an int or a 0-d tensor).  Returns
+    ``(logits (B, 1, vocab), caches)``; the caches are written in place
+    and returned."""
+    _check_family(cfg)
+    h = _embed_tokens(params, cfg, token)
+    layers = _unbind(params["blocks"])
+    for l, w in enumerate(cfg.layer_windows(FULL_WINDOW)):
+        blk = _layer(layers, l)
+        a, ck, cv = attention_decode(
+            AttnParams(**blk["attn"]), _norm_apply(cfg, blk["ln_attn"], h),
+            caches[l]["k"], caches[l]["v"], pos, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            window=(w if w < FULL_WINDOW else None),
+            attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta)
+        caches[l] = {"k": ck, "v": cv}
+        if cfg.use_post_norms:
+            a = _norm_apply(cfg, blk["ln_attn_post"], a)
+        h = _ffn_residual(cfg, blk, h + a)
+    h = _norm_apply(cfg, params["ln_final"], h)
+    return _logits(params, cfg, h), caches
+
+
+@torch.inference_mode()
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            remat: bool = True, kv_chunk: int = 1024,
+            max_len: Optional[int] = None):
+    """Process a whole prompt (B, S); returns ``(last-position logits
+    (B, 1, vocab), caches)``.
+
+    The caches hold each layer's rotated K and its V, as the block's own
+    attention computed them (the reference projects them a second time:
+    the same ops on the same inputs, so the same bits).  A full layer's
+    cache is padded to ``max_len`` (slot == position); a windowed layer
+    whose ring of ``L = min(window, max_len)`` slots is shorter than S
+    keeps the last L positions rolled by S (slot == position mod L).
+    ``remat`` changes nothing without autograd; it is kept for the
+    reference's signature."""
+    _check_family(cfg)
+    B, S = tokens.shape
+    max_len = max_len or S
+    h = _embed_tokens(params, cfg, tokens)
+    positions = torch.arange(S, dtype=torch.int64, device=h.device)
+    layers = _unbind(params["blocks"])
+    caches = []
+    for l, w in enumerate(cfg.layer_windows(S)):
+        h, k, v = _block_apply(cfg, _layer(layers, l), h, w, positions,
+                               kv_chunk, return_kv=True)
+        L = min(w, max_len)
+        if L >= S:
+            pad = (0, 0, 0, 0, 0, L - S)
+            caches.append({"k": torch.nn.functional.pad(k, pad),
+                           "v": torch.nn.functional.pad(v, pad)})
+        else:
+            caches.append({"k": torch.roll(k[:, -L:], S, dims=1),
+                           "v": torch.roll(v[:, -L:], S, dims=1)})
+    h = _norm_apply(cfg, params["ln_final"], h[:, -1:])
+    return _logits(params, cfg, h), caches
 

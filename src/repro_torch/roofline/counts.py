@@ -345,6 +345,14 @@ class _OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if torch.is_inference_mode_enabled():
+            # without autograd a composite op (matmul, einsum, linear)
+            # reaches the mode whole: count the ops it decomposes into,
+            # as outside inference mode
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
         out = func(*args, **kwargs)
         if not getattr(_TLS, "depth", 0):
             flops, dtype, nbytes = _op_work(func, args, kwargs, out)

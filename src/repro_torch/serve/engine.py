@@ -1,16 +1,147 @@
-"""The sketch-serving entry points (the sketch half of the reference's
-``serve/engine.py``): a :class:`SketchService` on one card or over a grid
-of ranks, and the bounded async :class:`IngestQueue` in front of it."""
+"""The serving engine of the port (the reference's ``serve/engine.py``):
+the repo's two request-serving workloads behind one door.
+
+1. LM serving, dense family: ``serve_prefill`` / ``serve_decode_step``
+   and :class:`BatchedServer`, a fixed-slot batched scheduler
+   (continuous batching without paged memory), run under
+   ``torch.inference_mode``.
+2. Sketch serving: a :class:`SketchService` on one card or over a grid of
+   ranks, and the bounded async :class:`IngestQueue` in front of it.
+"""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
 
+import torch
+
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sketch import make_grid_groups
+from repro_torch.models import get_api, transformer
+from repro_torch.obs import trace as obs_trace
 from repro_torch.parallel.grad_compress import world_size
 from repro_torch.plan.model import choose_bucket_edges, probe_machine
 from repro_torch.plan.planner import Plan, plan_sketch
 from repro_torch.stream.ingest import IngestQueue
 from repro_torch.stream.service import SketchService
+
+# the roadmap item that ports each family the port lacks
+_NOT_PORTED = {"moe": "11b", "ssm": "11c", "hybrid": "11c",
+               "encdec": "11d", "vlm": "11d"}
+
+
+# ---------------------------------------------------------------------------
+# LM serving: prefill -> (last-position logits, decode cache)
+# ---------------------------------------------------------------------------
+
+def serve_prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
+                  max_len: Optional[int] = None, remat: bool = True):
+    """Process the prompt ``batch["tokens"]`` (B, S); returns the
+    last-position logits and the decode cache.  Only the dense family is
+    ported."""
+    if cfg.family != "dense" or cfg.n_experts:
+        fam = "moe" if cfg.n_experts else cfg.family
+        raise NotImplementedError(
+            f"{cfg.name}: serving the {fam} family is not ported yet "
+            f"(ROADMAP.md Queue 1, item {_NOT_PORTED.get(fam, '11')})")
+    return transformer.prefill(params, cfg, batch["tokens"], remat=remat,
+                               max_len=max_len)
+
+
+def serve_decode_step(params, cfg: ModelConfig, token, cache, pos):
+    return get_api(cfg).decode_step(params, cfg, token, cache, pos)
+
+
+# ---------------------------------------------------------------------------
+# batched request scheduler (continuous-batching-lite)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new: int
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class BatchedServer:
+    """Fixed-slot batched decoding: requests claim slots; finished slots are
+    refilled from the queue each step (continuous batching without paged
+    memory: cache slots are per-request rows of the batched cache).
+
+    The reference's semantics, kept exactly: one step of the whole
+    ``slots``-row batch advances one slot's token at that slot's own
+    position (every row's cache is written at that slot; a row's own
+    tokens overwrite it when that row advances), and a claimed slot
+    replays its prompt token by token rather than through ``prefill``.
+    The cache lives on the params' device."""
+
+    def __init__(self, params, cfg: ModelConfig, *, slots: int,
+                 max_len: int, eos: int = 1):
+        self.params, self.cfg = params, cfg
+        self.slots, self.max_len, self.eos = slots, max_len, eos
+        self.api = get_api(cfg)
+        self.device = params["embed"].device
+        self.cache = self.api.init_cache(cfg, slots, max_len,
+                                         device=self.device)
+        self.pos = [0] * slots
+        self.active: List[Optional[Request]] = [None] * slots
+        self.queue: List[Request] = []
+
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    def _fill_slots(self):
+        for s in range(self.slots):
+            if self.active[s] is None and self.queue:
+                req = self.queue.pop(0)
+                self.active[s] = req
+                self.pos[s] = 0
+                # teacher-forced prompt replay into the cache
+                with obs_trace.span("serve.prefill", cat="serve",
+                                    rid=req.rid, slot=s,
+                                    prompt_len=len(req.prompt)):
+                    for t in req.prompt:
+                        self._advance_slot(s, t)
+
+    def _advance_slot(self, s: int, token: int) -> int:
+        tok = torch.zeros((self.slots, 1), dtype=torch.int64,
+                          device=self.device)
+        tok[s, 0] = token
+        logits, self.cache = self.api.decode_step(
+            self.params, self.cfg, tok, self.cache, self.pos[s])
+        self.pos[s] += 1
+        return int(torch.argmax(logits[s, -1]))
+
+    @torch.inference_mode()
+    def step(self) -> bool:
+        """One scheduler tick; returns False when idle."""
+        with obs_trace.span("serve.step", cat="serve"):
+            self._fill_slots()
+            busy = False
+            for s, req in enumerate(self.active):
+                if req is None:
+                    continue
+                busy = True
+                last = req.out[-1] if req.out else req.prompt[-1]
+                nxt = self._advance_slot(s, last)
+                req.out.append(nxt)
+                if nxt == self.eos or len(req.out) >= req.max_new \
+                        or self.pos[s] >= self.max_len - 1:
+                    req.done = True
+                    self.active[s] = None
+            return busy or bool(self.queue)
+
+    def run(self, max_ticks: int = 10_000) -> None:
+        for _ in range(max_ticks):
+            if not self.step():
+                break
+
+
+# ---------------------------------------------------------------------------
+# batched sketch service (streaming workload entry point)
+# ---------------------------------------------------------------------------
 
 
 def make_sketch_service(grid=None, plan=None,
