@@ -493,11 +493,48 @@ and LM serving of the dense family (``repro_torch.serve.engine``):
                   reference computes attention and the LM's products
                   outside any Pallas kernel.
 
+then MoE (``repro_torch.models.ffn`` ``moe``, the LM's MoE branch):
+
+ 24. moe        — granite-moe-1b-a400m at its published size, no depth
+                  cut (24 layers, d_model 1024, 32 experts top-8, d_ff
+                  512, vocab 49155, bf16; 1,334,628,352 params, random
+                  weights from seed 0): (a) 6 steps of 4 x 1024 through
+                  ``make_dp_compressed_step`` and ``train_loop``, the plan
+                  priced for 8 workers at rank 8 (11 compressed leaves,
+                  the f32 router among them): every loss finite, 11
+                  sketch_fwd and 33 gemm launches a step (counts reset
+                  just before), the median step, tokens/s, the exchange's
+                  CUDA-event ms, peak memory; apart from the loop, the
+                  exchange on the (786432, 512) expert stack with a bf16
+                  gradient, the (24576, 32) f32 router and the (49155,
+                  1024) embedding against ``_plain_exchange``, and
+                  sketch_fwd and K5's calls (a)-(c) timed at each beside
+                  their plain versions, ``torch.matmul`` and their bounds;
+                  (b) phase 23 (a)'s prefill and decode at capacity factor
+                  1.25, and the share of assignments dropped at prefill
+                  (cap 1280) and decode (cap 1); (c) at capacity factor 8,
+                  where nothing drops, 16 teacher-forced decode steps
+                  after a 4 x 64 prefill against ``lm_hidden`` plus the
+                  head: float32 within MOE_FWD_TOL, bf16 reported, with
+                  the smallest top-8 margin seen; (d) one MoE layer in
+                  bf16 on 4096 tokens in both dispatch forms: the einsum
+                  form's one-hot dispatch carries exactly the scatter
+                  form's kept assignments, outputs within
+                  MOE_DISPATCH_TOL; (e) dbrx-132b at its published widths
+                  on 8 of its 40 layers (27,305,809,920 params, 54.61 GB;
+                  the whole model does not fit the card), built on the
+                  card within 1.1 x its weights, prefill 4 x 1024 and 16
+                  decode steps against the bytes a step must move; (f)
+                  ``python -m repro_torch.launch.serve --workload lm
+                  --arch granite-moe-1b-a400m --full`` as a subprocess,
+                  exit 0; the phase under MOE_SECONDS.
+
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and the exit code is non-zero; without a CUDA card it exits 1 and prints no
 result.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -600,6 +637,35 @@ LM_SECONDS = 120                         # the phase's time limit
 LM_LAUNCHER = ["--workload", "lm", "--arch", LM_ARCH, "--full",
                "--requests", "6", "--slots", "4", "--max-new", "16",
                "--max-len", "128"]
+# phase 24: MoE, granite-moe-1b-a400m at its published size (no depth cut)
+# and dbrx-132b at its published widths on 8 of its 40 layers (its 263 GB
+# do not fit one card's 80 GB; 8 layers hold 54.61 GB)
+MOE_ARCH, MOE_BIG, MOE_BIG_LAYERS = "granite-moe-1b-a400m", "dbrx-132b", 8
+MOE_REDUCED = False                      # the reduced configs (a rehearsal)
+MOE_BATCH, MOE_SEQ, MOE_STEPS = T_BATCH, T_SEQ, 6                     # (a)
+# (a): the leaves whose exchange is held and timed: the tallest (an expert
+# stack folded to 786432 x 512), the f32 router, the odd vocabulary
+MOE_LEAVES = ("blocks.moe.w_gate", "blocks.moe.router", "embed")
+MOE_DROP_STEPS = 8                       # (b): decode steps counted
+MOE_FWD_PROMPT, MOE_FWD_STEPS = 64, 16   # (c)
+MOE_FWD_TOL = LM_RING_TOL                # (c): float32, phase 23's limit
+MOE_DISPATCH_N = 4096                    # (d): tokens
+# (d): the einsum form against the scatter form in bf16.  Both feed the
+# experts the same bf16 rows (a one-hot einsum moves a row exactly) and run
+# the same three batched products on them; they differ in the combine,
+# where the scatter form rounds each of a token's k gate x output products
+# to bf16 (at most 2**-9 relative each) before its f32 sum, and the einsum
+# form rounds once.  Where a token's k terms cancel, those roundings weigh
+# more against the sum: one granite layer in bf16 on the CPU (1024 tokens)
+# gave 2.65e-3 relative Frobenius.  2**-7 leaves a factor of three; one
+# misrouted or dropped assignment among 4096 tokens moves the norm by about
+# 4096**-0.5 = 1.6e-2.
+MOE_DISPATCH_TOL = 2.0 ** -7
+MOE_BIG_DECODE = 16                      # (e)
+MOE_SECONDS = 300                        # the phase's time limit
+MOE_LAUNCHER = ["--workload", "lm", "--arch", MOE_ARCH, "--full",
+                "--requests", "6", "--slots", "4", "--max-new", "16",
+                "--max-len", "128"]
 
 
 class SmokeFailure(RuntimeError):
@@ -5382,11 +5448,12 @@ def lm_decode_profile(api, params, cfg, tok, caches, pos: int) -> dict:
             "device_events_a_step": len(inside) / LM_PROFILED}
 
 
-def lm_prefill_decode(dev, api, params, cfg, n_params: int, card: str):
-    """Phase 23 (a): prefill LM_BATCH x LM_PROMPT (max_len LM_MAX_LEN),
-    then LM_DECODE greedy decode steps, each timed by CUDA events; every
-    logit finite; a decode step's counted bytes (``analyze_call``) beside
-    the bytes it must move and its time."""
+def lm_prefill_decode(dev, api, params, cfg, n_params: int, card: str,
+                      tag: str = "[lm-serve] (a)"):
+    """Phase 23 (a) (and 24 (b)): prefill LM_BATCH x LM_PROMPT (max_len
+    LM_MAX_LEN), then LM_DECODE greedy decode steps, each timed by CUDA
+    events; every logit finite; a decode step's counted bytes
+    (``analyze_call``) beside the bytes it must move and its time."""
     import types
 
     from repro_torch.models import model_flops, param_leaves
@@ -5418,9 +5485,9 @@ def lm_prefill_decode(dev, api, params, cfg, n_params: int, card: str):
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    check(bool(finite), "phase 23 (a): a logit is not finite")
+    check(bool(finite), f"{tag}: a logit is not finite")
     check(tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab),
-          f"phase 23 (a): logits {tuple(logits.shape)}")
+          f"{tag}: logits {tuple(logits.shape)}")
     step_ms = [s.elapsed_time(e) for s, e in marks]
     decode_ms = statistics.median(step_ms[1:6])
     steady_ms = statistics.median(step_ms[1:])
@@ -5450,7 +5517,7 @@ def lm_prefill_decode(dev, api, params, cfg, n_params: int, card: str):
            "t_memory_ms": terms.t_memory * 1e3,
            "t_bound_ms": terms.t_bound * 1e3, "bottleneck": terms.bottleneck,
            "must_move_bytes": must, "must_move_ms": must_ms}
-    print(f"[lm-serve] (a) {cfg.name}, {n_params} params: prefill "
+    print(f"{tag} {cfg.name}, {n_params} params: prefill "
           f"{LM_BATCH}x{LM_PROMPT} (max_len {LM_MAX_LEN}) {prefill_ms:.3f} "
           f"ms (CUDA events, median of 5 after a warm-up, "
           f"{LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.1f} prompt tokens/s); "
@@ -5463,11 +5530,11 @@ def lm_prefill_decode(dev, api, params, cfg, n_params: int, card: str):
           f"(max_memory_allocated; {out['held_gib']:.2f} GiB held before "
           f"the prefill, the weights included); every logit finite "
           f"({card})")
-    print(f"[lm-serve] (a) profiled decode window ({LM_PROFILED} steps): "
+    print(f"{tag} profiled decode window ({LM_PROFILED} steps): "
           f"{prof['window_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} "
           f"ms, idle share {prof['idle_share']:.3f}, "
           f"{prof['device_events_a_step']:.0f} device events a step")
-    print(f"[lm-serve] (a) one decode step counted: {terms.hlo_bytes:.4e} "
+    print(f"{tag} one decode step counted: {terms.hlo_bytes:.4e} "
           f"device bytes, {terms.hlo_flops:.4e} FLOPs, bound "
           f"{terms.t_bound * 1e3:.3f} ms by {terms.bottleneck}; must move "
           f"{must:.4e} bytes (weights, caches, logits once): "
@@ -5538,27 +5605,28 @@ def _to_float32(tree):
     return tree.float()
 
 
-def phase_lm_launcher() -> dict:
-    """Phase 23 (c): ``python -m repro_torch.launch.serve --workload lm``
-    at gemma2-2b's published size as a subprocess: exit 0, its
-    ``[serve]`` line and tokens/s."""
+def phase_lm_launcher(argv=None, tag: str = "[lm-serve] (c)") -> dict:
+    """Phase 23 (c) (and 24 (f)): ``python -m repro_torch.launch.serve
+    --workload lm`` with ``argv`` (LM_LAUNCHER: gemma2-2b at its published
+    size) as a subprocess: exit 0, its ``[serve]`` line and tokens/s."""
+    argv = LM_LAUNCHER if argv is None else argv
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + (
         os.pathsep + os.environ["PYTHONPATH"]
         if os.environ.get("PYTHONPATH") else ""))
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                          *LM_LAUNCHER], env=env, cwd=ROOT,
+                          *argv], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     wall = time.perf_counter() - t0
-    check(out.returncode == 0, f"phase 23 (c): the launcher exited "
+    check(out.returncode == 0, f"{tag}: the launcher exited "
                                f"{out.returncode}:\n{out.stdout[-3000:]}\n"
                                f"{out.stderr[-3000:]}")
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith("[serve]")]
     found = re.search(r"([0-9.]+) tokens/s", lines[-1]) if lines else None
-    check(found is not None, f"phase 23 (c): no [serve] line with "
+    check(found is not None, f"{tag}: no [serve] line with "
                              f"tokens/s:\n{out.stdout[-3000:]}")
-    print(f"[lm-serve] (c) {' '.join(LM_LAUNCHER)}: exit 0 in {wall:.1f} s "
+    print(f"{tag} {' '.join(argv)}: exit 0 in {wall:.1f} s "
           f"(process included); {lines[-1]}")
     return {"line": lines[-1], "tokens_per_s": float(found.group(1)),
             "wall_s": wall}
@@ -5606,6 +5674,470 @@ def phase_lm_serve(dev, card: str) -> dict:
     check(seconds < LM_SECONDS, f"phase 23 took {seconds:.1f} s, not under "
                                 f"{LM_SECONDS} s")
     return {"a": a, "b": b, "c": c, "seconds": seconds, "card": card}
+
+
+# -- phase 24: MoE (granite-moe-1b-a400m; dbrx-132b on 8 layers) -------------
+
+def moe_config(arch: str, **changes):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg.reduced() if MOE_REDUCED else cfg,
+                               **changes)
+
+
+@contextlib.contextmanager
+def moe_route_log():
+    """While open, each ``moe_routes`` call (every MoE layer of a forward
+    or a decode step) appends (dropped assignments, assignments, smallest
+    top-k margin: the k-th probability less the (k+1)-th) as tensors on
+    the device, so that a step is not synchronised; ``moe_route_sums``
+    reads them."""
+    from repro_torch.models import ffn
+    routes, log = ffn.moe_routes, []
+
+    def logged(params, xt, *, top_k, **kw):
+        r = routes(params, xt, top_k=top_k, **kw)
+        top = torch.topk(r.probs, top_k + 1, dim=-1).values
+        log.append(((~r.keep).sum(), r.keep.numel(),
+                    (top[:, top_k - 1] - top[:, top_k]).min()))
+        return r
+    ffn.moe_routes = logged
+    try:
+        yield log
+    finally:
+        ffn.moe_routes = routes
+
+
+def moe_route_sums(log: list) -> dict:
+    dropped = sum(int(d) for d, _, _ in log)
+    total = sum(n for _, n, _ in log)
+    return {"calls": len(log), "dropped": dropped, "assignments": total,
+            "drop_share": dropped / max(total, 1),
+            "min_margin": min(float(m) for _, _, m in log)}
+
+
+def moe_train(dev, LAUNCHES, reset_launches, card: str) -> dict:
+    """Phase 24 (a): granite-moe-1b-a400m at its published size through
+    ``train_loop`` (the plan priced for T_PLAN_WORKERS workers at rank
+    T_R), MOE_STEPS steps of MOE_BATCH x MOE_SEQ, the counts reset just
+    before the loop."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.configs import RunConfig
+    from repro_torch.models import get_api, param_leaves
+    from repro_torch.plan import plan_train_compression
+    from repro_torch.train import (init_state, make_dp_compressed_step,
+                                   train_loop)
+    cfg = moe_config(MOE_ARCH)
+    api = get_api(cfg)
+    run = RunConfig(steps=MOE_STEPS, learning_rate=1e-4, warmup_steps=2,
+                    checkpoint_every=0, grad_compress_rank=T_R)
+    plan = plan_train_compression(api.init(0, cfg, "meta"), rank=T_R,
+                                  P=T_PLAN_WORKERS)
+    check(MOE_REDUCED or plan.n_compressed == 11,
+          f"phase 24 (a): the plan compresses {plan.n_compressed} leaves, "
+          f"not 11")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(api, cfg, run, 0, dev, decisions=plan.decision_tree())
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in param_leaves(state.params))
+    check(MOE_REDUCED or n_params == 1_334_628_352,
+          f"phase 24 (a): {n_params} parameters")
+    print(f"[moe] (a) {cfg.name}: {n_params} parameters ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_experts} experts top-"
+          f"{cfg.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}), "
+          f"state on the card in {time.perf_counter() - t0:.1f} s; plan at "
+          f"P={T_PLAN_WORKERS}, rank {T_R}: {plan.n_compressed}/"
+          f"{len(plan.decisions)} leaves compressed (raw: "
+          f"{[d.name for d in plan.decisions if not d.compress]})")
+    step = make_dp_compressed_step(api, cfg, run, plan=plan)
+    per_step, exchange_ms, last = [], [], {}
+
+    def on_step(i, metrics):
+        now = dict(LAUNCHES)
+        per_step.append({k: now[k] - last[k] for k in now})
+        last.update(now)
+        if step.exchange is not None:
+            start, end = step.exchange
+            end.synchronize()
+            exchange_ms.append(start.elapsed_time(end))
+
+    reset_launches()
+    last.update(LAUNCHES)
+    res = train_loop(step, state, DataConfig(cfg.vocab, MOE_SEQ, MOE_BATCH,
+                                             seed=0),
+                     run, device=dev, on_step=on_step)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[moe] (a) losses: {res.losses}")
+    print(f"[moe] (a) launches a step: {per_step}")
+    check(len(res.losses) == MOE_STEPS and all(
+        math.isfinite(x) for x in res.losses),
+        f"phase 24 (a): losses {res.losses}")
+    for c in per_step:
+        check(c["gemm"] == 3 * plan.n_compressed and
+              c["sketch_fwd"] == plan.n_compressed,
+              f"phase 24 (a): a step launched gemm {c['gemm']} and "
+              f"sketch_fwd {c['sketch_fwd']} times")
+    check(MOE_REDUCED or len(exchange_ms) == MOE_STEPS,
+          "phase 24 (a): no CUDA events around the exchange")
+    steady = res.step_seconds[1:]
+    step_s = statistics.median(steady)
+    ex_ms = statistics.median(exchange_ms[1:]) if exchange_ms else None
+    out = {"n_params": n_params, "losses": res.losses,
+           "step_seconds": res.step_seconds, "median_step_s": step_s,
+           "tokens_per_s": MOE_BATCH * MOE_SEQ / step_s,
+           "exchange_ms": exchange_ms, "median_exchange_ms": ex_ms,
+           "peak_gib": peak / 2 ** 30, "held_gib": held / 2 ** 30,
+           "launches": {k: counts[k] for k in ("sketch_fwd", "gemm")},
+           "per_step": per_step, "n_compressed": plan.n_compressed}
+    print(f"[moe] (a) step times (s, host clock, each ending in a device "
+          f"synchronize): {res.step_seconds}; median {step_s:.4f} s over "
+          f"{len(steady)} steps after the warm-up: "
+          f"{out['tokens_per_s']:.1f} tokens/s; the exchange "
+          + ("not measured" if ex_ms is None else
+             f"{ex_ms:.3f} ms (CUDA events, median), "
+             f"{ex_ms * 1e-3 / step_s:.4f} of the step")
+          + f"; peak memory {out['peak_gib']:.2f} GiB (max_memory_allocated;"
+            f" {out['held_gib']:.2f} GiB held before; {card})")
+    del state, res, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_exchange_calls(dev, local, grad_compress, card: str) -> dict:
+    """Phase 24 (a), apart from the loop: for each leaf of MOE_LEAVES, the
+    whole exchange on a gradient of the leaf's folded shape and dtype
+    with a nonzero error buffer, against ``_plain_exchange``; then
+    sketch_fwd and the three K5 calls at that shape, each timed beside its
+    plain version, the PyTorch call computing the same function (none for
+    a product rounded to bf16) and its bound."""
+    from repro_torch.kernels.sketch_matmul import gemm_plan
+    from repro_torch.models import get_api, param_leaves
+    cfg = moe_config(MOE_ARCH)
+    shapes = dict(param_leaves(get_api(cfg).init(0, cfg, "meta")))
+    g = torch.Generator(device=dev).manual_seed(24)
+    seed = grad_compress.leaf_seed(0, 3)
+    out = {}
+    for name in MOE_LEAVES:
+        meta = shapes[name]
+        m, n, dt = math.prod(meta.shape[:-1]), meta.shape[-1], meta.dtype
+        r = min(T_R, m, n)
+        grad = torch.randn(m, n, generator=g, device=dev).to(dt)
+        fb = 0.1 * torch.randn(m, n, generator=g, device=dev)
+        want_g, want_e = _plain_exchange(local, grad, fb, seed, r)
+        grads, fbs = {name: grad.clone()}, {name: fb.clone()}
+        grad_compress.compress_and_allreduce(grads, fbs, step=3, rank=T_R,
+                                             decisions={name: True})
+        tol_g = gemm_tol(m) if dt == torch.float32 else BF16_TOL
+        err_g = rel_fro(grads[name], want_g)
+        err_e = rel_fro(fbs[name], want_e)
+        print(f"[moe] (a) exchange of {name} ({m}x{n} {dt}, r={r}): g_hat "
+              f"rel_fro={err_g:.3e} (tol {tol_g:.1e}), e' rel_fro="
+              f"{err_e:.3e} (tol {gemm_tol(m):.1e})")
+        check(grads[name].dtype == dt, f"phase 24 (a): {name}'s g_hat is "
+                                       f"{grads[name].dtype}")
+        check(err_g <= tol_g and err_e <= gemm_tol(m),
+              f"phase 24 (a): the exchange of {name} disagrees with its "
+              f"plain version")
+        err = max(max_abs(grads[name], want_g), max_abs(fbs[name], want_e))
+        del grads, fbs, want_g, want_e
+        M = fb + grad.float()
+        om = local._omega_f32(*seed, 0, 0, n, r, "normal", 0, None, dev)
+        P_hat = torch.linalg.qr(local.sketch_block(M, seed, r)).Q
+        Qt = local.gemm_block(P_hat.T, M)
+        G = torch.empty(m, n, dtype=dt, device=dev)
+        isz = G.element_size()
+        calls = {
+            "sketch_fwd": (lambda: local.sketch_block(M, seed, r),
+                           lambda: local._sketch_block_torch(M, seed, r),
+                           lambda: torch.matmul(M, om),
+                           (m, r, n), 4.0 * (m * n + m * r)),
+            "a": (lambda: local.gemm_block(P_hat.T, M),
+                  lambda: local._gemm_block_torch(P_hat.T, M),
+                  lambda: torch.matmul(P_hat.T, M),
+                  (r, n, m), 4.0 * (r * m + m * n + r * n)),
+            "b": (lambda: local.gemm_block(P_hat, Qt, out_dtype=dt, out=G),
+                  lambda: local._gemm_block_torch(P_hat, Qt, out_dtype=dt),
+                  (lambda: torch.matmul(P_hat, Qt)) if dt == torch.float32
+                  else None,
+                  (m, n, r), 4.0 * (m * r + r * n) + isz * m * n),
+            "c": (lambda: local.gemm_block(P_hat, Qt, acc=M, alpha=-1.0),
+                  lambda: local._gemm_block_torch(P_hat, Qt, -1.0, M),
+                  lambda: M.addmm_(P_hat, Qt, alpha=-1.0),
+                  (m, n, r), 4.0 * (m * r + r * n) + 8.0 * m * n)}
+        timed = {}
+        for call, (fn, plain, lib, (mm, nn, kk), nbytes) in calls.items():
+            bms, by = bound_ms(2.0 * mm * nn * kk, nbytes)
+            timed[call] = {
+                "ms": time_ms(fn), "plain_ms": time_ms(plain, reps=3),
+                "library_ms": None if lib is None else time_ms(lib),
+                "bound_ms": bms, "bound_by": by,
+                "path": (None if call == "sketch_fwd"
+                         else gemm_plan(mm, nn, kk)["path"])}
+            t = timed[call]
+            print(f"[timing] {'sketch_fwd' if call == 'sketch_fwd' else 'gemm (' + call + ')'}"
+                  f" at {name} ({m}x{n} {dt}, r={r}"
+                  + ("" if t["path"] is None else f", path {t['path']}")
+                  + f"): {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
+                  f"library " + ("none" if t["library_ms"] is None
+                                 else f"{t['library_ms']:.4f}")
+                  + f", bound {bms:.4f} ms by {by}; {card})")
+        out[name] = {"shape": [m, n], "dtype": str(dt), "r": r,
+                     "g_hat_err": err_g, "e_err": err_e,
+                     "max_abs_err": err, "calls": timed}
+        del M, om, P_hat, Qt, G, grad, fb, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_serve(dev, api, params, cfg, n_params: int, card: str) -> dict:
+    """Phase 24 (b): phase 23 (a)'s prefill and decode at granite's
+    published capacity factor, then the share of assignments dropped at
+    that prefill and over MOE_DROP_STEPS decode steps after it (counted
+    apart from the timed runs)."""
+    out = lm_prefill_decode(dev, api, params, cfg, n_params, card,
+                            tag="[moe] (b)")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(dev)
+    with moe_route_log() as log:
+        logits, caches = api.prefill(params, cfg, toks, max_len=LM_MAX_LEN)
+        pre = moe_route_sums(log)
+        log.clear()
+        tok = logits.argmax(-1)
+        for i in range(MOE_DROP_STEPS):
+            logits, caches = api.decode_step(params, cfg, tok, caches,
+                                             LM_PROMPT + i)
+            tok = logits.argmax(-1)
+        dec = moe_route_sums(log)
+    out.update(prefill_routes=pre, decode_routes=dec)
+    print(f"[moe] (b) dropped assignments at capacity factor "
+          f"{cfg.capacity_factor}: prefill ({LM_BATCH}x{LM_PROMPT}, cap "
+          f"{int(cfg.capacity_factor * cfg.top_k * LM_BATCH * LM_PROMPT / cfg.n_experts)}) "
+          f"{pre['dropped']} of {pre['assignments']} ({pre['drop_share']:.4f});"
+          f" {MOE_DROP_STEPS} decode steps (batch {LM_BATCH}, cap "
+          f"{max(1, int(cfg.capacity_factor * cfg.top_k * LM_BATCH / cfg.n_experts))}) "
+          f"{dec['dropped']} of {dec['assignments']} ({dec['drop_share']:.4f})")
+    return out
+
+
+def moe_decode_vs_forward(dev, api, params, cfg, tol, card: str) -> dict:
+    """Phase 24 (c), in ``cfg.dtype`` at capacity factor 8.0, where
+    nothing drops: prefill MOE_FWD_PROMPT tokens of LM_BATCH rows, then
+    MOE_FWD_STEPS teacher-forced decode steps, each step's logits held
+    against ``lm_hidden`` plus the head over the same tokens (within
+    ``tol``; None: reported only); the smallest top-k margin seen, to
+    tell a near-tie from a fault."""
+    from repro_torch.models import lm_hidden
+    from repro_torch.models.common import matmul
+    cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    P, n = MOE_FWD_PROMPT, MOE_FWD_STEPS
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (LM_BATCH, P + n))).to(dev)
+    with moe_route_log() as log:
+        first, caches = api.prefill(params, cfg, toks[:, :P], max_len=P + n)
+        real = []
+        for t in range(P, P + n):
+            logits, caches = api.decode_step(params, cfg, toks[:, t:t + 1],
+                                             caches, t)
+            real.append(logits[:, 0])
+        served = moe_route_sums(log)
+        log.clear()
+        with torch.inference_mode():
+            h, _ = lm_hidden(params, cfg, toks, remat=False)
+            W = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+            ref = matmul(h[:, P - 1:], W.T)
+        forward = moe_route_sums(log)
+    real = torch.stack(real, dim=1)
+    out = {"dtype": cfg.dtype, "prefill_err": rel_fro(first[:, 0], ref[:, 0]),
+           "err": rel_fro(real, ref[:, 1:]),
+           "step_err_max": max(rel_fro(real[:, i], ref[:, 1 + i])
+                               for i in range(n)),
+           "dropped": served["dropped"] + forward["dropped"],
+           "min_margin": min(served["min_margin"], forward["min_margin"]),
+           "tol": tol}
+    print(f"[moe] (c) {cfg.dtype}: prefill {LM_BATCH}x{P} then {n} "
+          f"teacher-forced decode steps at capacity factor 8.0, relative "
+          f"Frobenius against lm_hidden + head: prefill's last logits "
+          f"{out['prefill_err']:.3e}, the decode steps {out['err']:.3e} "
+          f"(worst step {out['step_err_max']:.3e}); assignments dropped "
+          f"{out['dropped']}; smallest top-{cfg.top_k} margin "
+          f"{out['min_margin']:.3e}; limit "
+          f"{'none (reported)' if tol is None else tol} ({card})")
+    check(out["dropped"] == 0, "phase 24 (c): an assignment dropped at "
+                               "capacity factor 8")
+    check(tol is None or (out["prefill_err"] <= tol and
+                          out["step_err_max"] <= tol),
+          f"phase 24 (c): {cfg.dtype} decode misses the forward: "
+          f"{out['prefill_err']:.3e}, {out['step_err_max']:.3e} > {tol}")
+    return out
+
+
+def moe_dispatch_forms(dev, params, cfg, card: str) -> dict:
+    """Phase 24 (d): layer 0's MoE in bf16 on MOE_DISPATCH_N tokens in
+    both dispatch forms: the (token, expert) pairs the einsum form's
+    one-hot dispatch tensor carries must be exactly the scatter form's
+    kept assignments, and the outputs agree within MOE_DISPATCH_TOL;
+    each form timed (CUDA events)."""
+    from repro_torch.models.ffn import (MoEParams, einsum_dispatch_matrix,
+                                        moe, moe_routes)
+    p = MoEParams(**{k: v[0].detach() for k, v in
+                     params["blocks"]["moe"].items()})
+    g = torch.Generator(device=dev).manual_seed(25)
+    x = torch.randn(1, MOE_DISPATCH_N, cfg.d_model, generator=g,
+                    device=dev).to(cfg.torch_dtype)
+    N, E = MOE_DISPATCH_N, cfg.n_experts
+    kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    with torch.inference_mode():
+        r = moe_routes(p, x.reshape(N, -1), **kw)
+        disp, _ = einsum_dispatch_matrix(r, x.dtype)
+        kept = torch.zeros(N, E, device=dev)
+        kept[torch.arange(N, device=dev)[:, None], r.gate_idx] = \
+            r.keep.float()
+        same = bool(torch.equal(disp.float().sum(-1), kept))
+        del disp
+        y = {d: moe(p, x, dispatch=d, **kw) for d in ("scatter", "einsum")}
+        ms = {d: time_ms(lambda: moe(p, x, dispatch=d, **kw), reps=3)
+              for d in ("scatter", "einsum")}
+    out = {"tokens": N, "cap": r.cap, "dropped": int((~r.keep).sum()),
+           "assignments": r.keep.numel(), "kept_sets_equal": same,
+           "err": rel_fro(y["einsum"], y["scatter"]),
+           "max_abs_err": max_abs(y["einsum"], y["scatter"]),
+           "tol": MOE_DISPATCH_TOL, "ms": ms}
+    print(f"[moe] (d) one {cfg.name} MoE layer, {cfg.dtype}, {N} tokens "
+          f"(cap {r.cap}; {out['dropped']} of {out['assignments']} "
+          f"assignments dropped): kept sets of the two forms equal: {same};"
+          f" einsum against scatter rel_fro {out['err']:.3e} (max abs "
+          f"{out['max_abs_err']:.3e}; limit {MOE_DISPATCH_TOL:.3e}); "
+          f"scatter {ms['scatter']:.3f} ms, einsum {ms['einsum']:.3f} ms "
+          f"(CUDA events; {card})")
+    check(same, "phase 24 (d): the einsum form dispatches another set")
+    check(out["err"] <= MOE_DISPATCH_TOL,
+          f"phase 24 (d): the dispatch forms disagree: {out['err']:.3e}")
+    return out
+
+
+def moe_big_serve(dev, card: str) -> dict:
+    """Phase 24 (e): dbrx-132b at every published width on MOE_BIG_LAYERS
+    of its 40 layers, built on the card (its peak over what was held
+    before within 1.1 x its weights), prefill LM_BATCH x LM_PROMPT and
+    MOE_BIG_DECODE greedy decode steps; the decode step beside the bytes
+    it must move (every weight, every cache, the logits)."""
+    from repro_torch.models import get_api, param_leaves
+    from repro_torch.roofline import h100_rates
+    cfg = moe_config(MOE_BIG, n_layers=MOE_BIG_LAYERS)
+    api = get_api(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(0, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - held
+    leaves = param_leaves(params)
+    n_params = sum(t.numel() for _, t in leaves)
+    weights = sum(t.numel() * t.element_size() for _, t in leaves)
+    print(f"[moe] (e) {cfg.name} on {cfg.n_layers} of 40 layers at its "
+          f"published widths: {n_params} parameters, {weights / 1e9:.3f} "
+          f"GB, built on the card in {init_s:.1f} s; peak while building "
+          f"{init_peak / 1e9:.3f} GB over the {held / 1e9:.3f} GB held "
+          f"before ({init_peak / weights:.4f} of the weights; {card})")
+    check(MOE_REDUCED or n_params == 27_305_809_920,
+          f"phase 24 (e): {n_params} parameters")
+    check(init_peak <= 1.1 * weights,
+          f"phase 24 (e): building the params peaked at {init_peak} bytes, "
+          f"over 1.1 x the weights' {weights}")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(dev)
+    prefill_ms = time_ms(lambda: api.prefill(params, cfg, toks,
+                                             max_len=LM_MAX_LEN), reps=3)
+    logits, caches = api.prefill(params, cfg, toks, max_len=LM_MAX_LEN)
+    finite = torch.isfinite(logits).all()
+    tok = logits.argmax(-1)
+    marks = []
+    for i in range(MOE_BIG_DECODE):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, caches = api.decode_step(params, cfg, tok, caches,
+                                         LM_PROMPT + i)
+        end.record()
+        marks.append((start, end))
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    check(bool(finite), "phase 24 (e): a logit is not finite")
+    check(tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab),
+          f"phase 24 (e): logits {tuple(logits.shape)}")
+    step_ms = [s.elapsed_time(e) for s, e in marks]
+    decode_ms = statistics.median(step_ms[1:])
+    must = (weights + sum(c[kv].numel() * c[kv].element_size()
+                          for c in caches for kv in c)
+            + logits.numel() * logits.element_size())
+    must_ms = must / h100_rates().hbm_bw * 1e3
+    out = {"n_layers": cfg.n_layers, "n_params": n_params,
+           "weights_bytes": weights, "init_s": init_s,
+           "init_peak_bytes": init_peak, "peak_bytes": peak,
+           "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+           "decode_ms_range": [min(step_ms[1:]), max(step_ms[1:])],
+           "tokens_per_s": LM_BATCH / decode_ms * 1e3,
+           "must_move_bytes": must, "must_move_ms": must_ms}
+    print(f"[moe] (e) prefill {LM_BATCH}x{LM_PROMPT} (max_len "
+          f"{LM_MAX_LEN}) {prefill_ms:.3f} ms (CUDA events, median of 3); "
+          f"decode step {decode_ms:.3f} ms (median of steps 2-"
+          f"{MOE_BIG_DECODE}; range {out['decode_ms_range'][0]:.3f}-"
+          f"{out['decode_ms_range'][1]:.3f}), {out['tokens_per_s']:.1f} "
+          f"tokens/s; must move {must:.4e} bytes: {must_ms:.3f} ms at "
+          f"{h100_rates().hbm_bw / 1e12:.2f} TB/s, {must_ms / decode_ms:.4f} "
+          f"of the step; peak {peak / 1e9:.3f} GB over what was held "
+          f"({card})")
+    del params, caches, logits, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(dev, card: str, local, grad_compress, LAUNCHES,
+              reset_launches) -> dict:
+    """Phase 24: (a) training granite-moe-1b-a400m at its published size
+    and its exchange's kernels at the new leaves, (b) serving it at the
+    published capacity factor, (c) decode against the forward, (d) the
+    two dispatch forms, (e) dbrx-132b on 8 layers, (f) the launcher."""
+    from repro_torch.models import get_api, param_leaves
+    t0 = time.perf_counter()
+    a = moe_train(dev, LAUNCHES, reset_launches, card)
+    a["leaves"] = moe_exchange_calls(dev, local, grad_compress, card)
+    cfg = moe_config(MOE_ARCH)
+    api = get_api(cfg)
+    params = api.init(0, cfg, dev)
+    n_params = sum(t.numel() for _, t in param_leaves(params))
+    b = moe_serve(dev, api, params, cfg, n_params, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = [moe_decode_vs_forward(dev, api, params, cfg, None, card)]
+    d = moe_dispatch_forms(dev, params, cfg, card)
+    # in bf16 a rounding difference between the two paths can flip a
+    # route; in float32 the paths differ only by the order of their sums
+    params = _to_float32(params)
+    c.append(moe_decode_vs_forward(dev, api, params,
+                                   dataclasses.replace(cfg, dtype="float32"),
+                                   MOE_FWD_TOL, card))
+    del params
+    e = moe_big_serve(dev, card)
+    f = phase_lm_launcher(MOE_LAUNCHER, tag="[moe] (f)")
+    seconds = time.perf_counter() - t0
+    check(seconds < MOE_SECONDS, f"phase 24 took {seconds:.1f} s, not under "
+                                 f"{MOE_SECONDS} s")
+    return {"a": a, "b": b, "c": c, "d": d, "e": e, "f": f,
+            "seconds": seconds, "card": card}
 
 
 def main() -> int:
@@ -6036,6 +6568,17 @@ def main() -> int:
     print(f"[phases] 23 done at {time.perf_counter() - t_start:.1f} s "
           f"(phase 23: {lm['seconds']:.1f} s; {card})")
 
+    # -- 24. MoE: granite-moe-1b-a400m, dbrx-132b on 8 layers -----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = phase_moe(dev, card, local, grad_compress, LAUNCHES, reset_launches)
+    for name in ("sketch_fwd", "gemm"):
+        check(moe["a"]["launches"][name] > 0,
+              f"phase 24: {name} never launched on the MoE training path")
+    print("[moe] summary " + json.dumps(moe, default=str))
+    print(f"[phases] 24 done at {time.perf_counter() - t_start:.1f} s "
+          f"(phase 24: {moe['seconds']:.1f} s; {card})")
+
     total = [sum(gemm_times[c][i] for c in "abc") for i in range(3)]
     bound3 = sum(gemm_times[c][3][0] for c in "abc")
     rows.append(("gemm",
@@ -6109,6 +6652,19 @@ def main() -> int:
                 "launches": [res["a"]["launches"][name]
                              for res in dp["ranks"]],
                 "steps": DP_SKETCHED}
+            # phase 24 (a): the launches over granite-moe-1b-a400m's steps
+            # (counts reset just before), and the kernel timed at the
+            # leaves it meets first there (sketch_fwd; gemm's calls (a),
+            # (b) into the gradient's dtype, (c))
+            kernels[-1]["moe_train"] = {
+                "launches": moe["a"]["launches"][name],
+                "steps": MOE_STEPS,
+                "calls": {leaf: {
+                    "shape": res["shape"], "dtype": res["dtype"],
+                    **({"sketch_fwd": res["calls"]["sketch_fwd"]}
+                       if name == "sketch_fwd" else
+                       {c: res["calls"][c] for c in "abc"})}
+                    for leaf, res in moe["a"]["leaves"].items()}}
         if name in ("sketch_fwd", "sketch_t", "fold_rows"):
             # phase 21: the launches of the one-card recovery paths and of
             # each rank's reshards, queue and service (counts reset at the

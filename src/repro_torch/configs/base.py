@@ -40,10 +40,12 @@ class ModelConfig:
     activation: str = "silu"      # silu | gelu
     embed_scale: bool = False     # gemma: x *= sqrt(d)
 
-    # MoE (the family is not ported; kept so configs compare field by field)
+    # MoE
     n_experts: int = 0
     top_k: int = 0
+    capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    moe_dispatch: str = "scatter"   # scatter (optimized) | einsum (GShard)
 
     # numerics
     dtype: str = "bfloat16"
@@ -70,7 +72,7 @@ class ModelConfig:
 
     def reduced(self, **overrides) -> "ModelConfig":
         """Smoke-test variant: same family and topology, tiny dims (the
-        reference's ``reduced()`` for the dense family)."""
+        reference's ``reduced()`` for the dense and MoE families)."""
         shrink = dict(
             n_layers=min(self.n_layers, 2),
             d_model=64,

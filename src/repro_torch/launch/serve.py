@@ -1,16 +1,21 @@
 """Serving driver of the port: multi-tenant sketch ingest (shape-bucketed
 ragged batching behind the bounded async queue) on one card, LM decoding
-of the dense family (continuous-batching-lite), and the chaos drills of
-the recovery layer.
+of the dense and MoE families (continuous-batching-lite), and the chaos
+drills of the recovery layer.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload sketch \
       --streams 64 --updates 4 --n1 1024 --n2 512 --r 32
 
-LM decoding (``--arch`` of the dense family, the reduced config unless
-``--full``; random weights from seed 0):
+LM decoding (``--arch`` of the dense or MoE family, the reduced config
+unless ``--full``; random weights from seed 0):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \
       --arch gemma2-2b --full --requests 6 --slots 4 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \
+      --arch granite-moe-1b-a400m --full --requests 6 --slots 4
+
+``--arch dbrx-132b --full`` asks for all 40 layers (263 GB in bf16),
+more than one card holds.
 
 ``--workload`` defaults to ``sketch``, not to ``lm`` as in the
 reference's launcher: the port's sketch workload came first and its

@@ -7,6 +7,12 @@ loop -> checkpoints, with optional sketched gradient compression:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch gemma2-2b --steps 20 --batch 4 --seq 32 --grad-compress 8
 
+``--arch`` takes the dense family (gemma2-2b, llama3-8b, internlm2-20b,
+h2o-danube-3-4b) and the MoE family (granite-moe-1b-a400m, dbrx-132b,
+whose load-balancing loss enters the training loss); ``--full
+--arch granite-moe-1b-a400m`` trains granite at its published size on
+one card, while dbrx-132b's 132B parameters fit no single card.
+
 ``--device`` defaults to the card (and fails without one); on the card the
 exchange's GEMMs run the hand-written kernels.  With ``--grad-compress``
 the per-leaf raw-vs-sketch decisions are planned at the process group's

@@ -1,9 +1,9 @@
 """Uniform model API of the port (the reference's ``models/api.py``), for
-the dense family, the parameter leaf order of the reference, and the
-useful FLOPs of a step (``model_flops``, ``count_params_split``,
+the dense and MoE families, the parameter leaf order of the reference,
+and the useful FLOPs of a step (``model_flops``, ``count_params_split``,
 ``count_active_params``).
 
-The dense family exposes:
+The dense and MoE families expose:
   init(seed, cfg, device) -> params
   loss(params, cfg, batch, remat=) -> scalar
   init_cache(cfg, batch, max_len, dtype=None, device=None) -> caches
@@ -32,9 +32,10 @@ class ModelAPI:
     prefill: Optional[Callable] = None
 
 
-_FAMILIES = {"dense": ModelAPI(transformer.lm_init, transformer.lm_loss,
-                               transformer.init_cache,
-                               transformer.decode_step, transformer.prefill)}
+_LM = ModelAPI(transformer.lm_init, transformer.lm_loss,
+               transformer.init_cache, transformer.decode_step,
+               transformer.prefill)
+_FAMILIES = {"dense": _LM, "moe": _LM}
 
 
 def get_api(cfg: ModelConfig) -> ModelAPI:

@@ -1,5 +1,9 @@
-"""Decoder-only LM of the dense family (llama3, internlm2, h2o-danube3,
-gemma2): the reference's ``models/transformer.py``, training and serving.
+"""Decoder-only LM of the dense and MoE families (llama3, internlm2,
+h2o-danube3, gemma2, granite-moe, dbrx): the reference's
+``models/transformer.py``, training and serving.  A config with
+``n_experts`` takes the MoE feed-forward (``models/ffn.py`` ``moe``) in
+every block; its load-balancing loss is summed over the layers and
+weighted into the training loss, and serving routes without it.
 
 Per-layer weights stay stacked along a leading L axis, exactly as the
 reference's ``lm_init`` stacks them: the gradient exchange folds a leaf to
@@ -28,7 +32,7 @@ from repro_torch.core.rng import resolve_device
 from .attention import AttnParams, attn_init, attention, attention_decode
 from .common import (cross_entropy_chunked, embed_init, layernorm,
                      layernorm_init, matmul, rmsnorm, rmsnorm_init, softcap)
-from .ffn import FFNParams, ffn, ffn_init
+from .ffn import FFNParams, MoEParams, ffn, ffn_init, moe, moe_init
 
 
 def _norm_init(cfg: ModelConfig, dtype, device, layers: int = 0):
@@ -42,10 +46,10 @@ def _norm_apply(cfg: ModelConfig, p, x):
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.n_experts:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: the port has only the dense family yet (ROADMAP.md "
-            f"Queue 1, item 11)")
+            f"{cfg.name}: the port has only the dense and MoE families yet "
+            f"(ROADMAP.md Queue 1, item 11)")
 
 
 def lm_init(seed: int, cfg: ModelConfig, device=None) -> Dict[str, Any]:
@@ -61,11 +65,15 @@ def lm_init(seed: int, cfg: ModelConfig, device=None) -> Dict[str, Any]:
     blocks = {
         "attn": attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                           cfg.head_dim, dtype, device, layers=L)._asdict(),
-        "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff, dtype, device,
-                        layers=L)._asdict(),
         "ln_attn": _norm_init(cfg, dtype, device, L),
         "ln_ffn": _norm_init(cfg, dtype, device, L),
     }
+    if cfg.n_experts:
+        blocks["moe"] = moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                 dtype, device, layers=L)._asdict()
+    else:
+        blocks["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                                 layers=L)._asdict()
     if cfg.use_post_norms:
         blocks["ln_attn_post"] = _norm_init(cfg, dtype, device, L)
         blocks["ln_ffn_post"] = _norm_init(cfg, dtype, device, L)
@@ -104,17 +112,29 @@ def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor):
     return h
 
 
-def _ffn_residual(cfg: ModelConfig, blk, h):
-    f = ffn(FFNParams(**blk["ffn"]), _norm_apply(cfg, blk["ln_ffn"], h),
-            activation=cfg.activation)
+def _ffn_residual(cfg: ModelConfig, blk, h, with_aux: bool = True):
+    """``(h + the block's FFN or MoE of its normed h, the MoE's aux loss)``;
+    the aux is None for a dense block or without ``with_aux``."""
+    f_in = _norm_apply(cfg, blk["ln_ffn"], h)
+    aux = None
+    if cfg.n_experts:
+        f = moe(MoEParams(**blk["moe"]), f_in, top_k=cfg.top_k,
+                capacity_factor=cfg.capacity_factor, return_aux=with_aux,
+                dispatch=cfg.moe_dispatch)
+        if with_aux:
+            f, aux = f
+    else:
+        f = ffn(FFNParams(**blk["ffn"]), f_in, activation=cfg.activation)
     if cfg.use_post_norms:
         f = _norm_apply(cfg, blk["ln_ffn_post"], f)
-    return h + f
+    return h + f, aux
 
 
 def _block_apply(cfg: ModelConfig, blk, h, window: int,
                  positions: torch.Tensor, kv_chunk: int,
                  return_kv: bool = False):
+    """``(h, aux)``; with ``return_kv`` (serving, which needs no aux)
+    ``(h, k, v)``, the layer's rotated K and its V."""
     a_in = _norm_apply(cfg, blk["ln_attn"], h)
     a = attention(AttnParams(**blk["attn"]), a_in, n_heads=cfg.n_heads,
                   n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
@@ -125,27 +145,32 @@ def _block_apply(cfg: ModelConfig, blk, h, window: int,
         a, k, v = a
     if cfg.use_post_norms:
         a = _norm_apply(cfg, blk["ln_attn_post"], a)
-    h = _ffn_residual(cfg, blk, h + a)
-    return (h, k, v) if return_kv else h
+    h, aux = _ffn_residual(cfg, blk, h + a, with_aux=not return_kv)
+    return (h, k, v) if return_kv else (h, aux)
 
 
 def lm_hidden(params, cfg: ModelConfig, tokens: torch.Tensor, *,
               remat: bool = True, kv_chunk: int = 1024):
-    """Token ids (B, S) -> (final hidden (B, S, d), aux loss 0)."""
+    """Token ids (B, S) -> (final hidden (B, S, d), aux loss): the MoE
+    layers' load-balancing losses summed in layer order (0 for a dense
+    model)."""
     _check_family(cfg)
     S = tokens.shape[1]
     h = _embed_tokens(params, cfg, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     positions = torch.arange(S, dtype=torch.int64, device=h.device)
     layers = _unbind(params["blocks"])
     for i, window in enumerate(cfg.layer_windows(S)):
         blk = _layer(layers, i)
         if remat and torch.is_grad_enabled():
-            h = checkpoint(_block_apply, cfg, blk, h, window, positions,
-                           kv_chunk, use_reentrant=False)
+            h, a = checkpoint(_block_apply, cfg, blk, h, window, positions,
+                              kv_chunk, use_reentrant=False)
         else:
-            h = _block_apply(cfg, blk, h, window, positions, kv_chunk)
+            h, a = _block_apply(cfg, blk, h, window, positions, kv_chunk)
+        if a is not None:
+            aux = aux + a
     h = _norm_apply(cfg, params["ln_final"], h)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 def lm_loss(params, cfg: ModelConfig, batch, *,
@@ -196,7 +221,9 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches, pos):
     """One decode step.  token: (B, 1) integer ids; ``pos``: the absolute
     position of the new token (an int or a 0-d tensor).  Returns
     ``(logits (B, 1, vocab), caches)``; the caches are written in place
-    and returned."""
+    and returned.  An MoE block routes the step's B tokens together, at
+    the capacity of N = B (the reference's), so at small batches it
+    drops assignments (cap 1 for granite at batch 4)."""
     _check_family(cfg)
     h = _embed_tokens(params, cfg, token)
     layers = _unbind(params["blocks"])
@@ -211,7 +238,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches, pos):
         caches[l] = {"k": ck, "v": cv}
         if cfg.use_post_norms:
             a = _norm_apply(cfg, blk["ln_attn_post"], a)
-        h = _ffn_residual(cfg, blk, h + a)
+        h, _ = _ffn_residual(cfg, blk, h + a, with_aux=False)
     h = _norm_apply(cfg, params["ln_final"], h)
     return _logits(params, cfg, h), caches
 
@@ -230,7 +257,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     whose ring of ``L = min(window, max_len)`` slots is shorter than S
     keeps the last L positions rolled by S (slot == position mod L).
     ``remat`` changes nothing without autograd; it is kept for the
-    reference's signature."""
+    reference's signature.  An MoE block routes all B·S prompt tokens
+    together, at their capacity."""
     _check_family(cfg)
     B, S = tokens.shape
     max_len = max_len or S

@@ -1,7 +1,8 @@
 """The serving engine of the port (the reference's ``serve/engine.py``):
 the repo's two request-serving workloads behind one door.
 
-1. LM serving, dense family: ``serve_prefill`` / ``serve_decode_step``
+1. LM serving, dense and MoE families: ``serve_prefill`` /
+   ``serve_decode_step``
    and :class:`BatchedServer`, a fixed-slot batched scheduler
    (continuous batching without paged memory), run under
    ``torch.inference_mode``.
@@ -26,8 +27,7 @@ from repro_torch.stream.ingest import IngestQueue
 from repro_torch.stream.service import SketchService
 
 # the roadmap item that ports each family the port lacks
-_NOT_PORTED = {"moe": "11b", "ssm": "11c", "hybrid": "11c",
-               "encdec": "11d", "vlm": "11d"}
+_NOT_PORTED = {"ssm": "11c", "hybrid": "11c", "encdec": "11d", "vlm": "11d"}
 
 
 # ---------------------------------------------------------------------------
@@ -37,13 +37,13 @@ _NOT_PORTED = {"moe": "11b", "ssm": "11c", "hybrid": "11c",
 def serve_prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
                   max_len: Optional[int] = None, remat: bool = True):
     """Process the prompt ``batch["tokens"]`` (B, S); returns the
-    last-position logits and the decode cache.  Only the dense family is
-    ported."""
-    if cfg.family != "dense" or cfg.n_experts:
-        fam = "moe" if cfg.n_experts else cfg.family
+    last-position logits and the decode cache.  The dense and MoE
+    families are ported."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: serving the {fam} family is not ported yet "
-            f"(ROADMAP.md Queue 1, item {_NOT_PORTED.get(fam, '11')})")
+            f"{cfg.name}: serving the {cfg.family} family is not ported yet "
+            f"(ROADMAP.md Queue 1, item "
+            f"{_NOT_PORTED.get(cfg.family, '11')})")
     return transformer.prefill(params, cfg, batch["tokens"], remat=remat,
                                max_len=max_len)
 
@@ -75,6 +75,9 @@ class BatchedServer:
     position (every row's cache is written at that slot; a row's own
     tokens overwrite it when that row advances), and a claimed slot
     replays its prompt token by token rather than through ``prefill``.
+    With MoE the other rows route their tokens (token 0 in an idle or
+    waiting row) beside the advancing one and compete with it for the
+    step's expert capacity, as in the reference.
     The cache lives on the params' device."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int,

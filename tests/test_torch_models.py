@@ -137,7 +137,10 @@ def test_param_leaves_order_and_shapes_match_reference_full_gemma():
 
 def test_other_families_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 11"):
-        get_config("dbrx-132b")
+        get_config("falcon-mamba-7b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+    # the MoE family is ported (tests/test_torch_moe.py)
+    assert get_config("dbrx-132b").family == "moe"
+    assert get_config("granite-moe-1b-a400m").n_experts == 32
 

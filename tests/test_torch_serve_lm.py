@@ -271,8 +271,7 @@ def test_serve_prefill_names_item_11_for_other_families():
     _, cfg, _, params, toks = _model("llama3-8b")
     batch = {"tokens": torch.from_numpy(toks).long()}
     for other in (dataclasses.replace(cfg, family="ssm"),
-                  dataclasses.replace(cfg, family="vlm"),
-                  dataclasses.replace(cfg, n_experts=4, top_k=2)):
+                  dataclasses.replace(cfg, family="vlm")):
         with pytest.raises(NotImplementedError, match="item 11"):
             tengine.serve_prefill(params, other, batch)
 
