@@ -442,9 +442,9 @@ and data-parallel training across ranks (``repro_torch.launch.elastic``):
  22. dp-train   — (a) four ranks of the card over gloo (``_dp_train_rank``)
                   each hold a replica of gemma2-2b at its published widths
                   (d_model 2304, 8 heads, kv 4, head_dim 256, d_ff 9216,
-                  vocab 256000, bf16) cut to 2 layers, with AdamW and the
+                  vocab 256000, bf16) cut to 1 layer, with AdamW and the
                   error buffers of the plan priced for P = 4 at rank 8,
-                  and take 4 sketched steps (the first a warm-up) and one
+                  and take 3 sketched steps (the first a warm-up) and one
                   all-raw step through ``train_loop`` on a global batch of
                   4 x 1024 (1 x 1024 a rank): every loss finite, the
                   replicas' params bitwise equal after each step (bit
@@ -460,7 +460,7 @@ and data-parallel training across ranks (``repro_torch.launch.elastic``):
                   and seconds written), ``remesh`` onto 2 ranks (2-3 stand
                   by), ``elastic_restore`` into a zeroed state: params
                   bitwise what was saved, each buffer bitwise
-                  ``reshard_error_fb`` of the saved stack; 2 steps at world
+                  ``reshard_error_fb`` of the saved stack; 1 step at world
                   2 on the same global batch, finite; the checkpoint
                   deleted; (c) ``python -m repro_torch.launch.train`` as 2
                   subprocess ranks on the card (``--grad-compress 4``),
@@ -528,6 +528,46 @@ then MoE (``repro_torch.models.ffn`` ``moe``, the LM's MoE branch):
                   ``python -m repro_torch.launch.serve --workload lm
                   --arch granite-moe-1b-a400m --full`` as a subprocess,
                   exit 0; the phase under MOE_SECONDS.
+
+then the SSM and hybrid families (``repro_torch.models`` ``ssm``,
+``mamba_lm``, ``zamba``, ``attention.nystrom_attention``):
+
+ 25. ssm        — (a) falcon-mamba-7b at its published size, no cut (64
+                  Mamba-1 layers, d_model 4096, d_inner 8192, ssm_state
+                  16, dt_rank 256, vocab 65024, bf16; 7,272,665,088
+                  params, random weights from seed 0), built on the card
+                  within 1.1 x its weights; ``serve_prefill`` of 4 x 1024
+                  (the last logits, no cache) timed, its device time split
+                  by torch.profiler into the chunk scan's levels (inside
+                  ``ssm.scan`` ranges), the products and the rest; a
+                  16-token prompt replayed by decode into a batch-4 state,
+                  64 greedy decode steps timed, 8 profiled (idle share,
+                  device events), one step counted (``analyze_call``)
+                  beside the bytes it must move (the weights, the states
+                  read and written, the logits); (b) its decode against
+                  the forward at published widths cut to 4 of 64 layers:
+                  32 teacher-forced steps of 4 rows, float32 within
+                  SSM_FWD_TOL, bf16 reported; (c) zamba2-1.2b at its
+                  published size, no cut (38 Mamba-2 layers, d_model 2048,
+                  d_inner 4096, 64 SSM heads, ssm_state 64, one shared
+                  attention+FFN block applied 6 times, 32 heads, d_ff
+                  8192, vocab 32000, bf16; 1,170,473,856 params) trained
+                  as phase 24 (a): 6 steps of 4 x 1024 (1 warm-up),
+                  AdamW, the rank-8 exchange priced for 8 workers, every
+                  loss and gradient norm finite, sketch_fwd and gemm
+                  launched on every compressed leaf every step, step 1's
+                  largest masked decay exponent; the exchange at
+                  blocks.mamba.in_proj (77824 x 8384) and shared.attn.wq
+                  against ``_plain_exchange`` with its calls timed; (d)
+                  zamba2-1.2b served as (a), its six shared KV caches at
+                  max_len 1280, and its float32 decode against the forward
+                  over the whole depth within SSM_FWD_TOL; (e) one 1 x
+                  65536 prompt through ``serve_prefill``, which takes the
+                  Nystrom branch: ``nystrom_attention`` called 6 times,
+                  the logits finite; (f) ``python -m
+                  repro_torch.launch.serve --workload lm --arch
+                  zamba2-1.2b --full`` as a subprocess, exit 0; the phase
+                  under SSM_SECONDS.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -601,9 +641,12 @@ SP_EDGE_NNZ = (4096, 65536)              # (g): the long segment's entries
 SP_STAGE_REPS = 20
 SPARSE_SOURCE = "src/repro_torch/kernels/csrc/sparse_kernels.cu"
 # phase 22: data-parallel training on four ranks of one card (gemma2-2b at
-# its published widths, depth cut: four replicas of 26 layers do not fit)
-DP_WORLD, DP_TO, DP_LAYERS = 4, 2, 2
-DP_SKETCHED, DP_RAW, DP_AFTER = 4, 1, 2  # steps: sketched (the first a
+# its published widths, depth cut: four replicas of 26 layers do not fit;
+# cut to 1 layer and the fewest steps each check needs, for the script's
+# clock: the vocabulary leaves, which the layer cut keeps, are most of the
+# checkpoint)
+DP_WORLD, DP_TO, DP_LAYERS = 4, 2, 1
+DP_SKETCHED, DP_RAW, DP_AFTER = 3, 1, 1  # steps: sketched (the first a
                                          # warm-up), all-raw, after the resume
 DP_REDUCED = False                       # the reduced config (a CPU rehearsal)
 DP_DIR = ROOT / "build" / "repro_torch" / "dp_train"
@@ -642,7 +685,7 @@ LM_LAUNCHER = ["--workload", "lm", "--arch", LM_ARCH, "--full",
 # do not fit one card's 80 GB; 8 layers hold 54.61 GB)
 MOE_ARCH, MOE_BIG, MOE_BIG_LAYERS = "granite-moe-1b-a400m", "dbrx-132b", 8
 MOE_REDUCED = False                      # the reduced configs (a rehearsal)
-MOE_BATCH, MOE_SEQ, MOE_STEPS = T_BATCH, T_SEQ, 6                     # (a)
+MOE_STEPS = 6                            # (a): steps of T_BATCH x T_SEQ
 # (a): the leaves whose exchange is held and timed: the tallest (an expert
 # stack folded to 786432 x 512), the f32 router, the odd vocabulary
 MOE_LEAVES = ("blocks.moe.w_gate", "blocks.moe.router", "embed")
@@ -666,6 +709,25 @@ MOE_SECONDS = 300                        # the phase's time limit
 MOE_LAUNCHER = ["--workload", "lm", "--arch", MOE_ARCH, "--full",
                 "--requests", "6", "--slots", "4", "--max-new", "16",
                 "--max-len", "128"]
+# phase 25: the SSM and hybrid families at their published sizes:
+# falcon-mamba-7b served only (its bf16 params and grads and f32 AdamW
+# moments, 87.3 GB, do not fit one 80 GB card), cut to 4 of its 64 layers
+# for (b) alone; zamba2-1.2b trained and served, no cut
+SSM_ARCH, HY_ARCH = "falcon-mamba-7b", "zamba2-1.2b"
+SSM_PARAMS = {SSM_ARCH: 7_272_665_088, HY_ARCH: 1_170_473_856}
+SSM_REPLAY = 16                          # (a), (d): prompt tokens replayed
+SSM_FWD_LAYERS, SSM_FWD_STEPS = 4, 32    # (b): falcon's depth cut; steps
+SSM_FWD_TOL = LM_RING_TOL                # (b), (d): float32, phase 23's
+SSM_STEPS = 6                            # (c): 1 warm-up and 5 timed
+HY_COMPRESSED = 18                       # (c): all but the three norms
+# (c): the exchange held and timed at the tallest leaf (38 Mamba-2
+# in_proj folded to 77824 x 8384) and a shared 2-D leaf
+HY_LEAVES = ("blocks.mamba.in_proj", "shared.attn.wq")
+HY_LONG = 65536                          # (e): one prompt, the Nystrom side
+SSM_SECONDS = 240                        # the phase's time limit
+HY_LAUNCHER = ["--workload", "lm", "--arch", HY_ARCH, "--full",
+               "--requests", "6", "--slots", "4", "--max-new", "16",
+               "--max-len", "128"]
 
 
 class SmokeFailure(RuntimeError):
@@ -712,11 +774,14 @@ def max_abs(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float((got.float() - ref.float()).abs().max())
 
 
-def time_ms(fn, reps: int = 5, inner: int = 1, before=None) -> float:
+def time_ms(fn, reps: int = 5, inner: int = 1, before=None,
+            warm: bool = True) -> float:
     """Median of ``reps`` CUDA-event timings (each of ``inner`` calls,
-    divided by ``inner``) after one warm-up call, each after ``before()``
-    (outside the events) when given."""
-    fn()
+    divided by ``inner``) after one warm-up call (none when ``warm`` is
+    False: the caller has made one), each after ``before()`` (outside the
+    events) when given."""
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         if before is not None:
@@ -1284,22 +1349,19 @@ def serving_profile(serve):
     inside the launcher's ``serve.timed_window`` range over its length,
     both read from this trace (the profiler slows the host, so this is
     the profiled run's share)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     mark = "serve.timed_window"
     args = serve.build_parser().parse_args(SERVE_ARGS)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         st = serve.run_sketch(args)
-    evs = prof.events()
-    dev = [e for e in evs
-           if e.device_type == DeviceType.CUDA and e.name != mark]
+    dev, ranges = trace_events(prof)
     by_name = {}
     for e in dev:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us() * 1e-6, n + 1)
-    wins = [e.time_range for e in evs
-            if e.name == mark and e.device_type == DeviceType.CPU]
+    wins = [e.time_range for e in ranges
+            if e.name == mark and e.cat == "user_annotation"]
     idle = "not measured (no timed-window range in the trace)"
     if wins:
         w0, w1 = wins[0].start, wins[0].end
@@ -1619,11 +1681,43 @@ def phase_training(dev, LAUNCHES, reset_launches):
     return counts, train_row
 
 
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")   # a trace's device work
+
+
+def trace_events(prof):
+    """A finished profile's events, read back from the Chrome trace that
+    kineto writes in C++ (``prof.events()`` builds its list in Python, some
+    seconds for a trace of 10^5 events): ``(device, ranges)``, the device
+    events (kernels, copies, sets) and the ``record_function`` ranges on
+    the host (``user_annotation``) and their spans on the device
+    (``gpu_user_annotation``), each a ``SimpleNamespace(name, cat,
+    time_range)``, times in us."""
+    import os
+    import tempfile
+    import types
+
+    from torch.autograd.profiler_util import Interval
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            evs = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    keep = DEVICE_CATS + ("user_annotation", "gpu_user_annotation")
+    out = [types.SimpleNamespace(
+        name=e["name"], cat=e["cat"],
+        time_range=Interval(e["ts"], e["ts"] + e.get("dur", 0)))
+        for e in evs if e.get("ph") == "X" and e.get("cat") in keep]
+    return ([e for e in out if e.cat in DEVICE_CATS],
+            [e for e in out if e.cat not in DEVICE_CATS])
+
+
 def profiled(fn, mark: str):
     """``fn()`` once under torch.profiler inside a ``mark`` range, ended
     by a synchronize: the device events and the range's start and end
     (us)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1631,11 +1725,9 @@ def profiled(fn, mark: str):
         with record_function(mark):
             fn()
             torch.cuda.synchronize()
-    evs = prof.events()
-    dev = [e for e in evs
-           if e.device_type == DeviceType.CUDA and e.name != mark]
-    wins = [e.time_range for e in evs
-            if e.name == mark and e.device_type == DeviceType.CPU]
+    dev, ranges = trace_events(prof)
+    wins = [e.time_range for e in ranges
+            if e.name == mark and e.cat == "user_annotation"]
     check(bool(dev) and bool(wins), f"the profiled {mark} has no device "
                                     f"events")
     return dev, wins[0].start, wins[0].end
@@ -5374,7 +5466,7 @@ def phase_dp_train(card: str) -> dict:
           f"this process holds "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of the card")
     check(free > DP_MIN_FREE, f"phase 22: {free / 1e9:.1f} GB free, the "
-                              f"DP checkpoint needs about 19.4")
+                              f"DP checkpoint needs about 17.4")
     work = str(DP_DIR / "ckpt")
     try:
         results = spawn_ranks(22, _dp_train_rank, DP_WORLD, (work,))
@@ -5716,114 +5808,128 @@ def moe_route_sums(log: list) -> dict:
             "min_margin": min(float(m) for _, _, m in log)}
 
 
-def moe_train(dev, LAUNCHES, reset_launches, card: str) -> dict:
-    """Phase 24 (a): granite-moe-1b-a400m at its published size through
-    ``train_loop`` (the plan priced for T_PLAN_WORKERS workers at rank
-    T_R), MOE_STEPS steps of MOE_BATCH x MOE_SEQ, the counts reset just
-    before the loop."""
+def exchange_train(dev, cfg, LAUNCHES, reset_launches, card: str, *,
+                   tag: str, steps: int, n_params: int, n_compressed: int,
+                   on_first_step=None) -> dict:
+    """``cfg`` through ``train_loop`` (the plan priced for T_PLAN_WORKERS
+    workers at rank T_R), ``steps`` steps of T_BATCH x T_SEQ, the counts
+    reset just before the loop: every loss and gradient norm finite, one
+    sketch_fwd and three gemm launches a compressed leaf a step, the
+    median step after the first, tokens/s, the exchange's CUDA-event ms,
+    peak memory.  ``n_params`` and ``n_compressed`` are checked unless
+    the configs are reduced (0); ``on_first_step()`` runs after step 1."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.configs import RunConfig
     from repro_torch.models import get_api, param_leaves
     from repro_torch.plan import plan_train_compression
     from repro_torch.train import (init_state, make_dp_compressed_step,
                                    train_loop)
-    cfg = moe_config(MOE_ARCH)
     api = get_api(cfg)
-    run = RunConfig(steps=MOE_STEPS, learning_rate=1e-4, warmup_steps=2,
+    run = RunConfig(steps=steps, learning_rate=1e-4, warmup_steps=2,
                     checkpoint_every=0, grad_compress_rank=T_R)
     plan = plan_train_compression(api.init(0, cfg, "meta"), rank=T_R,
                                   P=T_PLAN_WORKERS)
-    check(MOE_REDUCED or plan.n_compressed == 11,
-          f"phase 24 (a): the plan compresses {plan.n_compressed} leaves, "
-          f"not 11")
+    check(not n_compressed or plan.n_compressed == n_compressed,
+          f"{tag}: the plan compresses {plan.n_compressed} leaves, not "
+          f"{n_compressed}")
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_state(api, cfg, run, 0, dev, decisions=plan.decision_tree())
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for _, t in param_leaves(state.params))
-    check(MOE_REDUCED or n_params == 1_334_628_352,
-          f"phase 24 (a): {n_params} parameters")
-    print(f"[moe] (a) {cfg.name}: {n_params} parameters ({cfg.n_layers} "
-          f"layers, d_model {cfg.d_model}, {cfg.n_experts} experts top-"
-          f"{cfg.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}), "
-          f"state on the card in {time.perf_counter() - t0:.1f} s; plan at "
+    got = sum(t.numel() for _, t in param_leaves(state.params))
+    check(not n_params or got == n_params, f"{tag}: {got} parameters")
+    print(f"{tag} {cfg.name}: {got} parameters ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}), state "
+          f"on the card in {time.perf_counter() - t0:.1f} s; plan at "
           f"P={T_PLAN_WORKERS}, rank {T_R}: {plan.n_compressed}/"
           f"{len(plan.decisions)} leaves compressed (raw: "
           f"{[d.name for d in plan.decisions if not d.compress]})")
     step = make_dp_compressed_step(api, cfg, run, plan=plan)
-    per_step, exchange_ms, last = [], [], {}
+    per_step, exchange_ms, norms, last = [], [], [], {}
 
     def on_step(i, metrics):
         now = dict(LAUNCHES)
         per_step.append({k: now[k] - last[k] for k in now})
         last.update(now)
+        norms.append(metrics.get("grad_norm", float("nan")))
         if step.exchange is not None:
             start, end = step.exchange
             end.synchronize()
             exchange_ms.append(start.elapsed_time(end))
+        if i == 0 and on_first_step is not None:
+            on_first_step()
 
     reset_launches()
     last.update(LAUNCHES)
-    res = train_loop(step, state, DataConfig(cfg.vocab, MOE_SEQ, MOE_BATCH,
+    res = train_loop(step, state, DataConfig(cfg.vocab, T_SEQ, T_BATCH,
                                              seed=0),
                      run, device=dev, on_step=on_step)
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    print(f"[moe] (a) losses: {res.losses}")
-    print(f"[moe] (a) launches a step: {per_step}")
-    check(len(res.losses) == MOE_STEPS and all(
-        math.isfinite(x) for x in res.losses),
-        f"phase 24 (a): losses {res.losses}")
+    print(f"{tag} losses: {res.losses}; gradient norms: {norms}")
+    print(f"{tag} launches a step: {per_step}")
+    check(len(res.losses) == steps and all(
+        math.isfinite(x) for x in res.losses + norms),
+        f"{tag}: losses {res.losses}, gradient norms {norms}")
     for c in per_step:
         check(c["gemm"] == 3 * plan.n_compressed and
               c["sketch_fwd"] == plan.n_compressed,
-              f"phase 24 (a): a step launched gemm {c['gemm']} and "
-              f"sketch_fwd {c['sketch_fwd']} times")
-    check(MOE_REDUCED or len(exchange_ms) == MOE_STEPS,
-          "phase 24 (a): no CUDA events around the exchange")
+              f"{tag}: a step launched gemm {c['gemm']} and sketch_fwd "
+              f"{c['sketch_fwd']} times")
+    check(len(exchange_ms) == steps, f"{tag}: no CUDA events around the "
+                                     f"exchange")
     steady = res.step_seconds[1:]
     step_s = statistics.median(steady)
-    ex_ms = statistics.median(exchange_ms[1:]) if exchange_ms else None
-    out = {"n_params": n_params, "losses": res.losses,
+    ex_ms = statistics.median(exchange_ms[1:])
+    out = {"n_params": got, "losses": res.losses, "grad_norms": norms,
            "step_seconds": res.step_seconds, "median_step_s": step_s,
-           "tokens_per_s": MOE_BATCH * MOE_SEQ / step_s,
+           "tokens_per_s": T_BATCH * T_SEQ / step_s,
            "exchange_ms": exchange_ms, "median_exchange_ms": ex_ms,
            "peak_gib": peak / 2 ** 30, "held_gib": held / 2 ** 30,
            "launches": {k: counts[k] for k in ("sketch_fwd", "gemm")},
            "per_step": per_step, "n_compressed": plan.n_compressed}
-    print(f"[moe] (a) step times (s, host clock, each ending in a device "
+    print(f"{tag} step times (s, host clock, each ending in a device "
           f"synchronize): {res.step_seconds}; median {step_s:.4f} s over "
           f"{len(steady)} steps after the warm-up: "
           f"{out['tokens_per_s']:.1f} tokens/s; the exchange "
-          + ("not measured" if ex_ms is None else
-             f"{ex_ms:.3f} ms (CUDA events, median), "
-             f"{ex_ms * 1e-3 / step_s:.4f} of the step")
-          + f"; peak memory {out['peak_gib']:.2f} GiB (max_memory_allocated;"
-            f" {out['held_gib']:.2f} GiB held before; {card})")
+          f"{ex_ms:.3f} ms (CUDA events, median), "
+          f"{ex_ms * 1e-3 / step_s:.4f} of the step; peak memory "
+          f"{out['peak_gib']:.2f} GiB (max_memory_allocated; "
+          f"{out['held_gib']:.2f} GiB held before; {card})")
     del state, res, step
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def moe_exchange_calls(dev, local, grad_compress, card: str) -> dict:
-    """Phase 24 (a), apart from the loop: for each leaf of MOE_LEAVES, the
-    whole exchange on a gradient of the leaf's folded shape and dtype
-    with a nonzero error buffer, against ``_plain_exchange``; then
-    sketch_fwd and the three K5 calls at that shape, each timed beside its
-    plain version, the PyTorch call computing the same function (none for
-    a product rounded to bf16) and its bound."""
+def moe_train(dev, LAUNCHES, reset_launches, card: str) -> dict:
+    """Phase 24 (a): granite-moe-1b-a400m at its published size through
+    ``train_loop``, MOE_STEPS steps of T_BATCH x T_SEQ."""
+    return exchange_train(
+        dev, moe_config(MOE_ARCH), LAUNCHES, reset_launches, card,
+        tag="[moe] (a)", steps=MOE_STEPS,
+        n_params=0 if MOE_REDUCED else 1_334_628_352,
+        n_compressed=0 if MOE_REDUCED else 11)
+
+
+def exchange_calls(dev, local, grad_compress, card: str, cfg, leaves,
+                   tag: str) -> dict:
+    """Apart from the training loop: for each leaf of ``leaves`` of
+    ``cfg``, the whole exchange on a gradient of the leaf's folded shape
+    and dtype with a nonzero error buffer, against ``_plain_exchange``;
+    then sketch_fwd and the three K5 calls at that shape, each timed
+    beside its plain version, the PyTorch call computing the same function
+    (none for a product rounded to bf16) and its bound."""
     from repro_torch.kernels.sketch_matmul import gemm_plan
     from repro_torch.models import get_api, param_leaves
-    cfg = moe_config(MOE_ARCH)
     shapes = dict(param_leaves(get_api(cfg).init(0, cfg, "meta")))
     g = torch.Generator(device=dev).manual_seed(24)
     seed = grad_compress.leaf_seed(0, 3)
     out = {}
-    for name in MOE_LEAVES:
+    for name in leaves:
         meta = shapes[name]
         m, n, dt = math.prod(meta.shape[:-1]), meta.shape[-1], meta.dtype
         r = min(T_R, m, n)
@@ -5836,13 +5942,13 @@ def moe_exchange_calls(dev, local, grad_compress, card: str) -> dict:
         tol_g = gemm_tol(m) if dt == torch.float32 else BF16_TOL
         err_g = rel_fro(grads[name], want_g)
         err_e = rel_fro(fbs[name], want_e)
-        print(f"[moe] (a) exchange of {name} ({m}x{n} {dt}, r={r}): g_hat "
+        print(f"{tag} exchange of {name} ({m}x{n} {dt}, r={r}): g_hat "
               f"rel_fro={err_g:.3e} (tol {tol_g:.1e}), e' rel_fro="
               f"{err_e:.3e} (tol {gemm_tol(m):.1e})")
-        check(grads[name].dtype == dt, f"phase 24 (a): {name}'s g_hat is "
+        check(grads[name].dtype == dt, f"{tag}: {name}'s g_hat is "
                                        f"{grads[name].dtype}")
         check(err_g <= tol_g and err_e <= gemm_tol(m),
-              f"phase 24 (a): the exchange of {name} disagrees with its "
+              f"{tag}: the exchange of {name} disagrees with its "
               f"plain version")
         err = max(max_abs(grads[name], want_g), max_abs(fbs[name], want_e))
         del grads, fbs, want_g, want_e
@@ -5893,6 +5999,12 @@ def moe_exchange_calls(dev, local, grad_compress, card: str) -> dict:
         del M, om, P_hat, Qt, G, grad, fb, calls
         torch.cuda.empty_cache()
     return out
+
+
+def moe_exchange_calls(dev, local, grad_compress, card: str) -> dict:
+    """Phase 24 (a), apart from the loop, at MOE_LEAVES."""
+    return exchange_calls(dev, local, grad_compress, card,
+                          moe_config(MOE_ARCH), MOE_LEAVES, "[moe] (a)")
 
 
 def moe_serve(dev, api, params, cfg, n_params: int, card: str) -> dict:
@@ -6138,6 +6250,403 @@ def phase_moe(dev, card: str, local, grad_compress, LAUNCHES,
                                  f"{MOE_SECONDS} s")
     return {"a": a, "b": b, "c": c, "d": d, "e": e, "f": f,
             "seconds": seconds, "card": card}
+
+
+# -- phase 25: SSM and hybrid (falcon-mamba-7b, zamba2-1.2b) ---------------
+
+def ssm_config(arch: str, **changes):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **changes)
+
+
+@contextlib.contextmanager
+def patched(module, name: str, wrap):
+    """``module.name`` replaced by ``wrap(the original)`` while open."""
+    real = getattr(module, name)
+    setattr(module, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def scan_ranged(real):
+    """Each Mamba-1 chunk scan inside a ``ssm.scan`` profiler range, whose
+    device span tells its kernels apart."""
+    from torch.profiler import record_function
+
+    def ranged(*args):
+        with record_function("ssm.scan"):
+            return real(*args)
+    return ranged
+
+
+def prefill_split(fn) -> dict:
+    """``fn()`` once under torch.profiler: the device ms of the Mamba-1
+    scan's levels (the kernels inside the ``ssm.scan`` ranges' device
+    spans), of the products (GEMM kernels) and of the rest."""
+    import bisect
+
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import ssm
+    torch.cuda.synchronize()
+    with patched(ssm, "_scan_chunk_diag", scan_ranged), profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev, ranges = trace_events(prof)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in ranges
+                   if e.name == "ssm.scan" and e.cat == "gpu_user_annotation")
+    starts = [a for a, _ in spans]
+    parts = {"scan": 0.0, "products": 0.0, "rest": 0.0}
+    for e in dev:
+        ms = e.time_range.elapsed_us() * 1e-3
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < spans[i][1]:
+            parts["scan"] += ms
+        elif any(w in e.name.lower() for w in ("nvjet", "gemm", "gemv",
+                                                "cutlass", "xmma")):
+            parts["products"] += ms
+        else:
+            parts["rest"] += ms
+    total = sum(parts.values())
+    return {**parts, "total": total, "events": len(dev),
+            "scan_spans": len(spans),
+            "scan_share": parts["scan"] / total if spans and total else
+            None}
+
+
+def ssm_serve(dev, api, params, cfg, n_params: int, card: str, tag: str,
+              max_len: int) -> dict:
+    """Phase 25 (a) / (d): ``serve_prefill`` of LM_BATCH x LM_PROMPT (the
+    last logits, no cache), timed by CUDA events and its device time split
+    by torch.profiler; a SSM_REPLAY-token prompt replayed by decode into a
+    batch-LM_BATCH state, then LM_DECODE greedy steps, each timed; the
+    idle share of LM_PROFILED profiled steps; one step's counted bytes
+    (``analyze_call``) beside the bytes it must move: every weight once,
+    the SSM states read and written, the KV caches read once, the logits
+    written."""
+    import types
+
+    from repro_torch.models import model_flops, param_leaves
+    from repro_torch.roofline import analyze_call, h100_rates
+    from repro_torch.serve.engine import serve_prefill
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(dev)
+    batch = {"tokens": toks}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # the profiled call is the warm-up: the split reads kernels' device
+    # time, which a first call's host-side allocations do not move
+    first = []
+    split = prefill_split(lambda: first.append(serve_prefill(params, cfg,
+                                                             batch)))
+    logits, none = first.pop()
+    check(none is None and tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{tag}: serve_prefill gave {tuple(logits.shape)}, {none}")
+    prefill_ms = time_ms(lambda: serve_prefill(params, cfg, batch), reps=2,
+                         warm=False)
+    prefill_peak = torch.cuda.max_memory_allocated() - held
+    caches = api.init_cache(cfg, LM_BATCH, max_len, device=dev)
+    for t in range(SSM_REPLAY):
+        logits, caches = api.decode_step(params, cfg, toks[:, t:t + 1],
+                                         caches, t)
+    tok = logits.argmax(-1)
+    finite = torch.isfinite(logits).all()
+    marks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, caches = api.decode_step(params, cfg, tok, caches,
+                                         SSM_REPLAY + i)
+        end.record()
+        marks.append((start, end))
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    check(bool(finite), f"{tag}: a decode logit is not finite")
+    step_ms = [s.elapsed_time(e) for s, e in marks]
+    decode_ms = statistics.median(step_ms[1:])
+    pos = SSM_REPLAY + LM_DECODE
+    prof = lm_decode_profile(api, params, cfg, tok, caches, pos)
+    pos += LM_PROFILED
+    shape = types.SimpleNamespace(global_batch=LM_BATCH, seq_len=max_len,
+                                  kind="decode")
+    terms = analyze_call("decode step", lambda: api.decode_step(
+        params, cfg, tok, caches, pos), model_flops=model_flops(
+        cfg, shape, n_params), device=dev)
+    nbytes = (lambda t: t.numel() * t.element_size())
+    weights = sum(nbytes(t) for _, t in param_leaves(params))
+    state = nbytes(caches["conv"]) + nbytes(caches["ssm"])
+    kv = sum(nbytes(e[kv]) for e in caches.get("shared", []) for kv in e)
+    must = weights + 2 * state + kv + nbytes(logits)
+    must_ms = must / h100_rates().hbm_bw * 1e3
+    out = {"prefill_ms": prefill_ms, "prefill_peak_bytes": prefill_peak,
+           "prefill_split_ms": split, "decode_ms": decode_ms,
+           "decode_ms_range": [min(step_ms[1:]), max(step_ms[1:])],
+           "tokens_per_s": LM_BATCH / decode_ms * 1e3,
+           "loop_tokens_per_s": LM_BATCH * LM_DECODE / loop_s, **prof,
+           "counted_bytes": terms.hlo_bytes, "counted_flops": terms.hlo_flops,
+           "t_bound_ms": terms.t_bound * 1e3, "bottleneck": terms.bottleneck,
+           "weights_bytes": weights, "state_bytes": state, "kv_bytes": kv,
+           "must_move_bytes": must, "must_move_ms": must_ms}
+    if split["scan_share"] is not None:
+        scan = f"scan {split['scan']:.3f} ms ({split['scan_share']:.3f})"
+    else:
+        scan = ("no ssm.scan span in the trace" if cfg.family == "ssm"
+                else "no Mamba-1 scan")
+    print(f"{tag} {cfg.name}, {n_params} params: serve_prefill "
+          f"{LM_BATCH}x{LM_PROMPT} {prefill_ms:.3f} ms (CUDA events, median "
+          f"of 2 after the profiled one, "
+          f"{LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.1f}"
+          f" prompt tokens/s; peak {prefill_peak / 1e9:.3f} GB over the "
+          f"weights); its device time under torch.profiler "
+          f"{split['total']:.3f} ms in {split['events']} events: {scan}, "
+          f"products {split['products']:.3f} ms, the rest "
+          f"{split['rest']:.3f} ms ({card})")
+    print(f"{tag} decode after a {SSM_REPLAY}-token replay at batch "
+          f"{LM_BATCH}: step {decode_ms:.3f} ms (median of steps 2-"
+          f"{LM_DECODE}; range {out['decode_ms_range'][0]:.3f}-"
+          f"{out['decode_ms_range'][1]:.3f}), {out['tokens_per_s']:.1f} "
+          f"tokens/s ({out['loop_tokens_per_s']:.1f} over the loop on the "
+          f"host clock); profiled ({LM_PROFILED} steps): idle share "
+          f"{prof['idle_share']:.3f}, {prof['device_events_a_step']:.0f} "
+          f"device events a step ({card})")
+    print(f"{tag} one decode step counted: {terms.hlo_bytes:.4e} device "
+          f"bytes, {terms.hlo_flops:.4e} FLOPs; must move {must:.4e} bytes "
+          f"(weights {weights:.4e}, states {state:.4e} read and written, KV "
+          f"caches {kv:.4e} read, logits): {must_ms:.3f} ms at "
+          f"{h100_rates().hbm_bw / 1e12:.2f} TB/s, "
+          f"{must_ms / decode_ms:.4f} of the measured {decode_ms:.3f} ms")
+    del caches, logits, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_decode_vs_forward(dev, api, params, cfg, tol, card: str,
+                          tag: str) -> dict:
+    """Phase 25 (b) / (d), in ``cfg.dtype``: SSM_FWD_STEPS teacher-forced
+    decode steps of LM_BATCH rows from an empty state, each step's logits
+    held against the family's hidden forward plus the head over the same
+    tokens (within ``tol``; None: reported only)."""
+    from repro_torch.models import mamba_lm, zamba
+    from repro_torch.models.common import matmul
+    hidden = (mamba_lm.mamba_lm_hidden if cfg.family == "ssm"
+              else zamba.hybrid_hidden)
+    n = SSM_FWD_STEPS
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (LM_BATCH, n))).to(dev)
+    caches = api.init_cache(cfg, LM_BATCH, n, device=dev)
+    real = []
+    for t in range(n):
+        logits, caches = api.decode_step(params, cfg, toks[:, t:t + 1],
+                                         caches, t)
+        real.append(logits[:, 0])
+    with torch.inference_mode():
+        ref = matmul(hidden(params, cfg, toks, remat=False),
+                     params["lm_head"].T)
+    real = torch.stack(real, dim=1)
+    out = {"dtype": cfg.dtype, "layers": cfg.n_layers,
+           "err": rel_fro(real, ref),
+           "step_err_max": max(rel_fro(real[:, i], ref[:, i])
+                               for i in range(n)), "tol": tol}
+    print(f"{tag} {cfg.name} on {cfg.n_layers} layers, {cfg.dtype}: {n} "
+          f"teacher-forced decode steps of {LM_BATCH} rows against the "
+          f"forward plus head, relative Frobenius {out['err']:.3e} (worst "
+          f"step {out['step_err_max']:.3e}); limit "
+          f"{'none (reported)' if tol is None else tol} ({card})")
+    check(tol is None or out["step_err_max"] <= tol,
+          f"{tag}: {cfg.dtype} decode misses the forward: "
+          f"{out['step_err_max']:.3e} > {tol}")
+    return out
+
+
+def ssm_build(dev, cfg, card: str, tag: str):
+    """``cfg``'s params built on the card from seed 0, the build's peak
+    over what was held before within 1.1 x the weights."""
+    from repro_torch.models import get_api, param_leaves
+    api = get_api(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(0, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    leaves = param_leaves(params)
+    n_params = sum(t.numel() for _, t in leaves)
+    weights = sum(t.numel() * t.element_size() for _, t in leaves)
+    print(f"{tag} {cfg.name}: {n_params} parameters ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+          f"ssm_state {cfg.ssm_state}, vocab {cfg.vocab}, {cfg.dtype}), "
+          f"{weights / 1e9:.3f} GB, random weights from seed 0, built on "
+          f"the card in {init_s:.1f} s; peak while building "
+          f"{peak / 1e9:.3f} GB ({peak / weights:.4f} of the weights; "
+          f"{card})")
+    check(n_params == SSM_PARAMS[cfg.name], f"{tag}: {n_params} parameters")
+    check(peak <= 1.1 * weights, f"{tag}: building the params peaked at "
+                                 f"{peak} bytes, over 1.1 x {weights}")
+    return api, params, {"n_params": n_params, "weights_bytes": weights,
+                         "init_s": init_s, "init_peak_bytes": peak}
+
+
+def hybrid_long_prompt(dev, params, cfg, card: str) -> dict:
+    """Phase 25 (e): one 1 x HY_LONG prompt through ``serve_prefill``,
+    past ``nystrom_attn_above``: each application of the shared block
+    attends through ``nystrom_attention`` (counted), the logits finite."""
+    from repro_torch.models import zamba
+    from repro_torch.serve.engine import serve_prefill
+    length = HY_LONG
+    check(length >= cfg.nystrom_attn_above > 0,
+          f"phase 25 (e): {length} tokens do not take the Nystrom branch")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, length))).to(dev)
+    calls = []
+
+    def counted(real):
+        def call(*args, **kw):
+            calls.append(1)
+            return real(*args, **kw)
+        return call
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    with patched(zamba, "nystrom_attention", counted):
+        start.record()
+        logits, none = serve_prefill(params, cfg, {"tokens": toks})
+        end.record()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    want = zamba._n_shared_applications(cfg)
+    out = {"tokens": length, "ms": start.elapsed_time(end), "wall_s": wall,
+           "nystrom_calls": len(calls), "applications": want,
+           "peak_bytes": peak,
+           "finite": bool(torch.isfinite(logits).all())}
+    print(f"[ssm] (e) {cfg.name}: serve_prefill of 1 x {length} tokens "
+          f"(nystrom_attn_above {cfg.nystrom_attn_above}, "
+          f"{cfg.nystrom_landmarks} landmarks) {out['ms']:.1f} ms (CUDA "
+          f"events, one call; {wall:.2f} s on the host clock); "
+          f"nystrom_attention called {len(calls)} times for {want} "
+          f"applications of the shared block; logits finite: "
+          f"{out['finite']}; peak {peak / 1e9:.3f} GB over the weights "
+          f"({card})")
+    check(len(calls) == want == 6,
+          f"phase 25 (e): nystrom_attention called {len(calls)} times, not "
+          f"{want}")
+    check(out["finite"] and none is None and tuple(logits.shape) == (
+        1, 1, cfg.vocab), "phase 25 (e): the long prompt's logits")
+    return out
+
+
+def decay_logged(log: list, real):
+    """``ssm.masked_decay`` (``real``) that also appends the chunk's
+    largest masked exponent (cum_t - cum_s for t < s) to ``log``, as a
+    device tensor."""
+    def logged(cum, mask):
+        with torch.no_grad():
+            diff = cum[:, :, None, :] - cum[:, None, :, :]
+            log.append(diff.masked_fill(mask[None, :, :, None],
+                                        -math.inf).amax())
+        return real(cum, mask)
+    return logged
+
+
+def phase_ssm(dev, card: str, local, grad_compress, LAUNCHES,
+              reset_launches) -> dict:
+    """Phase 25: (a) falcon-mamba-7b served at its published size, (b) its
+    decode against the forward on 4 layers, (c) zamba2-1.2b trained at its
+    published size with the exchange, (d) zamba2-1.2b served, its float32
+    decode against the forward over the whole depth, (e) its 65536-token
+    prompt through the Nystrom branch, (f) the launcher."""
+    from repro_torch.models import ssm
+    t0 = time.perf_counter()
+    parts, last = {}, [t0]
+
+    def part(name: str) -> None:
+        now = time.perf_counter()
+        parts[name] = parts.get(name, 0.0) + now - last[0]
+        last[0] = now
+    cfg = ssm_config(SSM_ARCH)
+    api, params, built = ssm_build(dev, cfg, card, "[ssm] (a)")
+    a = dict(built, **ssm_serve(dev, api, params, cfg, built["n_params"],
+                                card, "[ssm] (a)", LM_MAX_LEN))
+    part("a")
+    del params
+    cfg4 = ssm_config(SSM_ARCH, n_layers=SSM_FWD_LAYERS)
+    params = api.init(0, cfg4, dev)
+    b = [ssm_decode_vs_forward(dev, api, params, cfg4, None, card,
+                               "[ssm] (b)")]
+    b.append(ssm_decode_vs_forward(
+        dev, api, _to_float32(params),
+        dataclasses.replace(cfg4, dtype="float32"), SSM_FWD_TOL, card,
+        "[ssm] (b)"))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("b")
+
+    hcfg = ssm_config(HY_ARCH)
+    decay, real_decay = [], ssm.masked_decay
+    ssm.masked_decay = decay_logged(decay, real_decay)
+
+    def first_step_done():
+        ssm.masked_decay = real_decay
+    try:
+        c = exchange_train(dev, hcfg, LAUNCHES, reset_launches, card,
+                           tag="[ssm] (c)", steps=SSM_STEPS,
+                           n_params=SSM_PARAMS[HY_ARCH],
+                           n_compressed=HY_COMPRESSED,
+                           on_first_step=first_step_done)
+    finally:
+        ssm.masked_decay = real_decay
+    c["max_masked_exponent"] = max(float(x) for x in decay)
+    c["decay_calls"] = len(decay)
+    print(f"[ssm] (c) step 1's largest masked decay exponent (cum_t - "
+          f"cum_s, t < s) over {len(decay)} chunk calls: "
+          f"{c['max_masked_exponent']:.3f} (exp overflows f32 past 88.7; "
+          f"the port masks before the exp)")
+    c["leaves"] = exchange_calls(dev, local, grad_compress, card, hcfg,
+                                 HY_LEAVES, "[ssm] (c)")
+    part("c")
+    api, params, built = ssm_build(dev, hcfg, card, "[ssm] (d)")
+    d = dict(built, **ssm_serve(dev, api, params, hcfg, built["n_params"],
+                                card, "[ssm] (d)", LM_MAX_LEN))
+    part("d")
+    e = hybrid_long_prompt(dev, params, hcfg, card)
+    part("e")
+    params = _to_float32(params)
+    d["vs_forward"] = ssm_decode_vs_forward(
+        dev, api, params, dataclasses.replace(hcfg, dtype="float32"),
+        SSM_FWD_TOL, card, "[ssm] (d)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("d")
+    f = phase_lm_launcher(HY_LAUNCHER, tag="[ssm] (f)")
+    part("f")
+    seconds = time.perf_counter() - t0
+    print("[ssm] seconds by part (host clock): " + ", ".join(
+        f"({k}) {v:.1f}" for k, v in parts.items()) + f"; {seconds:.1f} in "
+        f"all ({card})")
+    check(seconds < SSM_SECONDS, f"phase 25 took {seconds:.1f} s, not "
+                                 f"under {SSM_SECONDS} s")
+    return {"a": a, "b": b, "c": c, "d": d, "e": e, "f": f,
+            "seconds": seconds, "part_seconds": parts, "card": card}
 
 
 def main() -> int:
@@ -6579,6 +7088,17 @@ def main() -> int:
     print(f"[phases] 24 done at {time.perf_counter() - t_start:.1f} s "
           f"(phase 24: {moe['seconds']:.1f} s; {card})")
 
+    # -- 25. SSM and hybrid: falcon-mamba-7b, zamba2-1.2b ---------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    hy = phase_ssm(dev, card, local, grad_compress, LAUNCHES, reset_launches)
+    for name in ("sketch_fwd", "gemm"):
+        check(hy["c"]["launches"][name] > 0,
+              f"phase 25: {name} never launched on the hybrid training path")
+    print("[ssm] summary " + json.dumps(hy, default=str))
+    print(f"[phases] 25 done at {time.perf_counter() - t_start:.1f} s "
+          f"(phase 25: {hy['seconds']:.1f} s; {card})")
+
     total = [sum(gemm_times[c][i] for c in "abc") for i in range(3)]
     bound3 = sum(gemm_times[c][3][0] for c in "abc")
     rows.append(("gemm",
@@ -6665,6 +7185,17 @@ def main() -> int:
                        if name == "sketch_fwd" else
                        {c: res["calls"][c] for c in "abc"})}
                     for leaf, res in moe["a"]["leaves"].items()}}
+            # phase 25 (c): the same over zamba2-1.2b's steps and at its
+            # tallest leaf and a shared one
+            kernels[-1]["hybrid_train"] = {
+                "launches": hy["c"]["launches"][name],
+                "steps": SSM_STEPS,
+                "calls": {leaf: {
+                    "shape": res["shape"], "dtype": res["dtype"],
+                    **({"sketch_fwd": res["calls"]["sketch_fwd"]}
+                       if name == "sketch_fwd" else
+                       {c: res["calls"][c] for c in "abc"})}
+                    for leaf, res in hy["c"]["leaves"].items()}}
         if name in ("sketch_fwd", "sketch_t", "fold_rows"):
             # phase 21: the launches of the one-card recovery paths and of
             # each rank's reshards, queue and service (counts reset at the

@@ -47,10 +47,27 @@ class ModelConfig:
     router_aux_weight: float = 0.01
     moe_dispatch: str = "scatter"   # scatter (optimized) | einsum (GShard)
 
+    # SSM
+    ssm_state: int = 0
+    d_inner: int = 0
+    dt_rank: int = 0
+    d_conv: int = 4
+    mamba_version: int = 1
+    ssm_heads: int = 0            # mamba2
+    ssm_chunk: int = 256
+
+    # hybrid (zamba): one shared attention+FFN block applied every k layers
+    shared_attn_every: int = 0
+
     # numerics
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
     loss_chunk: int = 512
+
+    # long-context attention substitution (paper technique): use Nyström
+    # landmark attention for full-attention blocks above this seq length
+    nystrom_attn_above: int = 0   # 0 = never
+    nystrom_landmarks: int = 256
 
     def __post_init__(self):
         if self.head_dim is None:
@@ -72,9 +89,9 @@ class ModelConfig:
 
     def reduced(self, **overrides) -> "ModelConfig":
         """Smoke-test variant: same family and topology, tiny dims (the
-        reference's ``reduced()`` for the dense and MoE families)."""
+        reference's ``reduced()``, for the families the port has)."""
         shrink = dict(
-            n_layers=min(self.n_layers, 2),
+            n_layers=min(self.n_layers, 2 if self.family != "hybrid" else 5),
             d_model=64,
             n_heads=4,
             n_kv_heads=(min(self.n_kv_heads, 2)
@@ -85,8 +102,15 @@ class ModelConfig:
             window=min(self.window, 8) if self.window else 0,
             n_experts=min(self.n_experts, 4) if self.n_experts else 0,
             top_k=min(self.top_k, 2) if self.top_k else 0,
+            ssm_state=min(self.ssm_state, 8) if self.ssm_state else 0,
+            d_inner=128 if self.d_inner else 0,
+            dt_rank=8 if self.dt_rank else 0,
+            ssm_heads=4 if self.ssm_heads else 0,
+            ssm_chunk=8,
+            shared_attn_every=2 if self.shared_attn_every else 0,
             dtype="float32",
             loss_chunk=16,
+            nystrom_landmarks=4,
         )
         shrink.update(overrides)
         return dataclasses.replace(self, **shrink)

@@ -8,8 +8,10 @@ dict its checkpoint manifest stores) and the sketches as numpy arrays.
 
 Training: ``params_from_jax`` takes the reference's LM params as a numpy
 tree (``jax.device_get`` of them; the attention and FFN groups as dicts,
-as ``lm_init`` makes them) and gives the port's, stacked leaves and bf16
-included; ``train_state_from_jax`` carries a whole ``TrainState`` (AdamW
+as ``lm_init`` makes them) and gives the port's, stacked leaves included,
+each leaf in its own dtype (a bf16 model's f32 router, ``A_log``, ``D``
+and ``dt_bias`` stay f32); ``cache_from_jax`` does the same for a decode
+cache; ``train_state_from_jax`` carries a whole ``TrainState`` (AdamW
 moments, count, step, and one worker's error buffers), so both packages
 continue from the same point; ``train_state_from_checkpoint`` reads the
 same state from a checkpoint directory the reference wrote
@@ -88,16 +90,28 @@ def _tree(x, fn):
         return {k: _tree(v, fn) for k, v in x.items()}
     if hasattr(x, "_asdict"):                  # a NamedTuple group
         return _tree(x._asdict(), fn)
+    if isinstance(x, (list, tuple)):           # e.g. the hybrid's KV list
+        return [_tree(v, fn) for v in x]
     return fn(x)
 
 
 def params_from_jax(tree, device=None):
     """The port's params (nested dict of leaf tensors that require grad,
     on ``device``; ``None``: the card) from the reference's params as a
-    numpy tree."""
+    numpy tree, each leaf in its own dtype."""
     from .core.rng import resolve_device
     device = resolve_device(device)
     return _tree(tree, lambda x: _tensor(x, device, requires_grad=True))
+
+
+def cache_from_jax(cache, device=None):
+    """The port's decode cache (tensors on ``device``; ``None``: the card)
+    from a reference cache as a numpy tree: the dense family's per-layer
+    list, or the SSM and hybrid families' dict of stacked states (the
+    hybrid's ``shared`` a list of ``{"k", "v"}``)."""
+    from .core.rng import resolve_device
+    device = resolve_device(device)
+    return _tree(cache, lambda x: _tensor(x, device))
 
 
 def train_state_from_jax(state, worker: Optional[int] = None, device=None):

@@ -1,18 +1,26 @@
 """Serving driver of the port: multi-tenant sketch ingest (shape-bucketed
 ragged batching behind the bounded async queue) on one card, LM decoding
-of the dense and MoE families (continuous-batching-lite), and the chaos
-drills of the recovery layer.
+of the dense, MoE, SSM and hybrid families (continuous-batching-lite), and
+the chaos drills of the recovery layer.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload sketch \
       --streams 64 --updates 4 --n1 1024 --n2 512 --r 32
 
-LM decoding (``--arch`` of the dense or MoE family, the reduced config
-unless ``--full``; random weights from seed 0):
+LM decoding (``--arch`` of the dense, MoE, SSM or hybrid family:
+gemma2-2b, llama3-8b, internlm2-20b, h2o-danube-3-4b,
+granite-moe-1b-a400m, dbrx-132b, falcon-mamba-7b, zamba2-1.2b; the
+reduced config unless ``--full``; random weights from seed 0):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \
       --arch gemma2-2b --full --requests 6 --slots 4 --max-new 16
   PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \
       --arch granite-moe-1b-a400m --full --requests 6 --slots 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \
+      --arch zamba2-1.2b --full --requests 6 --slots 4
+
+The SSM and hybrid families keep an O(1) recurrent state a slot (the
+hybrid also a KV cache per application of its shared block), and a slot's
+prompt is replayed token by token, as in the reference.
 
 ``--arch dbrx-132b --full`` asks for all 40 layers (263 GB in bf16),
 more than one card holds.

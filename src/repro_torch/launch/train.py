@@ -8,10 +8,14 @@ loop -> checkpoints, with optional sketched gradient compression:
       --arch gemma2-2b --steps 20 --batch 4 --seq 32 --grad-compress 8
 
 ``--arch`` takes the dense family (gemma2-2b, llama3-8b, internlm2-20b,
-h2o-danube-3-4b) and the MoE family (granite-moe-1b-a400m, dbrx-132b,
-whose load-balancing loss enters the training loss); ``--full
---arch granite-moe-1b-a400m`` trains granite at its published size on
-one card, while dbrx-132b's 132B parameters fit no single card.
+h2o-danube-3-4b), the MoE family (granite-moe-1b-a400m, dbrx-132b,
+whose load-balancing loss enters the training loss), the SSM family
+(falcon-mamba-7b, Mamba-1) and the hybrid family (zamba2-1.2b, Mamba-2
+with a shared attention block); ``--full --arch granite-moe-1b-a400m``
+or ``--full --arch zamba2-1.2b`` trains at the published size on one
+card, while dbrx-132b's 132B parameters fit no single card and
+falcon-mamba-7b's bf16 params, grads and f32 AdamW moments (87.3 GB) do
+not fit one 80 GB card either.
 
 ``--device`` defaults to the card (and fails without one); on the card the
 exchange's GEMMs run the hand-written kernels.  With ``--grad-compress``

@@ -1,15 +1,18 @@
 """Uniform model API of the port (the reference's ``models/api.py``), for
-the dense and MoE families, the parameter leaf order of the reference,
-and the useful FLOPs of a step (``model_flops``, ``count_params_split``,
-``count_active_params``).
+the dense, MoE, SSM (falcon-mamba) and hybrid (zamba2) families, the
+parameter leaf order of the reference, and the useful FLOPs of a step
+(``model_flops``, ``count_params_split``, ``count_active_params``).
 
-The dense and MoE families expose:
+Every family exposes:
   init(seed, cfg, device) -> params
   loss(params, cfg, batch, remat=) -> scalar
   init_cache(cfg, batch, max_len, dtype=None, device=None) -> caches
   decode_step(params, cfg, token, caches, pos) -> (logits, caches)
+and the dense and MoE families also
   prefill(params, cfg, tokens, remat=, kv_chunk=, max_len=)
       -> (last-position logits, caches)
+(``prefill=None`` for the SSM and hybrid families, as in the reference:
+``serve.engine.serve_prefill`` gives their last logits and no cache).
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from . import transformer
+from . import mamba_lm, transformer, zamba
 
 
 @dataclass(frozen=True)
@@ -35,14 +38,21 @@ class ModelAPI:
 _LM = ModelAPI(transformer.lm_init, transformer.lm_loss,
                transformer.init_cache, transformer.decode_step,
                transformer.prefill)
-_FAMILIES = {"dense": _LM, "moe": _LM}
+_FAMILIES = {
+    "dense": _LM, "moe": _LM,
+    "ssm": ModelAPI(mamba_lm.mamba_lm_init, mamba_lm.mamba_lm_loss,
+                    mamba_lm.mamba_lm_init_cache,
+                    mamba_lm.mamba_lm_decode_step),
+    "hybrid": ModelAPI(zamba.hybrid_init, zamba.hybrid_loss,
+                       zamba.hybrid_init_cache, zamba.hybrid_decode_step),
+}
 
 
 def get_api(cfg: ModelConfig) -> ModelAPI:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue 1, "
-            f"item 11: the LM substrate)")
+            f"item 11d: the LM substrate's remainder)")
     return _FAMILIES[cfg.family]
 
 

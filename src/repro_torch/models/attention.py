@@ -1,11 +1,10 @@
 """Attention (the reference's ``models/attention.py``): GQA with a
 chunked online softmax over KV chunks, sliding windows and the gemma-2
-score softcap for training and prefill, and one-token decode against a KV
-cache (``attention_decode``).  No kernel here: the reference computes
+score softcap for training and prefill, one-token decode against a KV
+cache (``attention_decode``), and Nyström landmark attention for long
+sequences (``nystrom_attention``).  No kernel here: the reference computes
 attention outside any Pallas kernel, and so does the port, with plain
 torch ops that compute the same function (masks and softcap included).
-
-``nystrom_attention`` is not ported yet (ROADMAP.md item 11d).
 """
 from __future__ import annotations
 
@@ -180,3 +179,58 @@ def attention_decode(params: AttnParams, x: torch.Tensor,
     out = torch.einsum("bshgc,bchd->bshgd", p, cache_v.float())
     y = matmul(out.reshape(B, 1, Hq * D).to(x.dtype), params.wo)
     return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Nyström landmark attention (the paper's two-product structure)
+# ---------------------------------------------------------------------------
+
+def nystrom_attention(params: AttnParams, x: torch.Tensor, *, n_heads: int,
+                      n_kv_heads: int, head_dim: int, n_landmarks: int = 64,
+                      rope_theta: float = 1e4, use_rope: bool = True,
+                      pinv_iters: int = 6) -> torch.Tensor:
+    """Nyströmformer-style attention: softmax(QKᵀ) approximated as
+    ``F · A⁺ · Bm``, two sketched products and the pseudo-inverse of a
+    small core, with segment-mean landmarks as the sketch.  O(S·m) time
+    and memory.  Non-causal, as the reference's (the hybrid's shared block
+    on long prompts).  A⁺ is ``pinv_iters`` Newton–Schulz steps of the
+    m × m core."""
+    B, S, _ = x.shape
+    Hq, Hk, D = n_heads, n_kv_heads, head_dim
+    G = Hq // Hk
+    m = min(n_landmarks, S)
+    assert S % m == 0, (S, m)
+
+    q = matmul(x, params.wq).reshape(B, S, Hq, D)
+    k = matmul(x, params.wk).reshape(B, S, Hk, D)
+    v = matmul(x, params.wv).reshape(B, S, Hk, D)
+    if use_rope:
+        pos = torch.arange(S, dtype=torch.int64, device=x.device)[None, :]
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+    # kv heads expanded to the query heads
+    k = k.repeat_interleave(G, dim=2)
+    v = v.repeat_interleave(G, dim=2)
+
+    qf = q.float() / math.sqrt(D)
+    kf = k.float()
+    # landmarks: segment means (Q and K sketched by a fixed averaging matrix)
+    q_l = qf.reshape(B, m, S // m, Hq, D).mean(dim=2)
+    k_l = kf.reshape(B, m, S // m, Hq, D).mean(dim=2)
+
+    Fm = torch.softmax(torch.einsum("bshd,bmhd->bhsm", qf, k_l), dim=-1)
+    A = torch.softmax(torch.einsum("bmhd,bnhd->bhmn", q_l, k_l), dim=-1)
+    Bm = torch.softmax(torch.einsum("bmhd,bshd->bhms", q_l, kf), dim=-1)
+
+    # iterative Moore-Penrose pseudo-inverse of the (m x m) core
+    eye = torch.eye(m, dtype=torch.float32, device=x.device)
+    a1 = A.sum(-1).amax(-1)[..., None, None]
+    a2 = A.sum(-2).amax(-1)[..., None, None]
+    Z = A.transpose(-1, -2) / (a1 * a2)
+    for _ in range(pinv_iters):
+        AZ = A @ Z
+        Z = 0.25 * Z @ (13 * eye - AZ @ (15 * eye - AZ @ (7 * eye - AZ)))
+
+    out = Fm @ Z @ torch.einsum("bhms,bshd->bhmd", Bm, v.float())
+    out = out.transpose(1, 2).reshape(B, S, Hq * D).to(x.dtype)
+    return matmul(out, params.wo)

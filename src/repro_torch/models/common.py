@@ -30,17 +30,36 @@ def _normal(gen: Optional[torch.Generator], shape, device) -> torch.Tensor:
                        device=device)
 
 
+def generator(seed: int, device: torch.device):
+    """A seeded ``torch.Generator`` on ``device`` (None on ``meta``, which
+    draws nothing)."""
+    return (None if device.type == "meta"
+            else torch.Generator(device=device).manual_seed(int(seed)))
+
+
 def dense_init(gen, d_in: int, d_out: int, dtype, device,
                scale: Optional[float] = None, layers: int = 0):
     """(d_in, d_out) normal · scale (default 1/sqrt(d_in)); with
     ``layers`` a stack of that many, (layers, d_in, d_out)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     shape = (layers, d_in, d_out) if layers else (d_in, d_out)
-    return (_normal(gen, shape, device) * scale).to(dtype)
+    return _normal(gen, shape, device).mul_(scale).to(dtype)
+
+
+def normal_stack(gen, shape, scale: float, dtype, device) -> torch.Tensor:
+    """normal · scale of ``shape`` in ``dtype``, drawn one matrix (the last
+    two axes) at a time into a preallocated tensor: the f32 temporary is
+    one matrix's, never the stack's (dbrx's 8-layer expert leaf alone
+    would be 33.8 GB in f32, falcon-mamba-7b's ``in_proj`` 17.2 GB)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type != "meta":
+        for m in out.view(-1, *shape[-2:]):
+            m.copy_(_normal(gen, shape[-2:], device).mul_(scale))
+    return out
 
 
 def embed_init(gen, vocab: int, d: int, dtype, device):
-    return (_normal(gen, (vocab, d), device) * 0.02).to(dtype)
+    return _normal(gen, (vocab, d), device).mul_(0.02).to(dtype)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -50,6 +69,22 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     rounds its output once, the same function without an f32 copy of
     either operand."""
     return torch.matmul(x, w.to(x.dtype))
+
+
+def layer_slice(tree, i: int):
+    """Layer i's params: the i-th slice of every stacked leaf."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def unbind_layers(tree):
+    """Every stacked leaf split into per-layer views (one autograd node per
+    leaf, so its gradient is stacked once, not summed from L full-size
+    zero-padded slices)."""
+    if isinstance(tree, dict):
+        return {k: unbind_layers(v) for k, v in tree.items()}
+    return tree.unbind(0)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .common import _normal, dense_init, matmul
+from .common import dense_init, matmul, normal_stack
 
 ACTIVATIONS = {"silu": F.silu,
                "gelu": lambda x: F.gelu(x, approximate="tanh")}
@@ -54,18 +54,6 @@ class MoEParams(NamedTuple):
     w_down: torch.Tensor   # (E, f, d)
 
 
-def _normal_stack(gen, shape, scale: float, dtype, device) -> torch.Tensor:
-    """normal · scale of ``shape`` in ``dtype``, drawn one matrix (the last
-    two axes) at a time into a preallocated tensor: the f32 temporary is
-    one expert's, never the stack's (dbrx's 8-layer expert leaf alone
-    would be 33.8 GB in f32)."""
-    out = torch.empty(shape, dtype=dtype, device=device)
-    if out.device.type != "meta":
-        for m in out.view(-1, *shape[-2:]):
-            m.copy_(_normal(gen, shape[-2:], device) * scale)
-    return out
-
-
 def moe_init(gen, d: int, f: int, n_experts: int, dtype, device,
              layers: int = 0) -> MoEParams:
     """The reference's scales: the router ``1/sqrt(d)`` in f32, gate and
@@ -75,12 +63,12 @@ def moe_init(gen, d: int, f: int, n_experts: int, dtype, device,
     E = n_experts
     return MoEParams(
         router=dense_init(gen, d, E, torch.float32, device, layers=layers),
-        w_gate=_normal_stack(gen, lead + (E, d, f), 1.0 / math.sqrt(d),
-                             dtype, device),
-        w_up=_normal_stack(gen, lead + (E, d, f), 1.0 / math.sqrt(d),
-                           dtype, device),
-        w_down=_normal_stack(gen, lead + (E, f, d), 1.0 / math.sqrt(f),
-                             dtype, device),
+        w_gate=normal_stack(gen, lead + (E, d, f), 1.0 / math.sqrt(d),
+                            dtype, device),
+        w_up=normal_stack(gen, lead + (E, d, f), 1.0 / math.sqrt(d),
+                          dtype, device),
+        w_down=normal_stack(gen, lead + (E, f, d), 1.0 / math.sqrt(f),
+                            dtype, device),
     )
 
 

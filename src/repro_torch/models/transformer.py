@@ -29,9 +29,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import FULL_WINDOW, ModelConfig
 from repro_torch.core.rng import resolve_device
-from .attention import AttnParams, attn_init, attention, attention_decode
-from .common import (cross_entropy_chunked, embed_init, layernorm,
-                     layernorm_init, matmul, rmsnorm, rmsnorm_init, softcap)
+from .attention import (AttnParams, attn_init, attention, attention_decode,
+                        nystrom_attention)
+from .common import (cross_entropy_chunked, embed_init, generator,
+                     layer_slice, layernorm, layernorm_init, matmul, rmsnorm,
+                     rmsnorm_init, softcap, unbind_layers)
 from .ffn import FFNParams, MoEParams, ffn, ffn_init, moe, moe_init
 
 
@@ -48,8 +50,9 @@ def _norm_apply(cfg: ModelConfig, p, x):
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: the port has only the dense and MoE families yet "
-            f"(ROADMAP.md Queue 1, item 11)")
+            f"{cfg.name}: this module is the dense and MoE families' LM; "
+            f"the {cfg.family} family is elsewhere (models/api.py "
+            f"get_api) or not ported yet (ROADMAP.md Queue 1, item 11d)")
 
 
 def lm_init(seed: int, cfg: ModelConfig, device=None) -> Dict[str, Any]:
@@ -59,8 +62,7 @@ def lm_init(seed: int, cfg: ModelConfig, device=None) -> Dict[str, Any]:
     params across instead."""
     _check_family(cfg)
     device = resolve_device(device)
-    gen = (None if device.type == "meta"
-           else torch.Generator(device=device).manual_seed(int(seed)))
+    gen = generator(seed, device)
     dtype, L = cfg.torch_dtype, cfg.n_layers
     blocks = {
         "attn": attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -84,22 +86,6 @@ def lm_init(seed: int, cfg: ModelConfig, device=None) -> Dict[str, Any]:
         params["lm_head"] = embed_init(gen, cfg.vocab, cfg.d_model, dtype,
                                        device)
     return params
-
-
-def _layer(tree, i: int):
-    """Layer i's params: the i-th slice of every stacked leaf."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
-def _unbind(tree):
-    """Every stacked leaf split into per-layer views (one autograd node per
-    leaf, so its gradient is stacked once, not summed from L full-size
-    zero-padded slices)."""
-    if isinstance(tree, dict):
-        return {k: _unbind(v) for k, v in tree.items()}
-    return tree.unbind(0)
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor):
@@ -132,15 +118,24 @@ def _ffn_residual(cfg: ModelConfig, blk, h, with_aux: bool = True):
 
 def _block_apply(cfg: ModelConfig, blk, h, window: int,
                  positions: torch.Tensor, kv_chunk: int,
-                 return_kv: bool = False):
+                 return_kv: bool = False, use_nystrom: bool = False):
     """``(h, aux)``; with ``return_kv`` (serving, which needs no aux)
-    ``(h, k, v)``, the layer's rotated K and its V."""
+    ``(h, k, v)``, the layer's rotated K and its V.  ``use_nystrom``
+    takes Nyström landmark attention (non-causal, no window) instead."""
     a_in = _norm_apply(cfg, blk["ln_attn"], h)
-    a = attention(AttnParams(**blk["attn"]), a_in, n_heads=cfg.n_heads,
-                  n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                  positions=positions, causal=True, window=window,
-                  attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
-                  kv_chunk=kv_chunk, return_kv=return_kv)
+    if use_nystrom:
+        a = nystrom_attention(AttnParams(**blk["attn"]), a_in,
+                              n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                              head_dim=cfg.head_dim,
+                              n_landmarks=cfg.nystrom_landmarks,
+                              rope_theta=cfg.rope_theta)
+    else:
+        a = attention(AttnParams(**blk["attn"]), a_in, n_heads=cfg.n_heads,
+                      n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                      positions=positions, causal=True, window=window,
+                      attn_softcap=cfg.attn_softcap,
+                      rope_theta=cfg.rope_theta, kv_chunk=kv_chunk,
+                      return_kv=return_kv)
     if return_kv:
         a, k, v = a
     if cfg.use_post_norms:
@@ -153,20 +148,25 @@ def lm_hidden(params, cfg: ModelConfig, tokens: torch.Tensor, *,
               remat: bool = True, kv_chunk: int = 1024):
     """Token ids (B, S) -> (final hidden (B, S, d), aux loss): the MoE
     layers' load-balancing losses summed in layer order (0 for a dense
-    model)."""
+    model).  From ``cfg.nystrom_attn_above`` tokens on (when set) every
+    block attends through ``nystrom_attention``, as the reference's."""
     _check_family(cfg)
     S = tokens.shape[1]
+    use_nystrom = bool(cfg.nystrom_attn_above) and \
+        S >= cfg.nystrom_attn_above
     h = _embed_tokens(params, cfg, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     positions = torch.arange(S, dtype=torch.int64, device=h.device)
-    layers = _unbind(params["blocks"])
+    layers = unbind_layers(params["blocks"])
     for i, window in enumerate(cfg.layer_windows(S)):
-        blk = _layer(layers, i)
+        blk = layer_slice(layers, i)
         if remat and torch.is_grad_enabled():
             h, a = checkpoint(_block_apply, cfg, blk, h, window, positions,
-                              kv_chunk, use_reentrant=False)
+                              kv_chunk, False, use_nystrom,
+                              use_reentrant=False)
         else:
-            h, a = _block_apply(cfg, blk, h, window, positions, kv_chunk)
+            h, a = _block_apply(cfg, blk, h, window, positions, kv_chunk,
+                                use_nystrom=use_nystrom)
         if a is not None:
             aux = aux + a
     h = _norm_apply(cfg, params["ln_final"], h)
@@ -226,9 +226,9 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches, pos):
     drops assignments (cap 1 for granite at batch 4)."""
     _check_family(cfg)
     h = _embed_tokens(params, cfg, token)
-    layers = _unbind(params["blocks"])
+    layers = unbind_layers(params["blocks"])
     for l, w in enumerate(cfg.layer_windows(FULL_WINDOW)):
-        blk = _layer(layers, l)
+        blk = layer_slice(layers, l)
         a, ck, cv = attention_decode(
             AttnParams(**blk["attn"]), _norm_apply(cfg, blk["ln_attn"], h),
             caches[l]["k"], caches[l]["v"], pos, n_heads=cfg.n_heads,
@@ -264,10 +264,10 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     max_len = max_len or S
     h = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(S, dtype=torch.int64, device=h.device)
-    layers = _unbind(params["blocks"])
+    layers = unbind_layers(params["blocks"])
     caches = []
     for l, w in enumerate(cfg.layer_windows(S)):
-        h, k, v = _block_apply(cfg, _layer(layers, l), h, w, positions,
+        h, k, v = _block_apply(cfg, layer_slice(layers, l), h, w, positions,
                                kv_chunk, return_kv=True)
         L = min(w, max_len)
         if L >= S:

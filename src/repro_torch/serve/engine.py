@@ -1,10 +1,9 @@
 """The serving engine of the port (the reference's ``serve/engine.py``):
 the repo's two request-serving workloads behind one door.
 
-1. LM serving, dense and MoE families: ``serve_prefill`` /
-   ``serve_decode_step``
-   and :class:`BatchedServer`, a fixed-slot batched scheduler
-   (continuous batching without paged memory), run under
+1. LM serving, dense, MoE, SSM and hybrid families: ``serve_prefill`` /
+   ``serve_decode_step`` and :class:`BatchedServer`, a fixed-slot batched
+   scheduler (continuous batching without paged memory), run under
    ``torch.inference_mode``.
 2. Sketch serving: a :class:`SketchService` on one card or over a grid of
    ranks, and the bounded async :class:`IngestQueue` in front of it.
@@ -18,7 +17,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sketch import make_grid_groups
-from repro_torch.models import get_api, transformer
+from repro_torch.models import get_api, mamba_lm, transformer, zamba
+from repro_torch.models.common import matmul
 from repro_torch.obs import trace as obs_trace
 from repro_torch.parallel.grad_compress import world_size
 from repro_torch.plan.model import choose_bucket_edges, probe_machine
@@ -27,7 +27,7 @@ from repro_torch.stream.ingest import IngestQueue
 from repro_torch.stream.service import SketchService
 
 # the roadmap item that ports each family the port lacks
-_NOT_PORTED = {"ssm": "11c", "hybrid": "11c", "encdec": "11d", "vlm": "11d"}
+_NOT_PORTED = {"encdec": "11d", "vlm": "11d"}
 
 
 # ---------------------------------------------------------------------------
@@ -37,15 +37,23 @@ _NOT_PORTED = {"ssm": "11c", "hybrid": "11c", "encdec": "11d", "vlm": "11d"}
 def serve_prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
                   max_len: Optional[int] = None, remat: bool = True):
     """Process the prompt ``batch["tokens"]`` (B, S); returns the
-    last-position logits and the decode cache.  The dense and MoE
-    families are ported."""
-    if cfg.family not in ("dense", "moe"):
+    last-position logits (B, 1, vocab) and the decode cache.  The SSM and
+    hybrid families return ``None`` for the cache, as the reference does:
+    their hidden forward has no state prefill (:class:`BatchedServer`
+    replays a prompt token by token)."""
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        return transformer.prefill(params, cfg, batch["tokens"],
+                                   remat=remat, max_len=max_len)
+    hidden = {"ssm": mamba_lm.mamba_lm_hidden,
+              "hybrid": zamba.hybrid_hidden}.get(fam)
+    if hidden is None:
         raise NotImplementedError(
-            f"{cfg.name}: serving the {cfg.family} family is not ported yet "
-            f"(ROADMAP.md Queue 1, item "
-            f"{_NOT_PORTED.get(cfg.family, '11')})")
-    return transformer.prefill(params, cfg, batch["tokens"], remat=remat,
-                               max_len=max_len)
+            f"{cfg.name}: serving the {fam} family is not ported yet "
+            f"(ROADMAP.md Queue 1, item {_NOT_PORTED.get(fam, '11')})")
+    with torch.inference_mode():
+        h = hidden(params, cfg, batch["tokens"], remat=remat)
+        return matmul(h[:, -1:], params["lm_head"].T), None
 
 
 def serve_decode_step(params, cfg: ModelConfig, token, cache, pos):
@@ -77,7 +85,10 @@ class BatchedServer:
     replays its prompt token by token rather than through ``prefill``.
     With MoE the other rows route their tokens (token 0 in an idle or
     waiting row) beside the advancing one and compete with it for the
-    step's expert capacity, as in the reference.
+    step's expert capacity, as in the reference.  With the SSM and hybrid
+    families every step advances every row's recurrent state, so an idle
+    or waiting row absorbs token 0 whenever another slot advances, as in
+    the reference (which has no per-slot state or reset).
     The cache lives on the params' device."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int,

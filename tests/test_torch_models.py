@@ -136,11 +136,16 @@ def test_param_leaves_order_and_shapes_match_reference_full_gemma():
 
 
 def test_other_families_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        get_config("falcon-mamba-7b")
+    for arch in ("whisper-tiny", "internvl2-26b"):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     # the MoE family is ported (tests/test_torch_moe.py)
     assert get_config("dbrx-132b").family == "moe"
     assert get_config("granite-moe-1b-a400m").n_experts == 32
+    # so are the SSM and hybrid families (tests/test_torch_ssm.py,
+    # tests/test_torch_hybrid.py)
+    assert get_config("falcon-mamba-7b").family == "ssm"
+    assert get_config("zamba2-1.2b").family == "hybrid"
 

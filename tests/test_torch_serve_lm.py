@@ -233,10 +233,10 @@ def test_prefill_matches_reference(arch, overrides, max_len):
     _check_caches(cache, jcache)
     # the layout, exact: layer 0's rotated K of position p sits at slot p
     # (full) or p mod L (ring), and a full cache's tail is zero
-    layers = ttf._unbind(params["blocks"])
+    layers = ttf.unbind_layers(params["blocks"])
     with torch.inference_mode():
         h0 = ttf._embed_tokens(params, cfg, torch.from_numpy(toks).long())
-        _, k0, _ = ttf._block_apply(cfg, ttf._layer(layers, 0), h0,
+        _, k0, _ = ttf._block_apply(cfg, ttf.layer_slice(layers, 0), h0,
                                     cfg.layer_windows(S)[0],
                                     torch.arange(S), 1024, return_kv=True)
     L = cache[0]["k"].shape[1]
@@ -270,7 +270,7 @@ def test_prefill_then_decode_matches_reference(arch, overrides, half):
 def test_serve_prefill_names_item_11_for_other_families():
     _, cfg, _, params, toks = _model("llama3-8b")
     batch = {"tokens": torch.from_numpy(toks).long()}
-    for other in (dataclasses.replace(cfg, family="ssm"),
+    for other in (dataclasses.replace(cfg, family="encdec"),
                   dataclasses.replace(cfg, family="vlm")):
         with pytest.raises(NotImplementedError, match="item 11"):
             tengine.serve_prefill(params, other, batch)
