@@ -59,6 +59,17 @@ class ModelConfig:
     # hybrid (zamba): one shared attention+FFN block applied every k layers
     shared_attn_every: int = 0
 
+    # encoder-decoder (whisper)
+    n_enc_layers: int = 0
+    enc_seq: int = 1500
+    abs_pos_embed: bool = False
+    max_pos: int = 0              # learned abs positions table size
+
+    # modality frontend stubs
+    frontend: str = "none"        # none | vision | audio
+    frontend_dim: int = 0         # precomputed embedding dim (stub output)
+    num_frontend_tokens: int = 0
+
     # numerics
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
@@ -89,7 +100,7 @@ class ModelConfig:
 
     def reduced(self, **overrides) -> "ModelConfig":
         """Smoke-test variant: same family and topology, tiny dims (the
-        reference's ``reduced()``, for the families the port has)."""
+        reference's ``reduced()``)."""
         shrink = dict(
             n_layers=min(self.n_layers, 2 if self.family != "hybrid" else 5),
             d_model=64,
@@ -108,6 +119,11 @@ class ModelConfig:
             ssm_heads=4 if self.ssm_heads else 0,
             ssm_chunk=8,
             shared_attn_every=2 if self.shared_attn_every else 0,
+            n_enc_layers=min(self.n_enc_layers, 2),
+            enc_seq=16 if self.n_enc_layers else self.enc_seq,
+            max_pos=4096 if self.max_pos else 0,
+            frontend_dim=32 if self.frontend_dim else 0,
+            num_frontend_tokens=(8 if self.num_frontend_tokens else 0),
             dtype="float32",
             loss_chunk=16,
             nystrom_landmarks=4,

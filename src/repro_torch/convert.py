@@ -6,12 +6,14 @@ can be continued here and finalize as if one system had seen every update.
 The config travels as the reference's ``StreamConfig.to_json_dict()`` (the
 dict its checkpoint manifest stores) and the sketches as numpy arrays.
 
-Training: ``params_from_jax`` takes the reference's LM params as a numpy
-tree (``jax.device_get`` of them; the attention and FFN groups as dicts,
-as ``lm_init`` makes them) and gives the port's, stacked leaves included,
-each leaf in its own dtype (a bf16 model's f32 router, ``A_log``, ``D``
-and ``dt_bias`` stay f32); ``cache_from_jax`` does the same for a decode
-cache; ``train_state_from_jax`` carries a whole ``TrainState`` (AdamW
+Training: ``params_from_jax`` takes the reference's params as a numpy
+tree (``jax.device_get`` of them; the attention, FFN and MLP groups as
+dicts or NamedTuples) of any family and gives the port's, stacked leaves
+included, each leaf in its own dtype (a bf16 model's f32 router,
+``A_log``, ``D`` and ``dt_bias`` stay f32): Whisper's ``enc_*`` /
+``dec_*`` trees and the VLM's ``projector`` too; ``cache_from_jax`` does
+the same for a decode cache (the LM's per-layer list, the SSM's and
+Whisper's dicts of stacked tensors, the hybrid's KV list); ``train_state_from_jax`` carries a whole ``TrainState`` (AdamW
 moments, count, step, and one worker's error buffers), so both packages
 continue from the same point; ``train_state_from_checkpoint`` reads the
 same state from a checkpoint directory the reference wrote
@@ -106,9 +108,10 @@ def params_from_jax(tree, device=None):
 
 def cache_from_jax(cache, device=None):
     """The port's decode cache (tensors on ``device``; ``None``: the card)
-    from a reference cache as a numpy tree: the dense family's per-layer
-    list, or the SSM and hybrid families' dict of stacked states (the
-    hybrid's ``shared`` a list of ``{"k", "v"}``)."""
+    from a reference cache as a numpy tree: the dense and VLM families'
+    per-layer list, the SSM and hybrid families' dict of stacked states
+    (the hybrid's ``shared`` a list of ``{"k", "v"}``), or Whisper's dict
+    of stacked ``self_k``, ``self_v``, ``cross_k``, ``cross_v``."""
     from .core.rng import resolve_device
     device = resolve_device(device)
     return _tree(cache, lambda x: _tensor(x, device))

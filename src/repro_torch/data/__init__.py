@@ -1,2 +1,4 @@
-"""Synthetic token data of the port."""
-from .pipeline import DataConfig, Pipeline, make_batch  # noqa: F401
+"""Synthetic data of the port: token streams and the stub frontends'
+features."""
+from .pipeline import (DataConfig, Pipeline, data_config_for,  # noqa: F401
+                       make_batch)

@@ -7,15 +7,19 @@ loop -> checkpoints, with optional sketched gradient compression:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch gemma2-2b --steps 20 --batch 4 --seq 32 --grad-compress 8
 
-``--arch`` takes the dense family (gemma2-2b, llama3-8b, internlm2-20b,
-h2o-danube-3-4b), the MoE family (granite-moe-1b-a400m, dbrx-132b,
-whose load-balancing loss enters the training loss), the SSM family
-(falcon-mamba-7b, Mamba-1) and the hybrid family (zamba2-1.2b, Mamba-2
-with a shared attention block); ``--full --arch granite-moe-1b-a400m``
-or ``--full --arch zamba2-1.2b`` trains at the published size on one
-card, while dbrx-132b's 132B parameters fit no single card and
-falcon-mamba-7b's bf16 params, grads and f32 AdamW moments (87.3 GB) do
-not fit one 80 GB card either.
+``--arch`` takes every architecture of the six families: dense
+(gemma2-2b, llama3-8b, internlm2-20b, h2o-danube-3-4b), MoE
+(granite-moe-1b-a400m, dbrx-132b, whose load-balancing loss enters the
+training loss), SSM (falcon-mamba-7b, Mamba-1), hybrid (zamba2-1.2b,
+Mamba-2 with a shared attention block), encoder-decoder (whisper-tiny:
+each batch adds stub frame embeddings of enc_seq x d_model) and VLM
+(internvl2-26b: each batch adds num_frontend_tokens stub patch
+embeddings, prepended to the ``--seq`` text tokens through the
+projector).  ``--full --arch granite-moe-1b-a400m``, ``zamba2-1.2b`` or
+``whisper-tiny`` trains at the published size on one card, while
+dbrx-132b's 132B parameters fit no single card, and neither
+falcon-mamba-7b's bf16 params, grads and f32 AdamW moments (87.3 GB)
+nor internvl2-26b's (19.9B parameters) fit one 80 GB card.
 
 ``--device`` defaults to the card (and fails without one); on the card the
 exchange's GEMMs run the hand-written kernels.  With ``--grad-compress``
@@ -38,6 +42,7 @@ the other ranks stand by and exit 0.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -90,7 +95,7 @@ def main(argv=None):
 
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.core.rng import resolve_device
-    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.data.pipeline import data_config_for
     from repro_torch.models import get_api, param_leaves
     from repro_torch.train import (init_state, make_dp_compressed_step,
                                    make_train_step, train_loop)
@@ -118,8 +123,10 @@ def main(argv=None):
                     checkpoint_every=args.ckpt_every,
                     checkpoint_dir=args.ckpt_dir, seed=args.seed,
                     remat=True, grad_compress_rank=args.grad_compress)
-    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                          global_batch=args.batch, seed=args.seed)
+    # --seq counts the text tokens alone, a VLM's frontend tokens aside
+    data_cfg = dataclasses.replace(data_config_for(
+        cfg, argparse.Namespace(seq_len=args.seq, global_batch=args.batch),
+        args.seed), seq_len=args.seq)
     say(f"[train] arch={cfg.name} family={cfg.family} steps={run.steps} "
         f"batch={args.batch} seq={args.seq} device={device}")
     if args.grad_compress:

@@ -1,5 +1,6 @@
 """Uniform model API of the port (the reference's ``models/api.py``), for
-the dense, MoE, SSM (falcon-mamba) and hybrid (zamba2) families, the
+all six of the reference's families: dense, MoE, SSM (falcon-mamba),
+hybrid (zamba2), encoder-decoder (whisper) and VLM (internvl2); the
 parameter leaf order of the reference, and the useful FLOPs of a step
 (``model_flops``, ``count_params_split``, ``count_active_params``).
 
@@ -8,11 +9,14 @@ Every family exposes:
   loss(params, cfg, batch, remat=) -> scalar
   init_cache(cfg, batch, max_len, dtype=None, device=None) -> caches
   decode_step(params, cfg, token, caches, pos) -> (logits, caches)
-and the dense and MoE families also
+and the dense, MoE and VLM families also
   prefill(params, cfg, tokens, remat=, kv_chunk=, max_len=)
       -> (last-position logits, caches)
-(``prefill=None`` for the SSM and hybrid families, as in the reference:
-``serve.engine.serve_prefill`` gives their last logits and no cache).
+(``prefill=None`` for the SSM, hybrid and encoder-decoder families, as in
+the reference: ``serve.engine.serve_prefill`` gives the SSM and hybrid
+families' last logits and no cache, and runs Whisper's encoder and first
+decoder step).  The VLM's ``loss`` takes ``frontend_feats`` in the batch;
+its cache, decode and prefill are the LM's, over the text tokens.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from . import mamba_lm, transformer, zamba
+from . import mamba_lm, transformer, whisper, zamba
 
 
 @dataclass(frozen=True)
@@ -39,20 +43,22 @@ _LM = ModelAPI(transformer.lm_init, transformer.lm_loss,
                transformer.init_cache, transformer.decode_step,
                transformer.prefill)
 _FAMILIES = {
-    "dense": _LM, "moe": _LM,
+    "dense": _LM, "moe": _LM, "vlm": _LM,
     "ssm": ModelAPI(mamba_lm.mamba_lm_init, mamba_lm.mamba_lm_loss,
                     mamba_lm.mamba_lm_init_cache,
                     mamba_lm.mamba_lm_decode_step),
     "hybrid": ModelAPI(zamba.hybrid_init, zamba.hybrid_loss,
                        zamba.hybrid_init_cache, zamba.hybrid_decode_step),
+    "encdec": ModelAPI(whisper.encdec_init, whisper.encdec_loss,
+                       whisper.encdec_init_cache,
+                       whisper.encdec_decode_step),
 }
 
 
 def get_api(cfg: ModelConfig) -> ModelAPI:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue 1, "
-            f"item 11d: the LM substrate's remainder)")
+        raise KeyError(f"unknown family {cfg.family!r}; known: "
+                       f"{sorted(_FAMILIES)}")
     return _FAMILIES[cfg.family]
 
 

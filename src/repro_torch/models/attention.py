@@ -1,7 +1,8 @@
 """Attention (the reference's ``models/attention.py``): GQA with a
-chunked online softmax over KV chunks, sliding windows and the gemma-2
-score softcap for training and prefill, one-token decode against a KV
-cache (``attention_decode``), and Nyström landmark attention for long
+chunked online softmax over KV chunks, sliding windows, the gemma-2
+score softcap and cross-attention (Whisper, with ``use_rope=False``)
+for training and prefill, one-token decode against a KV cache
+(``attention_decode``), and Nyström landmark attention for long
 sequences (``nystrom_attention``).  No kernel here: the reference computes
 attention outside any Pallas kernel, and so does the port, with plain
 torch ops that compute the same function (masks and softcap included).
@@ -52,6 +53,13 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
     underflows to exactly 0.  For bf16 q the scores and probabilities are
     stored in bf16 (their sums stay f32), as in the reference.  Returns
     (B, S, Hk, G, D).
+
+    Keys are padded with zeros up to a multiple of ``kv_chunk``, and the
+    pad is masked only through causality or a window, as in the
+    reference: a non-causal call without a window whose T is not a
+    multiple of ``kv_chunk`` gives each padded key the weight
+    ``exp(0 - m)`` (Whisper's encoder and cross-attention at T = 1500).
+    The port keeps that function so that it gives the reference's numbers.
     """
     B, S, Hk, G, D = q.shape
     T = k.shape[1]
@@ -107,24 +115,35 @@ def attention(params: AttnParams, x: torch.Tensor, *, n_heads: int,
               n_kv_heads: int, head_dim: int,
               positions: Optional[torch.Tensor] = None, causal: bool = True,
               window: Optional[int] = None, attn_softcap: float = 0.0,
-              rope_theta: float = 1e4, kv_chunk: int = 1024,
+              rope_theta: float = 1e4, use_rope: bool = True,
+              kv_chunk: int = 1024, xkv: Optional[torch.Tensor] = None,
+              kv_positions: Optional[torch.Tensor] = None,
               return_kv: bool = False):
-    """Self-attention layer over (B, S, d).  With ``return_kv`` it returns
-    ``(y, k, v)``: the rotated keys and the values (B, S, Hk, D) it
-    attended over, which prefill lays into the decode cache."""
+    """Attention layer over (B, S, d).  ``xkv`` (B, T, d) makes it
+    cross-attention: keys and values come from that stream (the encoder's
+    output), at ``kv_positions`` (default ``arange(T)``).  With
+    ``return_kv`` it returns ``(y, k, v)``: the (rotated) keys and the
+    values (B, T, Hk, D) it attended over, which prefill lays into the
+    decode cache."""
     B, S, _ = x.shape
     Hq, Hk, D = n_heads, n_kv_heads, head_dim
     G = Hq // Hk
+    src = x if xkv is None else xkv
+    T = src.shape[1]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int64, device=x.device)
+    if kv_positions is None:
+        kv_positions = (positions if xkv is None else
+                        torch.arange(T, dtype=torch.int64, device=x.device))
     q = matmul(x, params.wq).reshape(B, S, Hq, D)
-    k = matmul(x, params.wk).reshape(B, S, Hk, D)
-    v = matmul(x, params.wv).reshape(B, S, Hk, D)
-    q = apply_rope(q, positions[None, :], rope_theta).reshape(B, S, Hk, G, D)
-    k = apply_rope(k, positions[None, :], rope_theta)
-    out = chunked_attention(q, k, v, positions, positions, causal=causal,
-                            window=window, attn_softcap=attn_softcap,
-                            kv_chunk=kv_chunk)
+    k = matmul(src, params.wk).reshape(B, T, Hk, D)
+    v = matmul(src, params.wv).reshape(B, T, Hk, D)
+    if use_rope:
+        q = apply_rope(q, positions[None, :], rope_theta)
+        k = apply_rope(k, kv_positions[None, :], rope_theta)
+    out = chunked_attention(q.reshape(B, S, Hk, G, D), k, v, positions,
+                            kv_positions, causal=causal, window=window,
+                            attn_softcap=attn_softcap, kv_chunk=kv_chunk)
     y = matmul(out.reshape(B, S, Hq * D), params.wo)
     return (y, k, v) if return_kv else y
 
@@ -133,12 +152,13 @@ def attention_decode(params: AttnParams, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, pos, *,
                      n_heads: int, n_kv_heads: int, head_dim: int,
                      window: Optional[int] = None, attn_softcap: float = 0.0,
-                     rope_theta: float = 1e4):
+                     rope_theta: float = 1e4, use_rope: bool = True):
     """One-token decode.  x: (B, 1, d); cache_k / cache_v: (B, T, Hk, D),
     a ring when ``window`` is set (slot ``pos % T``), else slot ``pos``
     clamped to ``T - 1`` as the reference's ``dynamic_update_slice``
     clamps a start past the end.  ``pos``: the new token's absolute
-    position (an int or a 0-d tensor).
+    position (an int or a 0-d tensor).  ``use_rope=False`` (Whisper's
+    decoder, which adds learned positions instead) rotates nothing.
 
     The new K/V are written into the caches in place; returns
     ``(y, cache_k, cache_v)``.  Scores and probabilities are float32 (q
@@ -152,11 +172,13 @@ def attention_decode(params: AttnParams, x: torch.Tensor,
     T = cache_k.shape[1]
     pos = int(pos)
     posv = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
-    q = apply_rope(matmul(x, params.wq).reshape(B, 1, Hq, D), posv,
-                   rope_theta).reshape(B, 1, Hk, G, D)
-    k = apply_rope(matmul(x, params.wk).reshape(B, 1, Hk, D), posv,
-                   rope_theta)
+    q = matmul(x, params.wq).reshape(B, 1, Hq, D)
+    k = matmul(x, params.wk).reshape(B, 1, Hk, D)
     v = matmul(x, params.wv).reshape(B, 1, Hk, D)
+    if use_rope:
+        q = apply_rope(q, posv, rope_theta)
+        k = apply_rope(k, posv, rope_theta)
+    q = q.reshape(B, 1, Hk, G, D)
 
     slot = pos % T if window is not None else min(max(pos, 0), T - 1)
     cache_k[:, slot].copy_(k[:, 0])

@@ -191,3 +191,16 @@ def cross_entropy_chunked(logits_fn: Callable, h: torch.Tensor,
     cnt = (labels >= 0).sum()
     return tot / torch.clamp(cnt, min=1)
 
+
+# ---------------------------------------------------------------------------
+# Param counting
+# ---------------------------------------------------------------------------
+
+def count_params(tree) -> int:
+    """Elements over every leaf of a nested dict (or list) of tensors;
+    shapes alone, so a tree on ``meta`` counts too."""
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_params(v) for v in tree)
+    return math.prod(int(s) for s in tree.shape)

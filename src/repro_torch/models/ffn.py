@@ -1,6 +1,7 @@
 """Feed-forward layers of the reference's ``models/ffn.py``: the dense
-gated FFN (SwiGLU / GeGLU) and the top-k MoE with capacity-based dispatch
-in both of the reference's forms (``scatter`` and the GShard ``einsum``).
+gated FFN (SwiGLU / GeGLU), Whisper's biased GELU MLP, and the top-k MoE
+with capacity-based dispatch in both of the reference's forms
+(``scatter`` and the GShard ``einsum``).
 
 ``jax.nn.gelu`` defaults to the tanh approximation, while
 ``torch.nn.functional.gelu`` defaults to the exact erf form: the port
@@ -41,6 +42,34 @@ def ffn(params: FFNParams, x: torch.Tensor,
     g = matmul(x, params.w_gate)
     u = matmul(x, params.w_up)
     return matmul(ACTIVATIONS[activation](g) * u, params.w_down)
+
+
+# plain 2-layer MLP with biases (whisper)
+class MLPParams(NamedTuple):
+    w1: torch.Tensor   # (d, f)
+    b1: torch.Tensor   # (f,)
+    w2: torch.Tensor   # (f, d)
+    b2: torch.Tensor   # (d,)
+
+
+def mlp_init(gen, d: int, f: int, dtype, device,
+             layers: int = 0) -> MLPParams:
+    """``w1`` scaled by ``1/sqrt(d)``, ``w2`` by ``1/sqrt(f)``, zero
+    biases; with ``layers`` every leaf gets a leading stack axis."""
+    kw = dict(dtype=dtype, device=device, layers=layers)
+    lead = (layers,) if layers else ()
+    return MLPParams(
+        w1=dense_init(gen, d, f, **kw),
+        b1=torch.zeros(lead + (f,), dtype=dtype, device=device),
+        w2=dense_init(gen, f, d, scale=1.0 / math.sqrt(f), **kw),
+        b2=torch.zeros(lead + (d,), dtype=dtype, device=device))
+
+
+def mlp(params: MLPParams, x: torch.Tensor) -> torch.Tensor:
+    """``gelu(x w1 + b1) w2 + b2``, the tanh GELU, the biases added in
+    x's dtype."""
+    h = ACTIVATIONS["gelu"](matmul(x, params.w1) + params.b1.to(x.dtype))
+    return matmul(h, params.w2) + params.b2.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

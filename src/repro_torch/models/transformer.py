@@ -1,9 +1,14 @@
-"""Decoder-only LM of the dense and MoE families (llama3, internlm2,
-h2o-danube3, gemma2, granite-moe, dbrx): the reference's
-``models/transformer.py``, training and serving.  A config with
-``n_experts`` takes the MoE feed-forward (``models/ffn.py`` ``moe``) in
-every block; its load-balancing loss is summed over the layers and
-weighted into the training loss, and serving routes without it.
+"""Decoder-only LM of the dense, MoE and VLM families (llama3,
+internlm2, h2o-danube3, gemma2, granite-moe, dbrx, internvl2): the
+reference's ``models/transformer.py``, training and serving.  A config
+with ``n_experts`` takes the MoE feed-forward (``models/ffn.py`` ``moe``)
+in every block; its load-balancing loss is summed over the layers and
+weighted into the training loss, and serving routes without it.  A
+config with a ``frontend`` (the VLM) has a projector: ``lm_hidden``
+projects and norms the stub frontend's features (``frontend_feats``, B,
+num_frontend_tokens, frontend_dim) and prepends them to the token
+embeddings; the loss takes no label there.  Serving (``prefill``,
+``decode_step``) covers the text tokens alone, as in the reference.
 
 Per-layer weights stay stacked along a leading L axis, exactly as the
 reference's ``lm_init`` stacks them: the gradient exchange folds a leaf to
@@ -48,11 +53,11 @@ def _norm_apply(cfg: ModelConfig, p, x):
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: this module is the dense and MoE families' LM; "
-            f"the {cfg.family} family is elsewhere (models/api.py "
-            f"get_api) or not ported yet (ROADMAP.md Queue 1, item 11d)")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(
+            f"{cfg.name}: this module is the dense, MoE and VLM families' "
+            f"LM; the {cfg.family} family is elsewhere (models/api.py "
+            f"get_api)")
 
 
 def lm_init(seed: int, cfg: ModelConfig, device=None) -> Dict[str, Any]:
@@ -85,6 +90,12 @@ def lm_init(seed: int, cfg: ModelConfig, device=None) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(gen, cfg.vocab, cfg.d_model, dtype,
                                        device)
+    if cfg.frontend != "none":
+        # the modality projector (the frontend itself is a stub)
+        params["projector"] = {
+            "w": embed_init(gen, cfg.frontend_dim, cfg.d_model, dtype,
+                            device),
+            "ln": _norm_init(cfg, dtype, device)}
     return params
 
 
@@ -96,6 +107,15 @@ def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor):
         # the card
         h = h * float(torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype))
     return h
+
+
+def _project_frontend(params, cfg: ModelConfig,
+                      feats: torch.Tensor) -> torch.Tensor:
+    """The stub frontend's features (B, nf, frontend_dim), cast to the
+    model dtype, projected to d_model and normed."""
+    p = params["projector"]
+    return _norm_apply(cfg, p["ln"], matmul(feats.to(cfg.torch_dtype),
+                                            p["w"]))
 
 
 def _ffn_residual(cfg: ModelConfig, blk, h, with_aux: bool = True):
@@ -145,16 +165,23 @@ def _block_apply(cfg: ModelConfig, blk, h, window: int,
 
 
 def lm_hidden(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+              frontend_feats: Optional[torch.Tensor] = None,
               remat: bool = True, kv_chunk: int = 1024):
-    """Token ids (B, S) -> (final hidden (B, S, d), aux loss): the MoE
-    layers' load-balancing losses summed in layer order (0 for a dense
-    model).  From ``cfg.nystrom_attn_above`` tokens on (when set) every
-    block attends through ``nystrom_attention``, as the reference's."""
+    """Token ids (B, S_tok), with the frontend's features prepended when
+    ``frontend_feats`` is given -> (final hidden (B, S, d), aux loss): S
+    counts the prepended tokens, and so do the positions and the layers'
+    windows.  The aux loss is the MoE layers' load-balancing losses summed
+    in layer order (0 without MoE).  From ``cfg.nystrom_attn_above``
+    tokens on (when set) every block attends through
+    ``nystrom_attention``, as the reference's."""
     _check_family(cfg)
-    S = tokens.shape[1]
+    h = _embed_tokens(params, cfg, tokens)
+    if frontend_feats is not None:
+        h = torch.cat([_project_frontend(params, cfg, frontend_feats), h],
+                      dim=1)
+    S = h.shape[1]
     use_nystrom = bool(cfg.nystrom_attn_above) and \
         S >= cfg.nystrom_attn_above
-    h = _embed_tokens(params, cfg, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     positions = torch.arange(S, dtype=torch.int64, device=h.device)
     layers = unbind_layers(params["blocks"])
@@ -175,11 +202,20 @@ def lm_hidden(params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def lm_loss(params, cfg: ModelConfig, batch, *,
             remat: bool = True) -> torch.Tensor:
-    """batch: {"tokens": (B, S), "labels": (B, S)} integer tensors."""
-    h, aux = lm_hidden(params, cfg, batch["tokens"], remat=remat)
+    """batch: {"tokens": (B, S), "labels": (B, S)} integer tensors, and
+    ``frontend_feats`` (B, nf, frontend_dim) for the VLM, whose nf
+    prepended positions get the pad label -100."""
+    h, aux = lm_hidden(params, cfg, batch["tokens"],
+                       frontend_feats=batch.get("frontend_feats"),
+                       remat=remat)
+    labels = batch["labels"]
+    pad = h.shape[1] - labels.shape[1]
+    if pad:
+        labels = torch.cat([labels.new_full((labels.shape[0], pad), -100),
+                            labels], dim=1)
     W = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    nll = cross_entropy_chunked(lambda hc: matmul(hc, W.T), h,
-                                batch["labels"], cfg.vocab,
+    nll = cross_entropy_chunked(lambda hc: matmul(hc, W.T), h, labels,
+                                cfg.vocab,
                                 chunk=cfg.loss_chunk,
                                 final_softcap=cfg.final_softcap)
     return nll + cfg.router_aux_weight * aux

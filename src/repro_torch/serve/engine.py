@@ -1,7 +1,7 @@
 """The serving engine of the port (the reference's ``serve/engine.py``):
 the repo's two request-serving workloads behind one door.
 
-1. LM serving, dense, MoE, SSM and hybrid families: ``serve_prefill`` /
+1. LM serving, all six families: ``serve_prefill`` /
    ``serve_decode_step`` and :class:`BatchedServer`, a fixed-slot batched
    scheduler (continuous batching without paged memory), run under
    ``torch.inference_mode``.
@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sketch import make_grid_groups
-from repro_torch.models import get_api, mamba_lm, transformer, zamba
+from repro_torch.models import get_api, mamba_lm, transformer, whisper, zamba
 from repro_torch.models.common import matmul
 from repro_torch.obs import trace as obs_trace
 from repro_torch.parallel.grad_compress import world_size
@@ -26,34 +26,62 @@ from repro_torch.plan.planner import Plan, plan_sketch
 from repro_torch.stream.ingest import IngestQueue
 from repro_torch.stream.service import SketchService
 
-# the roadmap item that ports each family the port lacks
-_NOT_PORTED = {"encdec": "11d", "vlm": "11d"}
-
-
 # ---------------------------------------------------------------------------
 # LM serving: prefill -> (last-position logits, decode cache)
 # ---------------------------------------------------------------------------
 
 def serve_prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
                   max_len: Optional[int] = None, remat: bool = True):
-    """Process the prompt ``batch["tokens"]`` (B, S); returns the
-    last-position logits (B, 1, vocab) and the decode cache.  The SSM and
-    hybrid families return ``None`` for the cache, as the reference does:
-    their hidden forward has no state prefill (:class:`BatchedServer`
-    replays a prompt token by token)."""
+    """Process the prompt; returns the last-position logits (B, 1, vocab)
+    and the decode cache, for every family, as the reference does:
+
+    * dense, MoE: ``prefill`` of ``batch["tokens"]`` (B, S);
+    * VLM: ``lm_hidden`` of the tokens with ``batch["frontend_feats"]``
+      prepended, the last position's logits, and ``None`` for the cache
+      (the decode cache covers the text tokens alone; ``prefill`` builds
+      it from them);
+    * SSM, hybrid: the hidden forward's last logits and ``None``: there is
+      no state prefill (:class:`BatchedServer` replays a prompt token by
+      token);
+    * encoder-decoder: ``encode`` of ``batch["frames"]``, a cache of
+      ``max_len`` (default 4096) self slots with the cross K/V of the
+      encoder's output, then one decode step of BOS at position 0
+      (``tokens[:, :1]``, else zeros); its logits and that cache.
+    """
     fam = cfg.family
     if fam in ("dense", "moe"):
         return transformer.prefill(params, cfg, batch["tokens"],
                                    remat=remat, max_len=max_len)
-    hidden = {"ssm": mamba_lm.mamba_lm_hidden,
-              "hybrid": zamba.hybrid_hidden}.get(fam)
-    if hidden is None:
-        raise NotImplementedError(
-            f"{cfg.name}: serving the {fam} family is not ported yet "
-            f"(ROADMAP.md Queue 1, item {_NOT_PORTED.get(fam, '11')})")
+    if fam == "encdec":
+        return _encdec_prefill(params, cfg, batch, max_len, remat)
+    if fam not in ("vlm", "ssm", "hybrid"):
+        raise ValueError(f"{cfg.name}: unknown family {fam!r}")
     with torch.inference_mode():
+        if fam == "vlm":
+            h, _ = transformer.lm_hidden(
+                params, cfg, batch["tokens"],
+                frontend_feats=batch.get("frontend_feats"), remat=remat)
+            W = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+            return matmul(h[:, -1:], W.T), None
+        hidden = (mamba_lm.mamba_lm_hidden if fam == "ssm"
+                  else zamba.hybrid_hidden)
         h = hidden(params, cfg, batch["tokens"], remat=remat)
         return matmul(h[:, -1:], params["lm_head"].T), None
+
+
+@torch.inference_mode()
+def _encdec_prefill(params, cfg: ModelConfig, batch, max_len, remat):
+    frames = batch["frames"]
+    B = frames.shape[0]
+    enc = whisper.encode(params, cfg, frames, remat=remat)
+    cache = whisper.encdec_init_cache(cfg, B, max_len or 4096,
+                                      device=enc.device)
+    cache["cross_k"], cache["cross_v"] = whisper.encdec_prepare_cross(
+        params, cfg, enc)
+    tokens = batch.get("tokens")
+    bos = (tokens[:, :1] if tokens is not None else
+           torch.zeros((B, 1), dtype=torch.int64, device=enc.device))
+    return whisper.encdec_decode_step(params, cfg, bos, cache, 0)
 
 
 def serve_decode_step(params, cfg: ModelConfig, token, cache, pos):
@@ -88,7 +116,10 @@ class BatchedServer:
     step's expert capacity, as in the reference.  With the SSM and hybrid
     families every step advances every row's recurrent state, so an idle
     or waiting row absorbs token 0 whenever another slot advances, as in
-    the reference (which has no per-slot state or reset).
+    the reference (which has no per-slot state or reset).  The
+    encoder-decoder decodes against ``init_cache``'s zero cross-attention
+    caches (no audio: the cross-attention adds 0), and the VLM against
+    the LM's text-only caches, as the reference's server does.
     The cache lives on the params' device."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int,

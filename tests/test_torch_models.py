@@ -19,6 +19,8 @@ The leaf order and shapes of the FULL gemma2-2b are compared without
 allocating: the port builds its params on the ``meta`` device, the
 reference through ``jax.eval_shape``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -136,11 +138,18 @@ def test_param_leaves_order_and_shapes_match_reference_full_gemma():
 
 
 def test_other_families_name_their_roadmap_item():
+    # item 11d ported the last two families: both architectures resolve
+    # and have their API (tests/test_torch_whisper.py, test_torch_vlm.py)
+    from repro_torch.models import get_api
+    assert get_config("whisper-tiny").family == "encdec"
+    assert get_config("internvl2-26b").family == "vlm"
     for arch in ("whisper-tiny", "internvl2-26b"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            get_config(arch)
+        assert get_api(get_config(arch)).decode_step is not None
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+    with pytest.raises(KeyError, match="unknown family"):
+        get_api(dataclasses.replace(get_config("llama3-8b"),
+                                    family="no-such-family"))
     # the MoE family is ported (tests/test_torch_moe.py)
     assert get_config("dbrx-132b").family == "moe"
     assert get_config("granite-moe-1b-a400m").n_experts == 32

@@ -268,12 +268,27 @@ def test_prefill_then_decode_matches_reference(arch, overrides, half):
 
 
 def test_serve_prefill_names_item_11_for_other_families():
+    # item 11d ported the encdec and vlm families: serve_prefill takes them
+    # (held against the reference in tests/test_torch_whisper.py and
+    # test_torch_vlm.py); an unknown family still raises
     _, cfg, _, params, toks = _model("llama3-8b")
     batch = {"tokens": torch.from_numpy(toks).long()}
-    for other in (dataclasses.replace(cfg, family="encdec"),
-                  dataclasses.replace(cfg, family="vlm")):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tengine.serve_prefill(params, other, batch)
+    with pytest.raises(ValueError, match="unknown family"):
+        tengine.serve_prefill(params, dataclasses.replace(
+            cfg, family="no-such-family"), batch)
+    g = np.random.default_rng(2)
+    for arch, extra in (("whisper-tiny", "frames"),
+                        ("internvl2-26b", "frontend_feats")):
+        c = get_config(arch).reduced()
+        p = tapi.get_api(c).init(0, c, "cpu")
+        shape = ((B, c.enc_seq, c.d_model) if extra == "frames"
+                 else (B, c.num_frontend_tokens, c.frontend_dim))
+        b = dict(batch, **{extra: torch.from_numpy(
+            g.standard_normal(shape).astype(np.float32))})
+        logits, cache = tengine.serve_prefill(p, c, b, max_len=S)
+        assert tuple(logits.shape) == (B, 1, c.vocab), arch
+        assert bool(torch.isfinite(logits).all()), arch
+        assert (cache is None) == (c.family == "vlm"), arch
 
 
 # -- BatchedServer ------------------------------------------------------------------
